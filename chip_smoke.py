@@ -1,0 +1,716 @@
+#!/usr/bin/env python3
+"""On-card smoke run of the PyTorch/CUDA port (`yolo_series_tpu_torch`).
+
+Run from the root of a checkout on a machine with one NVIDIA Hopper GPU,
+the CUDA toolkit and PyTorch built for CUDA:
+
+    python3 chip_smoke.py
+
+It imports torch, numpy and the port only. Phases, each of which exits
+non-zero on failure before the last line is printed:
+
+ 1. torch / CUDA versions and the card (`nvidia-smi` name and power limit).
+ 2. Build every kernel of the serving path (`nvcc`, sm_90a), timed.
+ 3. Each kernel against its plain PyTorch version on the card, at the
+    shapes the serving path gives it (batch 8, 640 px): K1 the NMS
+    keep-mask (must be equal), K2 the fused stem tail and K3 the eight
+    fused ELAN spans (within a stated tolerance), each with its time, the
+    plain version's time, its bound and a cuDNN yardstick (`library_ms`).
+ 4. `ServingEngine` end to end on full-width yolov7 deploy, 640 px, batch
+    8, bf16, random weights from a seeded torch.Generator: a few batches
+    through `infer` and a few requests through `DynamicBatcher` (with its
+    batch-1 low-latency engine). The kernel launch counters must grow by
+    the expected amounts, and the output must agree with references built
+    here on the same card (the untransformed deploy plan through cuDNN,
+    with the plain keep-mask, in fp32 and in bf16) as the tolerances
+    below say. Then img/s, p50 latency and a profile of the device time.
+ 5. One JSON line of per-kernel numbers, the card's name and power limit,
+    and the last line `{"ok": true, "device": {...}}`.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import threading
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT))
+
+import yolo_series_tpu_torch  # noqa: E402
+
+# the port of this checkout, never a copy installed elsewhere: run alone,
+# without the package beside it, the script fails here
+if Path(yolo_series_tpu_torch.__file__).resolve().parent != ROOT / "yolo_series_tpu_torch":
+    raise ImportError(f"yolo_series_tpu_torch is not the one beside {__file__}")
+
+from yolo_series_tpu_torch.infer.serving import DynamicBatcher, ServingEngine
+from yolo_series_tpu_torch.models import layers as L
+from yolo_series_tpu_torch.models.model import Model, _run_layer, apply_model, tree_map
+from yolo_series_tpu_torch.models.reparam import fuse_model
+from yolo_series_tpu_torch.ops import _build, fused_elan, fused_stem, nms_keep
+from yolo_series_tpu_torch.ops.boxes import box_iou
+from yolo_series_tpu_torch.ops.nms import fused_head_nms
+
+CFG = ROOT / "yolo_series_tpu_torch/models/cfg/deploy/yolov7.yaml"
+
+BATCH, IMG = 8, 640
+# H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
+PEAK_BF16 = 989e12
+PEAK_FP32 = 67e12      # CUDA cores, outside the tensor cores
+PEAK_BYTES = 3.35e12
+
+# (H at 640 px, cin, ct, cc, cout, order) of the 8 ELAN spans of
+# full-width yolov7 deploy, in plan order (layers 4..101)
+SPANS = ((160, 128, 64, 64, 256, "backbone"), (80, 256, 128, 128, 512, "backbone"),
+         (40, 512, 256, 256, 1024, "backbone"), (20, 1024, 256, 256, 1024, "backbone"),
+         (40, 512, 256, 128, 256, "head"), (80, 256, 128, 64, 128, "head"),
+         (40, 512, 256, 128, 256, "head"), (20, 1024, 512, 256, 512, "head"))
+
+# Tolerance of K2/K3 against their plain versions: both compute fp32 sums
+# of the same bf16 products and round each stage to bf16; the sums run in
+# another order, so a stage output may land on the neighbouring bf16 value
+# (2^-8 relative) and that carries through the chained stages. Max abs
+# error <= 2e-2 x max(|plain|, 1).
+CONV_REL_TOL = 2e-2
+# The engine against references on the same card: the untransformed
+# deploy plan through cuDNN with the plain keep-mask, in fp32 (TF32 off)
+# and in bf16. The kernels round to bf16 at other points than cuDNN's bf16
+# convs, and the rounding of ~200 bf16 stages adds up (~1.5-2% RMS at the
+# head inputs on the CPU at width 0.5). So the kernels' path is held against
+# how far cuDNN's bf16 path lies from fp32: its head inputs must lie
+# within FEAT_RATIO x that relative RMS distance (a wrong channel slice or
+# tap gives ~100%). Detections are random boxes packed densely in score,
+# where a 1% score change reorders greedy NMS and flips the argmax of
+# near-equal class logits: a detection matches one of the same class with
+# IoU >= MATCH_IOU and score within MATCH_SCORE, and the kernels' mean
+# matched fraction against fp32 must be within MATCH_MARGIN of cuDNN
+# bf16's. The NMS tail is held exactly: on the engine's own head inputs,
+# the kernel's keep-mask must give the same detections as the plain one.
+FEAT_RATIO = 1.5
+MATCH_IOU, MATCH_SCORE, MATCH_MARGIN = 0.5, 0.1, 0.05
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def smi() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters=20, warmup=3) -> float:
+    """Median device time of fn() over `iters` runs, CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def bound_ms(ops, peak, nbytes):
+    """(least time in ms, what bounds it) for `ops` operations at `peak`
+    and `nbytes` moved at the card's memory rate."""
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+# ------------------------------------------------------------ K1 ---
+
+def chain_boxes(rng, b, k, nc=80):
+    """Score-sorted xyxy boxes with class offsets (coordinates up to
+    ~3.3e5): half in suppression chains (each box overlaps its neighbour
+    above 0.45 IoU and the one after below it, so the fixpoint needs as
+    many passes as the chain is long), half in random clusters."""
+    out = np.zeros((b, k, 4), np.float32)
+    for i in range(b):
+        n_chain = k // 2
+        w = rng.uniform(40, 80)
+        j = np.arange(n_chain)
+        x0 = 20 + (j % 64) * 0.3 * w + 40 * (j // 64)
+        y0 = rng.uniform(20, 500) + 0 * j
+        chain = np.stack([x0, y0, x0 + w, y0 + w], -1)
+        centers = rng.uniform(50, 590, (max((k - n_chain) // 16, 1), 2))
+        c = centers[rng.integers(0, len(centers), k - n_chain)] \
+            + rng.normal(0, 8, (k - n_chain, 2))
+        wh = rng.uniform(20, 90, (k - n_chain, 2))
+        rand = np.concatenate([c - wh / 2, c + wh / 2], -1)
+        boxes = np.concatenate([chain, rand])
+        cls = np.concatenate([np.full(n_chain, rng.integers(0, nc)),
+                              rng.integers(0, nc, k - n_chain)])
+        out[i] = boxes + cls[:, None] * 4096.0
+    return out
+
+
+def keep_mask_pairs(boxes, valid, keep, thr) -> int:
+    """IoUs greedy NMS needs on these inputs: for each kept box i, one per
+    later box still alive when i is reached."""
+    k = boxes.shape[1]
+    upper = torch.ones((k, k), dtype=torch.bool, device=boxes.device).triu(1)
+    sup = keep[:, :, None] & (box_iou(boxes, boxes) > thr) & upper
+    before = torch.cumsum(sup.int(), 1) - sup.int()   # kept q < i suppress p
+    alive = valid[:, None, :] & (before == 0) & upper
+    return int((alive & keep[:, :, None]).sum())
+
+
+def check_k1(dev, rows):
+    rng = np.random.default_rng(0)
+    result = None
+    for k in (1024, 256):
+        boxes = torch.from_numpy(chain_boxes(rng, BATCH, k)).to(dev)
+        n_valid = torch.from_numpy(rng.integers(k // 2, k + 1, BATCH)).to(dev)
+        n_valid[0] = k
+        valid = torch.arange(k, device=dev)[None] < n_valid[:, None]
+        got = nms_keep.nms_keep_mask(boxes, valid, 0.45)
+        torch.cuda.synchronize()
+        want = nms_keep.nms_keep_mask_plain(boxes, valid, 0.45)
+        diff = int((got != want).sum())
+        if diff:
+            raise AssertionError(f"K1 K={k}: {diff} keep-mask entries differ")
+        ms = cuda_ms(lambda: nms_keep.nms_keep_mask(boxes, valid, 0.45))
+        plain_ms = cuda_ms(lambda: nms_keep.nms_keep_mask_plain(boxes, valid, 0.45),
+                           iters=5, warmup=1)
+        pairs = keep_mask_pairs(boxes, valid, want, 0.45)
+        # one IoU is 13 fp32 operations; each box read once, mask written once
+        b_ms, b_by = bound_ms(13 * pairs, PEAK_FP32,
+                              nbytes(boxes, valid) + want.numel())
+        log(f"K1 nms_keep_mask B={BATCH} K={k}: equal to plain "
+            f"(kept {int(want.sum())} of {int(valid.sum())} valid); {ms:.4f} ms, "
+            f"plain {plain_ms:.3f} ms, "
+            f"bound {b_ms:.6f} ms ({b_by}, {pairs} IoUs)")
+        if k == 1024:  # the serving engine's max_nms
+            result = dict(max_abs_err=float(diff), ms=ms, plain_ms=plain_ms,
+                          bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    rows["K1"] = result
+
+
+# ------------------------------------------------------- K2 / K3 ---
+
+def _bf16(gen, shape, std, dev):
+    return (torch.randn(shape, generator=gen) * std).to(dev, torch.bfloat16)
+
+
+def _conv_w(gen, kh, kw, cin, cout, dev):
+    """HWIO bf16 weight with unit-gain fan-in scaling."""
+    return _bf16(gen, (kh, kw, cin, cout), 1.0 / math.sqrt(kh * kw * cin), dev)
+
+
+def _close(name, got, want):
+    if got.shape != want.shape or not torch.isfinite(got.float()).all():
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} vs "
+                             f"{tuple(want.shape)} or non-finite output")
+    err = (got.float() - want.float()).abs().max().item()
+    scale = max(want.float().abs().max().item(), 1.0)
+    if err > CONV_REL_TOL * scale:
+        raise AssertionError(f"{name}: max abs err {err} > {CONV_REL_TOL} x {scale}")
+    return err
+
+
+def _cudnn_conv_silu(x, w, b, stride, pad):
+    """The yardstick: one cuDNN bf16 conv + SiLU on NCHW channels_last
+    views of the same NHWC tensors (pad = top, bottom, left, right)."""
+    t, bo, l, r = pad
+    xn = x.permute(0, 3, 1, 2)
+    if t != bo or l != r:
+        xn, t, l = torch.nn.functional.pad(xn, (l, r, t, bo)), 0, 0
+    y = torch.nn.functional.conv2d(xn, w.permute(3, 2, 0, 1), b, stride, (t, l))
+    return torch.nn.functional.silu(y).permute(0, 2, 3, 1)
+
+
+def check_k2(dev, rows):
+    gen = torch.Generator().manual_seed(2)
+    c1, cm, c2, hx, wid = 128, 64, 128, IMG // 2, IMG // 2
+    p = {"wk2": _conv_w(gen, 2, 2, c1, cm, dev), "b1": _bf16(gen, (cm,), 0.1, dev),
+         "ws2": _conv_w(gen, 3, 3, cm, cm, dev), "b2": _bf16(gen, (cm,), 0.1, dev),
+         "ws3": _conv_w(gen, 3, 3, cm, c2, dev), "b3": _bf16(gen, (c2,), 0.1, dev)}
+    x = _bf16(gen, (BATCH, hx + 2 * fused_stem._PAD, wid, c1), 1.0, dev)
+    got = fused_stem.fused_stem(x, p)
+    torch.cuda.synchronize()
+    want = fused_stem.fused_stem_plain(x, p)
+    err = _close("K2 fused_stem", got, want)
+    ms = cuda_ms(lambda: fused_stem.fused_stem(x, p))
+    plain_ms = cuda_ms(lambda: fused_stem.fused_stem_plain(x, p), iters=5)
+    xr = x[:, fused_stem._PAD:-fused_stem._PAD]
+
+    def library():
+        s1 = _cudnn_conv_silu(xr, p["wk2"], p["b1"], 1, (1, 0, 1, 0))
+        s2 = _cudnn_conv_silu(s1, p["ws2"], p["b2"], 1, (1, 1, 1, 1))
+        return _cudnn_conv_silu(s2, p["ws3"], p["b3"], 2, (1, 1, 1, 1))
+
+    lib_ms = cuda_ms(library)
+    ops = 2 * BATCH * (hx * wid * 4 * c1 * cm + hx * wid * 9 * cm * cm
+                       + (hx // 2) * (wid // 2) * 9 * cm * c2)
+    b_ms, b_by = bound_ms(ops, PEAK_BF16, nbytes(x, got, *p.values()))
+    log(f"K2 fused_stem x {tuple(x.shape)} -> {tuple(got.shape)}: max abs err "
+        f"{err:.4g}; {ms:.3f} ms, plain {plain_ms:.3f} ms, cuDNN {lib_ms:.3f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}, {ops / 1e9:.1f} GFLOP)")
+    rows["K2"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                      bound_by=b_by, library_ms=lib_ms)
+
+
+def span_params(gen, cin, ct, cc, cout, order, dev):
+    _, cat = fused_elan.concat_slots(order, ct, cc)
+    return {"w4": _conv_w(gen, 1, 1, cin, ct, dev), "b4": _bf16(gen, (ct,), 0.1, dev),
+            "w5": _conv_w(gen, 1, 1, cin, ct, dev), "b5": _bf16(gen, (ct,), 0.1, dev),
+            "wc0": _conv_w(gen, 3, 3, ct, cc, dev), "bc0": _bf16(gen, (cc,), 0.1, dev),
+            "wc": torch.stack([_conv_w(gen, 3, 3, cc, cc, dev) for _ in range(3)]),
+            "bc": _bf16(gen, (3, cc), 0.1, dev),
+            "w11": _conv_w(gen, 1, 1, cat, cout, dev), "b11": _bf16(gen, (cout,), 0.1, dev)}
+
+
+def check_k3(dev, rows):
+    gen = torch.Generator().manual_seed(3)
+    tot = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+               library_ms=0.0)
+    by = {"bytes": 0.0, "operations": 0.0}  # bound time of each kind
+    for h, cin, ct, cc, cout, order in SPANS:
+        p = span_params(gen, cin, ct, cc, cout, order, dev)
+        x = _bf16(gen, (BATCH, h, h, cin), 1.0, dev)
+        got = fused_elan.fused_elan(x, p, order)
+        torch.cuda.synchronize()
+        want = fused_elan.fused_elan_plain(x, p, order)
+        err = _close(f"K3 fused_elan {order} {h}x{h}x{cin}", got, want)
+        ms = cuda_ms(lambda: fused_elan.fused_elan(x, p, order))
+        plain_ms = cuda_ms(lambda: fused_elan.fused_elan_plain(x, p, order), iters=5)
+        slots, cat_w = fused_elan.concat_slots(order, ct, cc)
+
+        def library():
+            same = (1, 1, 1, 1)
+            t = {"x4": _cudnn_conv_silu(x, p["w4"], p["b4"], 1, (0, 0, 0, 0)),
+                 "x5": _cudnn_conv_silu(x, p["w5"], p["b5"], 1, (0, 0, 0, 0))}
+            t["c1"] = _cudnn_conv_silu(t["x5"], p["wc0"], p["bc0"], 1, same)
+            for j, (a, b) in enumerate((("c1", "c2"), ("c2", "c3"), ("c3", "c4"))):
+                t[b] = _cudnn_conv_silu(t[a], p["wc"][j], p["bc"][j], 1, same)
+            cat = torch.cat([t[n] for n in slots], dim=-1)
+            return _cudnn_conv_silu(cat, p["w11"], p["b11"], 1, (0, 0, 0, 0))
+
+        lib_ms = cuda_ms(library)
+        ops = 2 * BATCH * h * h * (2 * cin * ct + 9 * ct * cc + 27 * cc * cc
+                                   + cat_w * cout)
+        nb = nbytes(x, got, *p.values())
+        b_ms, b_by = bound_ms(ops, PEAK_BF16, nb)
+        log(f"K3 fused_elan {order:8s} x {tuple(x.shape)} -> {tuple(got.shape)}: "
+            f"max abs err {err:.4g}; {ms:.3f} ms, plain {plain_ms:.3f} ms, cuDNN "
+            f"{lib_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}, "
+            f"{ops / 1e9:.1f} GFLOP)")
+        tot["max_abs_err"] = max(tot["max_abs_err"], err)
+        for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                       ("bound_ms", b_ms)):
+            tot[key] += v
+        by[b_by] += b_ms
+    # the spans run one after another: their bounds add up
+    log(f"K3 all 8 spans (one batch-{BATCH} forward): {tot['ms']:.3f} ms, plain "
+        f"{tot['plain_ms']:.3f} ms, cuDNN {tot['library_ms']:.3f} ms, bound "
+        f"{tot['bound_ms']:.4f} ms")
+    rows["K3"] = dict(tot, bound_by=max(by, key=by.get))
+
+
+# --------------------------------------------------------- serving ---
+
+def _bn_leaves(tree):
+    """Every BN param dict ({scale, bias}) in a param tree."""
+    if isinstance(tree, dict):
+        if set(tree) == {"scale", "bias"}:
+            return [tree]
+        return [b for v in tree.values() for b in _bn_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [b for v in tree for b in _bn_leaves(v)]
+    return []
+
+
+@torch.no_grad()
+def liven(plan, params, state, x, *, act_rms=0.1, head_gain=20.0,
+          candidates=300, conf_thres=0.25):
+    """Edit a random-init unfused param tree in place so it detects, and
+    detects what is in the image. Random init fades the activations through
+    the ~100 layers (each conv shrinks them ~sqrt(3)x), so the head sees
+    nearly the same input for every image, and the Detect bias prior puts
+    objectness near -6.7, where nothing passes conf_thres.
+
+    Layer by layer on the (B, H, W, 3) images x (fp32), each layer's BN
+    biases are zeroed and its BN gains scaled until its output has RMS
+    act_rms. At 0.1 SiLU works near its linear range, where the random
+    network does not amplify rounding noise: at RMS 1 it does, and two
+    bf16 paths of equal merit land 3% and 8% (RMS) from the fp32 head
+    inputs. The head's weights are multiplied by head_gain, its class
+    biases zeroed, and one objectness bias chosen by bisection so that
+    about `candidates` anchors per image pass conf_thres."""
+    ctx = L.Ctx(torch.float32)
+    lp, ls = params["layers"], state["layers"]
+    saved = {}
+    y = x.float().permute(0, 3, 1, 2)
+    for idx, spec in enumerate(plan.layers):
+        if isinstance(spec.frm, tuple):
+            inp = [y if j == -1 else saved[j] for j in spec.frm]
+        else:
+            inp = y if spec.frm == -1 else saved[spec.frm]
+        if spec.is_head:
+            break
+        bns = _bn_leaves(lp[idx])
+        for bn in bns:
+            bn["bias"].zero_()
+        for _ in range(12):
+            out = _run_layer(ctx, spec, lp[idx], ls[idx], inp)
+            rms = out.square().mean().sqrt().item()
+            if not bns or abs(rms / act_rms - 1.0) < 0.05:
+                break
+            # a chain of n BN'd convs scales ~ f^n: damp by the BN count
+            f = (act_rms / rms) ** (1.0 / len(bns))
+            for bn in bns:
+                bn["scale"].mul_(f)
+        y = out
+        if idx in plan.save:
+            saved[idx] = y
+    head = plan.head
+    obj, cls = [], []
+    for i, m in enumerate(lp[-1]["m"]):
+        m["w"].mul_(head_gain)
+        b = m["b"].view(head.na, head.no)
+        b[:, 4:] = 0.0
+        r, _ = head._convs()[i].apply(m, {}, inp[i], ctx)
+        r = r.permute(0, 2, 3, 1).reshape(r.shape[0], -1, head.no)
+        obj.append(r[..., 4])
+        cls.append(r[..., 5:].max(-1).values)
+    obj, cls = torch.cat(obj, 1), torch.sigmoid(torch.cat(cls, 1))
+    lo, hi = -30.0, 30.0
+    for _ in range(40):
+        mid = (lo + hi) / 2
+        n = ((torch.sigmoid(obj + mid) * cls) > conf_thres).sum(1).float().mean()
+        lo, hi = (lo, mid) if n > candidates else (mid, hi)
+    for m in lp[-1]["m"]:
+        m["b"].view(head.na, head.no)[:, 4] = lo
+    return lo
+
+
+def match_fraction(a, b, iou_min=MATCH_IOU, score_tol=MATCH_SCORE):
+    """Fraction of the detections of `a` (one image: (n, 4) boxes, (n,)
+    scores and classes) with a detection of `b` of the same class, IoU >=
+    iou_min and score within score_tol."""
+    if len(a["scores"]) == 0:
+        return 1.0 if len(b["scores"]) == 0 else 0.0
+    if len(b["scores"]) == 0:
+        return 0.0
+    iou = box_iou(torch.tensor(a["boxes"]), torch.tensor(b["boxes"])).numpy()
+    ok = ((iou >= iou_min) & (a["classes"][:, None] == b["classes"][None])
+          & (np.abs(a["scores"][:, None] - b["scores"][None]) <= score_tol))
+    return float(ok.any(1).mean())
+
+
+def feature_error(got, want):
+    """Largest relative RMS difference over the head's input levels."""
+    return max(float((g.float() - w.float()).square().mean().sqrt()
+                     / w.float().square().mean().sqrt()) for g, w in zip(got, want))
+
+
+def image_rows(out, i):
+    n = int(np.asarray(out["num_dets"]).reshape(len(out["num_dets"]), -1)[i, 0])
+    return {"boxes": np.asarray(out["det_boxes"])[i, :n],
+            "scores": np.asarray(out["det_scores"])[i, :n],
+            "classes": np.asarray(out["det_classes"])[i, :n]}
+
+
+def agreement(name, got, want):
+    """Mean over images of the matched fraction of detections, the smaller
+    of the two ways; raises on non-finite or missing output."""
+    fracs = []
+    for i in range(len(want["num_dets"])):
+        a, b = image_rows(got, i), image_rows(want, i)
+        for key in ("boxes", "scores"):
+            if not np.isfinite(a[key]).all():
+                raise AssertionError(f"{name} image {i}: non-finite {key}")
+        if len(b["scores"]) == 0:
+            raise AssertionError(f"{name} image {i}: the reference detects nothing")
+        fracs.append(min(match_fraction(a, b), match_fraction(b, a)))
+    return float(np.mean(fracs))
+
+
+def serving(dev, width=1.0, img=IMG, batch=BATCH, requests=12):
+    """Phase 4. Returns the launch counts of the main-path run and the
+    serving numbers."""
+    model = Model.from_yaml(_cfg(width), seed=0, device=dev)
+    n_params = model.num_params()
+    rng = np.random.default_rng(0)
+    calib = torch.from_numpy(rng.integers(0, 256, (2, img, img, 3), np.uint8))
+    obj_bias = liven(model.plan, model.params, model.state,
+                     calib.to(dev).float() / 255.0)
+    plan = model.plan
+    params, state = fuse_model(plan, model.params, model.state)
+    engine = ServingEngine(plan, params, state, batch_size=batch, img_size=img,
+                           dtype=torch.bfloat16, device=dev)
+    engine1 = ServingEngine(plan, params, state, batch_size=1, img_size=img,
+                            dtype=torch.bfloat16, device=dev)
+    names = [type(layer.block).__name__ for layer in engine.plan.layers]
+    log(f"serving: yolov7 deploy width {width}, {n_params} params, {img} px, "
+        f"batch {batch}, bf16; objectness bias {obj_bias:.3f}; the plan has "
+        f"{names.count('FusedStem')} FusedStem, {names.count('FusedELAN')} FusedELAN")
+    if names.count("FusedStem") != 1 or names.count("FusedELAN") != 8:
+        raise AssertionError(f"transforms did not engage: {names}")
+
+    # references on the same card: the untransformed fused plan through
+    # cuDNN with the plain keep-mask, in the working dtype and in fp32
+    ref_params = {torch.float32: params, torch.bfloat16: tree_map(
+        lambda t: t.to(torch.bfloat16) if t.dtype == torch.float32 else t, params)}
+
+    def normalized(images, dtype=torch.bfloat16):
+        return torch.from_numpy(images).to(dev).to(dtype) / 255.0
+
+    @torch.inference_mode()
+    def reference(images, dtype):
+        p = ref_params[dtype]
+        feats, _ = apply_model(plan, p, state, normalized(images, dtype), dtype=dtype,
+                               return_head_inputs=True)
+        out = fused_head_nms(plan.head, p["layers"][-1], feats, conf_thres=0.25,
+                             iou_thres=0.45, max_det=100, max_nms=1024,
+                             compute_dtype=dtype, keep_fn=nms_keep.nms_keep_mask_plain)
+        return feats, {"num_dets": out.num_dets[:, None].cpu().numpy(),
+                       "det_boxes": out.boxes.cpu().numpy(),
+                       "det_scores": out.scores.cpu().numpy(),
+                       "det_classes": out.classes.cpu().numpy()}
+
+    batches = [rng.integers(0, 256, (batch, img, img, 3), np.uint8) for _ in range(3)]
+    lone = [rng.integers(0, 256, (img, img, 3), np.uint8) for _ in range(2)]
+    frames = [f for f in rng.integers(0, 256, (requests, img, img, 3), np.uint8)]
+    engine.warmup(1)
+    engine1.warmup(1)
+    torch.cuda.synchronize() if dev.type == "cuda" else None
+
+    # ---- the main path, counted ----
+    for c in (nms_keep.nms_keep_mask, fused_stem.fused_stem, fused_elan.fused_elan):
+        c.launches = 0
+    engine.batches = engine1.batches = 0
+    outs = [engine.infer(b) for b in batches]
+    partial = engine.infer(batches[0][:3])
+    batcher = DynamicBatcher(engine, max_delay_ms=20, bs1_engine=engine1)
+    lone_res = [DynamicBatcher.wait(batcher.submit(f), timeout=300) for f in lone]
+    results = [None] * requests
+
+    def client(i):
+        results[i] = DynamicBatcher.wait(batcher.submit(frames[i]), timeout=300)
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(requests)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    batcher.close()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    counts = {"K1": nms_keep.nms_keep_mask.launches,
+              "K2": fused_stem.fused_stem.launches,
+              "K3": fused_elan.fused_elan.launches}
+    forwards = engine.batches + engine1.batches
+    log(f"serving: {len(batches) + 1} infer batches, {len(lone)} lone + "
+        f"{requests} concurrent batcher requests -> {engine.batches} batch-{batch} "
+        f"and {engine1.batches} batch-1 forwards; launches {counts}")
+    want = {"K1": forwards, "K2": forwards, "K3": 8 * forwards}
+    if dev.type == "cuda" and counts != want:
+        raise AssertionError(f"launch counts {counts}, want {want}")
+    if any(r is None for r in results + lone_res):
+        raise AssertionError("a batcher request got no result")
+
+    # ---- the output against the references ----
+    with torch.inference_mode():
+        feats, _ = apply_model(engine.plan, engine._params, engine._state,
+                               normalized(batches[0]), dtype=torch.bfloat16,
+                               return_head_inputs=True)
+        f32, _ = reference(batches[0], torch.float32)
+        f16, _ = reference(batches[0], torch.bfloat16)
+        nms_kw = dict(conf_thres=0.25, iou_thres=0.45, max_det=100, max_nms=1024,
+                      compute_dtype=torch.bfloat16)
+        hp = engine._params["layers"][-1]
+        with_kernel = fused_head_nms(engine.plan.head, hp, feats, **nms_kw)
+        with_plain = fused_head_nms(engine.plan.head, hp, feats, **nms_kw,
+                                    keep_fn=nms_keep.nms_keep_mask_plain)
+    for a, b, what in zip(with_kernel, with_plain, with_plain._fields):
+        if not torch.equal(a, b):
+            raise AssertionError(f"NMS tail: {what} differ between the keep-mask "
+                                 "kernel and the plain keep-mask")
+    err_eng, err_bf16 = feature_error(feats, f32), feature_error(f16, f32)
+    log(f"serving: NMS tail equal with the kernel and the plain keep-mask "
+        f"({int(with_plain.num_dets.sum())} detections); head inputs "
+        f"{err_eng:.4f} relative RMS from the fp32 reference (cuDNN bf16 "
+        f"{err_bf16:.4f})")
+    if not err_eng <= FEAT_RATIO * err_bf16:
+        raise AssertionError(f"head inputs: {err_eng} relative RMS from the fp32 "
+                             f"reference, cuDNN bf16 {err_bf16}")
+
+    stacked = lambda rs: {k: np.stack([r[k] for r in rs]) for k in rs[0]}  # noqa: E731
+    sets = [(f"infer batch {j}", outs[j], b) for j, b in enumerate(batches)]
+    sets += [("partial batch", partial, batches[0][:3]),
+             ("batcher", stacked(results), np.stack(frames)),
+             ("bs1 path", stacked(lone_res), np.stack(lone))]
+    agree_eng, agree_bf16 = [], []
+    for name, got, images in sets:
+        _, want = reference(images, torch.float32)
+        _, cudnn = reference(images, torch.bfloat16)
+        agree_eng.append(agreement(name, got, want))
+        agree_bf16.append(agreement(name, cudnn, want))
+        log(f"serving: {name}: detections agree {agree_eng[-1]:.3f} with the "
+            f"fp32 reference (cuDNN bf16 {agree_bf16[-1]:.3f}); "
+            f"{int(got['num_dets'].sum())} / {int(want['num_dets'].sum())} detections")
+    agree_eng, agree_bf16 = float(np.mean(agree_eng)), float(np.mean(agree_bf16))
+    if not agree_eng >= agree_bf16 - MATCH_MARGIN:
+        raise AssertionError(f"detections agree with the fp32 reference {agree_eng:.3f}, "
+                             f"cuDNN bf16's {agree_bf16:.3f}")
+
+    # ---- speed ----
+    res = {"launches": counts, "forwards": forwards, "agreement": agree_eng,
+           "agreement_cudnn_bf16": agree_bf16, "feature_rms_err": err_eng,
+           "feature_rms_err_cudnn_bf16": err_bf16}
+    if dev.type == "cuda":
+        xd = torch.from_numpy(batches[0]).to(dev)
+        fwd_ms = cuda_ms(lambda: engine.end2end(xd), iters=20)
+        lat = []
+        for _ in range(20):
+            t = time.perf_counter()
+            engine.infer(batches[1])
+            lat.append((time.perf_counter() - t) * 1e3)
+        lat1 = []
+        for _ in range(20):
+            t = time.perf_counter()
+            engine1.infer(lone[0][None])
+            lat1.append((time.perf_counter() - t) * 1e3)
+        res.update(img_s=batch / fwd_ms * 1e3, device_ms_bs8=fwd_ms,
+                   p50_ms_bs8=statistics.median(lat), p50_ms_bs1=statistics.median(lat1))
+        log(f"serving: {res['img_s']:.1f} img/s (device time of one batch-{batch} "
+            f"end2end {fwd_ms:.3f} ms); infer p50 host-to-host batch {batch} "
+            f"{res['p50_ms_bs8']:.3f} ms, batch 1 {res['p50_ms_bs1']:.3f} ms")
+        res.update(profile_forwards(lambda: engine.end2end(xd)))
+    return res
+
+
+# substrings of the names of cuDNN's convolution kernels
+CUDNN_NAMES = ("conv", "xmma", "cudnn", "cutlass", "gemm")
+
+
+def profile_forwards(fn, n=5):
+    """Device time by kernel over n back-to-back forwards (torch.profiler,
+    CUPTI), and the device's busy share of their wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    groups = {"conv_silu (K2, K3)": 0.0, "nms_keep (K1)": 0.0, "cuDNN conv": 0.0,
+              "other": 0.0}
+    top = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if e.device_type != torch.autograd.DeviceType.CUDA or not us:
+            continue
+        name = e.key
+        g = ("conv_silu (K2, K3)" if "conv_silu" in name else
+             "nms_keep (K1)" if "nms_keep" in name else
+             "cuDNN conv" if any(k in name.lower() for k in CUDNN_NAMES)
+             else "other")
+        groups[g] += us / 1e3 / n
+        top.append((us / 1e3 / n, name[:70]))
+    busy = sum(groups.values())
+    if busy == 0.0:
+        log("profile: no device time recorded (not measured)")
+        return {"profile": None}
+    top.sort(reverse=True)
+    log(f"profile: {n} batch-{BATCH} forwards, {wall_ms / n:.3f} ms wall each, device "
+        f"busy {busy:.3f} ms ({busy / (wall_ms / n):.1%}); by group (ms/forward): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in groups.items()))
+    log("profile: top kernels (ms/forward): "
+        + "; ".join(f"{name} {ms:.3f}" for ms, name in top[:8]))
+    return {"profile": {"wall_ms": wall_ms / n, "busy_ms": busy,
+                        "busy_share": busy / (wall_ms / n), "groups_ms": groups}}
+
+
+def _cfg(width):
+    """The port's yolov7 deploy cfg at `width` (1.0: the published one)."""
+    import yaml
+
+    with open(CFG) as f:
+        d = yaml.safe_load(f)
+    d["width_multiple"] = width
+    return d
+
+
+# ------------------------------------------------------------ main ---
+
+KERNELS = (
+    ("K1", "nms_keep_mask", "yolo_series_tpu_torch/csrc/nms_keep.cu",
+     "yolo_series_tpu/ops/pallas_nms.py:24"),
+    ("K2", "fused_stem", "yolo_series_tpu_torch/csrc/conv_silu.cu",
+     "yolo_series_tpu/ops/pallas_stem.py:78"),
+    ("K3", "fused_elan", "yolo_series_tpu_torch/csrc/conv_silu.cu",
+     "yolo_series_tpu/ops/pallas_elan.py:80"),
+)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    # fp32 comparisons run in full fp32, not TF32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = smi()
+    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}; card: {card}")
+
+    secs = _build.build()
+    log(f"build: {len(_build.SOURCES)} kernel sources in {secs:.1f} s")
+
+    rows = {}
+    check_k1(dev, rows)
+    check_k2(dev, rows)
+    check_k3(dev, rows)
+    srv = serving(dev)
+
+    kernels = []
+    for kid, name, src, rep in KERNELS:
+        r = rows[kid]
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": rep, "launches": srv["launches"][kid],
+                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    log(json.dumps({"serving": {k: srv[k] for k in (
+        "img_s", "device_ms_bs8", "p50_ms_bs8", "p50_ms_bs1", "profile",
+        "feature_rms_err", "feature_rms_err_cudnn_bf16", "agreement",
+        "agreement_cudnn_bf16")}, "card": card}))
+    log(json.dumps({"kernels": kernels}))
+    log(smi())
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,63 @@
+"""Shared helpers of the port's CPU parity tests (tests/test_torch_port_*.py).
+
+Weights are drawn by the JAX package, edited through the port
+(`chip_smoke.liven`) and handed to both packages as numpy trees
+(`models/convert.from_jax_params` into the port), so both run the same
+numbers.
+"""
+
+import numpy as np
+
+DEPLOY_CFG = "yolo_series_tpu/models/cfg/deploy/yolov7.yaml"
+PORT_DEPLOY_CFG = "yolo_series_tpu_torch/models/cfg/deploy/yolov7.yaml"
+
+
+def deploy_cfg(width=1.0):
+    import yaml
+
+    with open(DEPLOY_CFG) as f:
+        d = yaml.safe_load(f)
+    d["width_multiple"] = width
+    return d
+
+
+def to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [to_numpy(v) for v in tree]
+    return np.asarray(tree)
+
+
+def to_jax_tree(tree, key=None):
+    """The port's param tree back to the JAX package's numpy form (the
+    inverse of `models/convert.from_jax_params`: OIHW -> HWIO)."""
+    if isinstance(tree, dict):
+        return {k: to_jax_tree(v, k) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [to_jax_tree(v, key) for v in tree]
+    a = tree.detach().cpu().numpy()
+    return a.transpose(2, 3, 1, 0) if key == "w" and a.ndim == 4 else a
+
+
+def jax_model(width=0.5, seed=0, size=128, candidates=150):
+    """JAX deploy yolov7 at `width`: (plan, params_np, state_np), unfused.
+    The random init is edited by `chip_smoke.liven` (through the port, on
+    `size` px noise frames) so the model detects what is in the image, with
+    about `candidates` anchors per image above conf 0.25."""
+    import jax
+    import torch
+
+    from chip_smoke import liven
+    from yolo_series_tpu.models.model import Model
+    from yolo_series_tpu_torch.models.convert import from_jax_params
+    from yolo_series_tpu_torch.models.graph import compile_graph
+
+    m = Model.from_yaml(deploy_cfg(width), key=jax.random.PRNGKey(seed))
+    state = to_numpy(m.state)
+    tplan = compile_graph(deploy_cfg(width))
+    tp, ts = from_jax_params(tplan, to_numpy(m.params), state)
+    x = np.random.default_rng(seed).integers(0, 256, (2, size, size, 3))
+    liven(tplan, tp, ts, torch.from_numpy(x / 255.0).float(),
+          candidates=candidates)
+    return m.plan, to_jax_tree(tp), state

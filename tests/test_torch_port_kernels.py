@@ -1,0 +1,263 @@
+"""The port's kernel modules against the JAX package on the CPU: the plain
+versions of K1 (NMS keep-mask), K2 (fused stem tail) and K3 (fused ELAN
+span) against the JAX functions and the Pallas kernels in interpret mode,
+and the span finder and weight packing against JAX's."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tests._torch_port_util import deploy_cfg, jax_model
+from yolo_series_tpu.models import graph as jgraph
+from yolo_series_tpu.models import reparam as jreparam
+from yolo_series_tpu.ops import nms as jnms
+from yolo_series_tpu.ops import pallas_elan as jpe
+from yolo_series_tpu.ops import pallas_stem as jps
+from yolo_series_tpu.ops.pallas_nms import nms_keep_mask_pallas
+from yolo_series_tpu_torch.models import graph as tgraph
+from yolo_series_tpu_torch.models import reparam as treparam
+from yolo_series_tpu_torch.models.convert import from_jax_params
+from yolo_series_tpu_torch.ops import fused_elan as tfe
+from yolo_series_tpu_torch.ops import fused_stem as tfs
+from yolo_series_tpu_torch.ops import nms_keep
+
+torch.set_num_threads(2)
+
+
+# ---------------------------------------------------------------- spans ---
+
+def _dummy_fused(plan):
+    """Structurally fused params ({w, b} everywhere) for the span finder."""
+    return {"layers": [{"w": 0, "b": 0} for _ in plan.layers]}
+
+
+# (H at 640 px, cin, ct, cc, cout) of the 8 spans of full-width yolov7
+SPAN_SHAPES = {
+    4: (160, 128, 64, 64, 256), 17: (80, 256, 128, 128, 512),
+    30: (40, 512, 256, 256, 1024), 43: (20, 1024, 256, 256, 1024),
+    56: (40, 512, 256, 128, 256), 68: (80, 256, 128, 64, 128),
+    81: (40, 512, 256, 128, 256), 94: (20, 1024, 512, 256, 512)}
+
+
+def test_find_elan_spans_matches_jax_full_width():
+    jplan = jgraph.compile_graph(deploy_cfg(1.0))
+    tplan = tgraph.compile_graph(deploy_cfg(1.0))
+    want = jpe.find_elan_spans(jplan, _dummy_fused(jplan))
+    got = tfe.find_elan_spans(tplan, _dummy_fused(tplan))
+    assert got == want == ((4, "backbone"), (17, "backbone"), (30, "backbone"),
+                           (43, "backbone"), (56, "head"), (68, "head"),
+                           (81, "head"), (94, "head"))
+    for i, _ in got:
+        layers = tplan.layers
+        shape = (int(640 / layers[i].stride), layers[i].block.c1,
+                 layers[i].block.c2, layers[i + 2].block.c2,
+                 layers[i + 7].block.c2)
+        assert shape == SPAN_SHAPES[i], i
+
+
+@pytest.fixture(scope="module")
+def fused_half():
+    """Width-0.5 deploy yolov7, fused by JAX and by the port from the same
+    weights."""
+    plan, params, state = jax_model(0.5, seed=3)
+    jp, js = jreparam.fuse_model(plan, jax.tree_util.tree_map(jnp.asarray, params),
+                                 jax.tree_util.tree_map(jnp.asarray, state))
+    tplan = tgraph.compile_graph(deploy_cfg(0.5))
+    tp, ts = from_jax_params(tplan, params, state)
+    fp, fs_ = treparam.fuse_model(tplan, tp, ts)
+    return plan, jp, js, tplan, fp, fs_
+
+
+def _bf16_equal(port, jax_arr, shape):
+    """The port's HWIO bf16 weight, reshaped to JAX's packed form, holds the
+    same bf16 values."""
+    a = port.float().reshape(shape).numpy()
+    np.testing.assert_array_equal(a, np.asarray(jax_arr, np.float32))
+
+
+def test_span_packing_unpacks_to_jax(fused_half):
+    plan, jp, _, tplan, fp, _ = fused_half
+    spans = tfe.find_elan_spans(tplan, fp)
+    assert spans == jpe.find_elan_spans(plan, jp)
+    for i, _ in spans:
+        want = jpe._pack_span(jp["layers"], i)
+        got = tfe.pack_span(fp["layers"], i)
+        for k, v in want.items():
+            assert got[k].dtype == torch.bfloat16
+            _bf16_equal(got[k], v, v.shape)
+
+
+def test_stem_packing_unpacks_to_jax(fused_half):
+    plan, jp, js, tplan, fp, fs_ = fused_half
+    assert tfs._stem_matches(tplan, fp) and jps._stem_matches(plan, jp)
+    jplan2, jp2, _ = jps.make_pallas_stem(plan, jp, js, force=True)
+    tplan2, fp2, _ = tfs.make_fused_stem(tplan, fp, fs_)
+    for a, b in zip(tplan2.layers[:4], jplan2.layers[:4]):
+        assert (type(a.block).__name__, a.cout, a.stride, a.frm) == \
+            (type(b.block).__name__, b.cout, b.stride, b.frm)
+    assert tplan2.layers[0].block.pad == jplan2.layers[0].block.pad
+    np.testing.assert_array_equal(
+        fp2["layers"][0]["w"].permute(2, 3, 1, 0).numpy(),
+        np.asarray(jp2["layers"][0]["w"]))
+    for k, v in jp2["layers"][1].items():
+        _bf16_equal(fp2["layers"][1][k], v, v.shape)
+
+
+# ----------------------------------------------------- K2 / K3 numerics ---
+
+def _bf16_np(rng, shape, scale):
+    """Random values exactly representable in bf16, as float32 numpy."""
+    x = torch.from_numpy(rng.normal(0, scale, shape).astype(np.float32))
+    return x.to(torch.bfloat16).float().numpy()
+
+
+class _Ctx:
+    dtype = jnp.float32
+
+
+def _close(got, want, rel):
+    d = np.abs(got - want)
+    scale = max(np.abs(want).max(), 1.0)
+    assert d.max() <= rel * scale, (d.max(), scale)
+    edge = np.concatenate([d[:, :2], d[:, -2:]], axis=1)  # image-boundary rows
+    assert edge.max() <= rel * scale, (edge.max(), scale)
+
+
+# Tolerances. Against the interpret-mode Pallas kernel: the same math,
+# rounded to bf16 at the same points (fp32 accumulate, + bias, SiLU, bf16),
+# in another summation order — a stage output may round to the
+# neighbouring bf16 value and that compounds through the chain: 1% of the
+# output scale. Against `_ref_apply`: it rounds each conv's sum to bf16
+# before the bias and keeps the stage outputs in fp32 (dtype fp32): 5%, as
+# the JAX package's own interpret tests allow.
+PALLAS_REL, REF_REL = 1e-2, 5e-2
+
+
+def test_fused_stem_plain_matches_jax(monkeypatch):
+    monkeypatch.setenv("YOLO_TPU_PALLAS_INTERPRET", "1")
+    rng = np.random.default_rng(0)
+    hx, w, c1, cm, co = 32, 32, 128, 64, 128
+    p = {"wk2": _bf16_np(rng, (2, 2, c1, cm), 0.05), "b1": _bf16_np(rng, (cm,), 0.1),
+         "ws2": _bf16_np(rng, (3, 3, cm, cm), 0.05), "b2": _bf16_np(rng, (cm,), 0.1),
+         "ws3": _bf16_np(rng, (3, 3, cm, co), 0.05), "b3": _bf16_np(rng, (co,), 0.1)}
+    # halo rows non-zero: both must read past them
+    x = _bf16_np(rng, (2, hx + 2 * jps._PAD, w, c1), 1.0)
+    jparams = {"wk2": p["wk2"].reshape(2, 2 * c1, cm), "b1": p["b1"],
+               "ws2": p["ws2"].reshape(3, 3 * cm, cm), "b2": p["b2"],
+               "ws3": p["ws3"].reshape(3, 3 * cm, co), "b3": p["b3"]}
+    jparams = {k: jnp.asarray(v, jnp.bfloat16) for k, v in jparams.items()}
+    blk = jps.FusedStem(c1, cm, co)
+    pallas, _ = blk.apply(jparams, {}, jnp.asarray(x), _Ctx())
+    ref = blk._ref_apply(jparams, jnp.asarray(x), jnp.float32)
+    tp = {k: torch.from_numpy(v).to(torch.bfloat16) for k, v in p.items()}
+    got = tfs.fused_stem(torch.from_numpy(x).to(torch.bfloat16), tp)
+    got = got.float().numpy()
+    assert got.shape == (2, hx // 2, w // 2, co)
+    _close(got, np.asarray(pallas, np.float32), PALLAS_REL)
+    _close(got, np.asarray(ref, np.float32), REF_REL)
+
+
+@pytest.mark.parametrize("order", ["backbone", "head"])
+def test_fused_elan_plain_matches_jax(order, monkeypatch):
+    monkeypatch.setenv("YOLO_TPU_PALLAS_INTERPRET", "1")
+    rng = np.random.default_rng(1)
+    h = w = 16
+    cin, ct, cc, cout = 32, 32, 32, 64
+    cat = (4 * cc + 2 * ct) if order == "head" else (2 * cc + 2 * ct)
+    p = {"w4": _bf16_np(rng, (1, 1, cin, ct), 0.1), "b4": _bf16_np(rng, (ct,), 0.1),
+         "w5": _bf16_np(rng, (1, 1, cin, ct), 0.1), "b5": _bf16_np(rng, (ct,), 0.1),
+         "wc0": _bf16_np(rng, (3, 3, ct, cc), 0.05), "bc0": _bf16_np(rng, (cc,), 0.1),
+         "wc": _bf16_np(rng, (3, 3, 3, cc, cc), 0.05),
+         "bc": _bf16_np(rng, (3, cc), 0.1),
+         "w11": _bf16_np(rng, (1, 1, cat, cout), 0.05),
+         "b11": _bf16_np(rng, (cout,), 0.1)}
+    x = _bf16_np(rng, (2, h, w, cin), 1.0)
+    jparams = dict(p, w4=p["w4"][0, 0], w5=p["w5"][0, 0], w11=p["w11"][0, 0],
+                   wc0=p["wc0"].reshape(3, 3 * ct, cc),
+                   wc=p["wc"].reshape(3, 3, 3 * cc, cc))
+    jparams = {k: jnp.asarray(v, jnp.bfloat16) for k, v in jparams.items()}
+    blk = jpe.FusedELAN(cin, ct, cc, cout, order)
+    pallas, _ = blk.apply(jparams, {}, jnp.asarray(x), _Ctx())
+    ref = blk._ref_apply(jparams, jnp.asarray(x), jnp.float32)
+    tp = {k: torch.from_numpy(v).to(torch.bfloat16) for k, v in p.items()}
+    got = tfe.fused_elan(torch.from_numpy(x).to(torch.bfloat16), tp, order)
+    got = got.float().numpy()
+    assert got.shape == (2, h, w, cout)
+    _close(got, np.asarray(pallas, np.float32), PALLAS_REL)
+    _close(got, np.asarray(ref, np.float32), REF_REL)
+
+
+def test_concat_slots_follow_the_reference_order():
+    slots, width = tfe.concat_slots("head", 32, 64)
+    assert list(slots) == ["c4", "c3", "c2", "c1", "x5", "x4"]
+    assert list(slots.values()) == [0, 64, 128, 192, 256, 288] and width == 320
+    slots, width = tfe.concat_slots("backbone", 32, 64)
+    assert slots == {"c4": 0, "c2": 64, "x5": 128, "x4": 160} and width == 192
+
+
+# ------------------------------------------------------------------ K1 ---
+
+def _clustered(rng, k, nc=1, spread=640.0, sigma=20.0):
+    centers = rng.uniform(100, spread - 100, (max(k // 8, 1), 2))
+    cxy = centers[rng.integers(0, len(centers), k)] + rng.normal(0, sigma, (k, 2))
+    wh = rng.uniform(20, 120, (k, 2))
+    cls = rng.integers(0, nc, (k, 1)).astype(np.float32)
+    boxes = np.concatenate([cxy - wh / 2, cxy + wh / 2], 1) + cls * 4096.0
+    return boxes.astype(np.float32)
+
+
+def _jax_full(boxes, valid, thr):
+    """nms_keep_mask_full per image, with invalid rows zeroed first as
+    `_nms_tail` does (a zero box suppresses nothing)."""
+    boxes = np.where(valid[..., None], boxes, np.float32(0))
+    return np.stack([np.asarray(jnms.nms_keep_mask_full(jnp.asarray(b), thr))
+                     & v for b, v in zip(boxes, valid)])
+
+
+@pytest.mark.parametrize("thr", [0.3, 0.45, 0.65])
+def test_keep_mask_plain_matches_full_fixpoint(thr):
+    """Deep suppression chains with class offsets (coordinates near 3.3e5),
+    some invalid rows; the plain version runs to convergence like
+    nms_keep_mask_full."""
+    rng = np.random.default_rng(int(thr * 100))
+    boxes = np.stack([_clustered(rng, 256, nc=3, sigma=8.0) for _ in range(3)])
+    boxes[..., :] += np.float32(79 * 4096.0)
+    valid = rng.uniform(size=(3, 256)) < 0.9
+    want = _jax_full(boxes, valid, thr)
+    got = nms_keep.nms_keep_mask(torch.from_numpy(boxes), torch.from_numpy(valid), thr)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_keep_mask_plain_matches_pallas_interpret():
+    """The Pallas kernel stops after 64 fixpoint passes: compare on inputs
+    whose suppression chains are shallower (as tests/test_nms.py does)."""
+    rng = np.random.default_rng(5)
+    boxes = np.stack([_clustered(rng, 128) for _ in range(4)])
+    valid = np.ones((4, 128), bool)
+    valid[1, 60:] = False
+    want = np.asarray(nms_keep_mask_pallas(jnp.asarray(boxes), jnp.asarray(valid),
+                                           0.45, interpret=True))
+    got = nms_keep.nms_keep_mask(torch.from_numpy(boxes), torch.from_numpy(valid),
+                                 0.45)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), _jax_full(boxes, valid, 0.45))
+
+
+def test_keep_mask_ties_keep_the_lower_index():
+    """Exact duplicates (IoU 1) and a box that touches its twin at exactly
+    the threshold: the lower index wins, and IoU == thr does not suppress."""
+    rng = np.random.default_rng(9)
+    base = _clustered(rng, 64)
+    boxes = np.concatenate([base, base[::-1]])[None]          # every box twice
+    boxes = np.concatenate([boxes, boxes[:, ::-1]])           # both orders
+    valid = np.ones(boxes.shape[:2], bool)
+    want = _jax_full(boxes, valid, 0.45)
+    got = nms_keep.nms_keep_mask(torch.from_numpy(boxes.copy()),
+                                 torch.from_numpy(valid), 0.45).numpy()
+    np.testing.assert_array_equal(got, want)
+    half = np.array([[[0, 0, 10, 10], [0, 0, 10, 5]]], np.float32)  # IoU 0.5
+    keep = nms_keep.nms_keep_mask(torch.from_numpy(half),
+                                  torch.ones((1, 2), dtype=torch.bool), 0.5)
+    assert keep.tolist() == [[True, True]]

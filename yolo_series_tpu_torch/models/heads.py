@@ -1,0 +1,104 @@
+"""Detect head (counterpart of `yolo_series_tpu/models/heads.py` Detect).
+
+Semantics mirror reference models/yolo.py:23-94. The decoded output
+concatenates the levels into one (B, sum(na*ny*nx), no) tensor in the
+reference's anchor-major order; the raw output per level is
+(B, na, ny, nx, no). IDetect (ROADMAP queue 1, item 2), IAuxDetect, IBin
+and IKeypoint (items 14-15) are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from yolo_series_tpu_torch.models.layers import Ctx, PlainConv
+
+
+def _decode_level(p, stride, anchors_px, nc):
+    """p: (B, ny, nx, na, no) raw logits -> (B, na*ny*nx, no) decoded.
+
+    xy = (sigmoid*2 - 0.5 + grid) * stride ; wh = (sigmoid*2)^2 * anchor_px
+    (reference yolo.py:55-57)."""
+    b, ny, nx, na, no = p.shape
+    y = torch.sigmoid(p.float())
+    gy, gx = torch.meshgrid(
+        torch.arange(ny, dtype=torch.float32, device=p.device),
+        torch.arange(nx, dtype=torch.float32, device=p.device), indexing="ij")
+    grid = torch.stack([gx, gy], dim=-1)[:, :, None, :]          # (ny, nx, 1, 2)
+    anc = torch.as_tensor(anchors_px, dtype=torch.float32,
+                          device=p.device)[None, None]            # (1, 1, na, 2)
+    xy = (y[..., 0:2] * 2.0 - 0.5 + grid) * stride
+    wh = torch.square(y[..., 2:4] * 2.0) * anc
+    out = torch.cat([xy, wh, y[..., 4:]], dim=-1)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, na * ny * nx, no)
+
+
+@dataclasses.dataclass(frozen=True)
+class Detect:
+    """Anchor-based decode head. apply(...) returns
+    ({"pred": (B, A, no), "raw": [per-level (B, na, ny, nx, no)]}, state)."""
+
+    nc: int
+    anchors: Tuple[Tuple[float, ...], ...]   # normalized by stride, (nl, na*2)
+    ch: Tuple[int, ...]
+    strides: Tuple[float, ...]
+
+    @property
+    def na(self):
+        return len(self.anchors[0]) // 2
+
+    @property
+    def nl(self):
+        return len(self.anchors)
+
+    @property
+    def no(self):
+        return self.nc + 5
+
+    def anchors_grid(self):
+        """(nl, na, 2) anchors in pixels (anchor * stride)."""
+        a = np.asarray(self.anchors, np.float32).reshape(self.nl, self.na, 2)
+        return a * np.asarray(self.strides, np.float32)[:, None, None]
+
+    def _convs(self) -> List[PlainConv]:
+        return [PlainConv(c, self.no * self.na, 1) for c in self.ch]
+
+    def init(self, gen):
+        return {"m": [cv.init(gen)[0] for cv in self._convs()]}, {}
+
+    def _raw_level(self, params, xs, i, ctx):
+        """(B, ny, nx, na, no) logits of level i from NCHW features."""
+        y, _ = self._convs()[i].apply(params["m"][i], {}, xs[i], ctx)
+        b, _, ny, nx = y.shape
+        return y.permute(0, 2, 3, 1).reshape(b, ny, nx, self.na, self.no)
+
+    def apply(self, params, state, xs: Sequence[torch.Tensor], ctx: Ctx):
+        raws, preds = [], []
+        apx = self.anchors_grid()
+        for i in range(self.nl):
+            y = self._raw_level(params, xs, i, ctx)
+            raws.append(y.permute(0, 3, 1, 2, 4))
+            preds.append(_decode_level(y, self.strides[i], apx[i], self.nc))
+        return {"pred": torch.cat(preds, dim=1), "raw": raws}, state
+
+    def _bias_prior(self, stride, cf=None):
+        """Additive obj/cls bias prior (reference yolo.py:633-644):
+        b_obj += log(8 / (640/stride)^2); b_cls += log(0.6 / (nc - 0.99))."""
+        prior = np.zeros((self.na, self.no), np.float32)
+        prior[:, 4] = math.log(8.0 / (640.0 / stride) ** 2)
+        if cf is None:
+            prior[:, 5:] = math.log(0.6 / (self.nc - 0.99))
+        else:
+            prior[:, 5:] = np.log(cf / cf.sum())
+        return torch.from_numpy(prior.reshape(-1))
+
+    def init_biases(self, params, cf=None):
+        new_m = [{**mp, "b": mp["b"] + self._bias_prior(self.strides[i], cf)
+                  .to(mp["b"].device)}
+                 for i, mp in enumerate(params["m"])]
+        return {**params, "m": new_m}

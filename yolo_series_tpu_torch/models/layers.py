@@ -1,0 +1,395 @@
+"""Deploy blocks of yolov7 (counterpart of `yolo_series_tpu/models/layers.py`).
+
+Each block is a frozen dataclass of static config with `init(generator)`
+-> (params, state) and `apply(params, state, x, ctx)` -> (y, state), the
+same contract as the JAX blocks, so the JAX param trees map one to one
+onto the port's (`models/convert.py`) and the plan rewrites of the deploy
+transforms stay plain tree edits. Params are dicts of tensors; conv
+weights are OIHW. Activations are NCHW tensors, kept in `channels_last`
+memory by the model, so a permute gives kernels contiguous NHWC.
+
+Only what the yolov7 deploy graph runs is here: ConvBnAct (BN or fused
+{w, b} form), PlainConv (detect-head convs), MP, Upsample, Concat, SPPCSPC
+and RepConv. The rest of the zoo is ROADMAP queue 1, slice 3.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+BN_EPS = 1e-3       # layers.BN_EPS of the JAX package
+
+
+@dataclasses.dataclass(frozen=True)
+class Ctx:
+    """Per-forward context: the working dtype of the convs."""
+
+    dtype: torch.dtype = torch.float32
+
+
+ACTIVATIONS = {"silu": F.silu, "identity": lambda x: x}
+
+
+def get_activation(spec) -> Tuple[str, Any]:
+    """Resolve an activation spec to (canonical_name, fn). True -> silu,
+    False/None -> identity (the reference Conv's `act=True` default)."""
+    if spec is True:
+        return "silu", ACTIVATIONS["silu"]
+    if spec is False or spec is None:
+        return "identity", ACTIVATIONS["identity"]
+    s = str(spec).strip()
+    if s in ("nn.SiLU()", "nn.SiLU"):
+        s = "silu"
+    if s in ACTIVATIONS:
+        return s, ACTIVATIONS[s]
+    raise NotImplementedError(
+        f"activation {spec!r} is not ported yet (ROADMAP queue 1, slice 3)")
+
+
+def autopad(k, p=None):
+    """'same' padding for odd kernels (reference common.py:23)."""
+    if p is not None:
+        return p
+    if isinstance(k, (tuple, list)):
+        return tuple(x // 2 for x in k)
+    return k // 2
+
+
+def _pair(k):
+    return (k, k) if isinstance(k, int) else tuple(k)
+
+
+def conv_kernel_init(gen: torch.Generator, kh, kw, cin_per_group, cout):
+    """torch kaiming_uniform(a=sqrt(5)) == U(+-1/sqrt(fan_in)); OIHW."""
+    bound = 1.0 / math.sqrt(cin_per_group * kh * kw)
+    u = torch.rand((cout, cin_per_group, kh, kw), generator=gen)
+    return (u * 2.0 - 1.0) * bound
+
+
+def conv_bias_init(gen: torch.Generator, cout, fan_in):
+    bound = 1.0 / math.sqrt(fan_in)
+    return (torch.rand((cout,), generator=gen) * 2.0 - 1.0) * bound
+
+
+def bn_init(c):
+    params = {"scale": torch.ones(c), "bias": torch.zeros(c)}
+    state = {"mean": torch.zeros(c), "var": torch.ones(c)}
+    return params, state
+
+
+def batch_norm(bn_params, bn_state, x):
+    """Inference BatchNorm over NCHW channels, computed in fp32."""
+    inv = torch.rsqrt(bn_state["var"] + BN_EPS) * bn_params["scale"]
+    y = (x.float() - bn_state["mean"][:, None, None]) * inv[:, None, None] \
+        + bn_params["bias"][:, None, None]
+    return y.to(x.dtype)
+
+
+def conv2d(x, w, b=None, stride=1, padding=0, groups=1, dtype=None):
+    """NCHW x OIHW convolution in `dtype` (x's dtype when None). padding:
+    int, symmetric (ph, pw), or ((top, bottom), (left, right))."""
+    dtype = dtype or x.dtype
+    if (isinstance(padding, (tuple, list)) and padding
+            and isinstance(padding[0], (tuple, list))):
+        (pt, pb), (pl, pr) = padding
+        if pt == pb and pl == pr:
+            padding = (pt, pl)
+        else:
+            x = F.pad(x, (pl, pr, pt, pb))
+            padding = 0
+    return F.conv2d(x.to(dtype), w.to(dtype),
+                    None if b is None else b.to(dtype),
+                    _pair(stride), padding, 1, groups)
+
+
+def max_pool(x, k, s, padding):
+    """Max pool with implicit -inf padding (torch semantics)."""
+    return F.max_pool2d(x, k, s, padding)
+
+
+def max_pool_pyramid(x, ks: Sequence[int]):
+    """Stride-1 SAME max pools for increasing odd kernels, chained where
+    possible: pooling a k1-pooled map with kernel kc gives the
+    (k1 + kc - 1) pool exactly, so (5, 9, 13) costs three 5x5 pools
+    (`max_pool_pyramid` of the JAX package, layers.py:367)."""
+    outs = []
+    prev, prev_k = x, 1
+    for k in ks:
+        kc = k - prev_k + 1
+        if kc < 1 or kc % 2 == 0:  # non-chainable sequence: pool from x
+            prev, prev_k = max_pool(x, k, 1, k // 2), k
+        else:
+            prev, prev_k = max_pool(prev, kc, 1, kc // 2), k
+        outs.append(prev)
+    return outs
+
+
+class Block:
+    """Base: subclasses are frozen dataclasses with static config.
+
+    `cout` and `stride_factor` drive the graph compiler's channel and
+    stride propagation."""
+
+    cout: int
+    stride_factor: float = 1.0
+
+    def init(self, gen: torch.Generator):
+        raise NotImplementedError
+
+    def apply(self, params, state, x, ctx: Ctx):
+        raise NotImplementedError
+
+
+class Composite(Block):
+    """Block made of named children; subclasses provide `children()`."""
+
+    def children(self) -> Dict[str, Block]:
+        raise NotImplementedError
+
+    def init(self, gen):
+        params, state = {}, {}
+        for name, child in self.children().items():
+            params[name], state[name] = child.init(gen)
+        return params, state
+
+    def _call(self, params, state, ctx):
+        kids = self.children()
+
+        def call(name, x):
+            return kids[name].apply(params[name], state[name], x, ctx)[0]
+
+        return call
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvBnAct(Block):
+    """Conv + BN + act (reference Conv, common.py:99-111). After
+    re-parameterization params hold a fused bias `b` instead of `bn`."""
+
+    c1: int
+    c2: int
+    k: Any = 1
+    s: Any = 1
+    p: Optional[int] = None
+    g: int = 1
+    act: Any = True
+
+    @property
+    def cout(self):
+        return self.c2
+
+    @property
+    def stride_factor(self):
+        return float(self.s if isinstance(self.s, int) else max(self.s))
+
+    def init(self, gen):
+        kh, kw = _pair(self.k)
+        w = conv_kernel_init(gen, kh, kw, self.c1 // self.g, self.c2)
+        bnp, bns = bn_init(self.c2)
+        return {"w": w, "bn": bnp}, {"bn": bns}
+
+    def apply(self, params, state, x, ctx):
+        _, fn = get_activation(self.act)
+        pad = autopad(self.k, self.p)
+        if "bn" in params:
+            y = conv2d(x, params["w"], None, self.s, pad, self.g, ctx.dtype)
+            y = batch_norm(params["bn"], state["bn"], y)
+        else:  # fused deploy form
+            y = conv2d(x, params["w"], params["b"], self.s, pad, self.g,
+                       ctx.dtype)
+        return fn(y), state
+
+
+@dataclasses.dataclass(frozen=True)
+class PlainConv(Block):
+    """Bare nn.Conv2d with bias (the detect-head 1x1 convs)."""
+
+    c1: int
+    c2: int
+    k: int = 1
+    s: int = 1
+    p: Optional[int] = None
+    g: int = 1
+
+    @property
+    def cout(self):
+        return self.c2
+
+    @property
+    def stride_factor(self):
+        return float(self.s)
+
+    def init(self, gen):
+        fan_in = (self.c1 // self.g) * self.k * self.k
+        return {"w": conv_kernel_init(gen, self.k, self.k, self.c1 // self.g,
+                                      self.c2),
+                "b": conv_bias_init(gen, self.c2, fan_in)}, {}
+
+    def apply(self, params, state, x, ctx):
+        pad = self.p if self.p is not None else 0
+        return conv2d(x, params["w"], params["b"], self.s, pad, self.g,
+                      ctx.dtype), state
+
+
+@dataclasses.dataclass(frozen=True)
+class MP(Block):
+    """MaxPool k=s (reference common.py:30); default 2x2/2 downsample."""
+
+    c1: int
+    k: int = 2
+
+    @property
+    def cout(self):
+        return self.c1
+
+    @property
+    def stride_factor(self):
+        return float(self.k)
+
+    def init(self, gen):
+        return {}, {}
+
+    def apply(self, params, state, x, ctx):
+        return max_pool(x, self.k, self.k, 0), state
+
+
+@dataclasses.dataclass(frozen=True)
+class Upsample(Block):
+    """nn.Upsample nearest, integer scale."""
+
+    c1: int
+    scale: int = 2
+
+    @property
+    def cout(self):
+        return self.c1
+
+    @property
+    def stride_factor(self):
+        return 1.0 / self.scale
+
+    def init(self, gen):
+        return {}, {}
+
+    def apply(self, params, state, x, ctx):
+        return F.interpolate(x, scale_factor=self.scale, mode="nearest"), state
+
+
+@dataclasses.dataclass(frozen=True)
+class Concat(Block):
+    """Channel concat of the routed inputs (reference common.py:56)."""
+
+    cins: Tuple[int, ...]
+
+    @property
+    def cout(self):
+        return sum(self.cins)
+
+    def init(self, gen):
+        return {}, {}
+
+    def apply(self, params, state, xs, ctx):
+        return torch.cat(list(xs), dim=1), state
+
+
+@dataclasses.dataclass(frozen=True)
+class SPPCSPC(Composite):
+    """The YOLOv7 neck block: CSP-wrapped SPP (reference common.py:260-280)."""
+
+    c1: int
+    c2: int
+    n: int = 1
+    shortcut: bool = False
+    g: int = 1
+    e: float = 0.5
+    k: Tuple[int, ...] = (5, 9, 13)
+
+    @property
+    def cout(self):
+        return self.c2
+
+    def children(self):
+        c_ = int(2 * self.c2 * self.e)
+        return {
+            "cv1": ConvBnAct(self.c1, c_, 1, 1),
+            "cv2": ConvBnAct(self.c1, c_, 1, 1),
+            "cv3": ConvBnAct(c_, c_, 3, 1),
+            "cv4": ConvBnAct(c_, c_, 1, 1),
+            "cv5": ConvBnAct(4 * c_, c_, 1, 1),
+            "cv6": ConvBnAct(c_, c_, 3, 1),
+            "cv7": ConvBnAct(2 * c_, self.c2, 1, 1),
+        }
+
+    def apply(self, params, state, x, ctx):
+        call = self._call(params, state, ctx)
+        x1 = call("cv4", call("cv3", call("cv1", x)))
+        pools = max_pool_pyramid(x1, self.k)
+        y1 = call("cv6", call("cv5", torch.cat([x1] + pools, dim=1)))
+        y2 = call("cv2", x)
+        return call("cv7", torch.cat([y1, y2], dim=1)), state
+
+
+@dataclasses.dataclass(frozen=True)
+class RepConv(Composite):
+    """RepVGG-style conv (reference common.py:463-507). Train form: 3x3+BN,
+    1x1+BN, identity BN when c1 == c2 and s == 1; deploy form (after
+    `reparam.fuse_repconv`): one 3x3 conv {w, b}."""
+
+    c1: int
+    c2: int
+    k: int = 3
+    s: int = 1
+    p: Optional[int] = None
+    g: int = 1
+    act: Any = True
+
+    def __post_init__(self):
+        if self.k != 3 or autopad(self.k, self.p) != 1:
+            raise ValueError("RepConv is 3x3 with padding 1")
+
+    @property
+    def cout(self):
+        return self.c2
+
+    @property
+    def stride_factor(self):
+        return float(self.s)
+
+    @property
+    def has_identity(self):
+        return self.c1 == self.c2 and self.s == 1
+
+    def children(self):
+        return {}
+
+    def init(self, gen):
+        bnd_p, bnd_s = bn_init(self.c2)
+        bn1_p, bn1_s = bn_init(self.c2)
+        params = {
+            "dense": {"w": conv_kernel_init(gen, 3, 3, self.c1 // self.g,
+                                            self.c2), "bn": bnd_p},
+            "one": {"w": conv_kernel_init(gen, 1, 1, self.c1 // self.g,
+                                          self.c2), "bn": bn1_p},
+        }
+        state = {"dense": {"bn": bnd_s}, "one": {"bn": bn1_s}}
+        if self.has_identity:
+            params["idbn"], state["idbn"] = bn_init(self.c1)
+        return params, state
+
+    def apply(self, params, state, x, ctx):
+        _, fn = get_activation(self.act)
+        if "w" in params:  # fused deploy form
+            return fn(conv2d(x, params["w"], params["b"], self.s, 1, self.g,
+                             ctx.dtype)), state
+        yd = conv2d(x, params["dense"]["w"], None, self.s, 1, self.g, ctx.dtype)
+        y = batch_norm(params["dense"]["bn"], state["dense"]["bn"], yd)
+        y1 = conv2d(x, params["one"]["w"], None, self.s, 0, self.g, ctx.dtype)
+        y = y + batch_norm(params["one"]["bn"], state["one"]["bn"], y1)
+        if self.has_identity:
+            y = y + batch_norm(params["idbn"], state["idbn"], x.to(y.dtype))
+        return fn(y), state

@@ -1,0 +1,67 @@
+"""Launcher and plain version of the conv + bias + SiLU kernel that the fused
+stem (`ops/fused_stem.py`) and the fused ELAN span (`ops/fused_elan.py`)
+chain. JAX counterpart: the per-stage conv of the Pallas kernels
+`ops/pallas_stem.py` and `ops/pallas_elan.py` (`conv3` / `_dot` + `_silu`).
+
+Layout: NHWC bf16 activations, HWIO bf16 weights (KH, KW, C, CO), bf16
+bias. Rounding: fp32 accumulation, + bias and SiLU in fp32, one round to
+bf16 — where the Pallas kernels round.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from yolo_series_tpu_torch.ops import _build
+
+
+def conv_silu_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                    stride: int = 1,
+                    pad: Tuple[int, int, int, int] = (0, 0, 0, 0)) -> torch.Tensor:
+    """silu(conv(x, w) + b) rounded to bf16. x (B, H, W, C) NHWC, w HWIO,
+    pad (top, bottom, left, right) zeros. Computed in fp32."""
+    t, bo, l, r = pad
+    xf = F.pad(x.float().permute(0, 3, 1, 2), (l, r, t, bo))
+    y = F.conv2d(xf, w.float().permute(3, 2, 0, 1), b.float(), stride)
+    return F.silu(y).to(torch.bfloat16).permute(0, 2, 3, 1)
+
+
+def _check_bf16_cuda(name, t):
+    if t.device.type != "cuda" or t.dtype != torch.bfloat16 or not t.is_contiguous():
+        raise ValueError(f"{name}: want a contiguous bf16 CUDA tensor, got "
+                         f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: data pointer not 16-byte aligned")
+
+
+def launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, y: torch.Tensor,
+           *, h: int, c: int, stride: int, pad_t: int, pad_l: int,
+           x_row0: int = 0, x_coff: int = 0, y_coff: int = 0) -> None:
+    """One kernel launch on the current stream: y[..., y_coff:y_coff+CO] =
+    silu(conv(x rows [x_row0, x_row0+h), channels [x_coff, x_coff+c)) + b).
+    x (B, rows, W, x_cstride), y (B, OH, OW, y_cstride), w (KH, KW, c, CO);
+    rows of x outside the h logical rows read as the conv's zero padding."""
+    for name, t in (("x", x), ("w", w), ("b", b), ("y", y)):
+        _check_bf16_cuda(name, t)
+    bsz, rows, wid, xcs = x.shape
+    kh, kw, cw, co = w.shape
+    _, oh, ow, ycs = y.shape
+    if (cw != c or c % 32 or co % 16 or xcs % 8 or x_coff % 8
+            or x_coff + c > xcs or y_coff + co > ycs or x_row0 + h > rows
+            or b.shape != (co,) or y.shape[0] != bsz):
+        raise ValueError(
+            f"conv_silu: x {tuple(x.shape)} rows [{x_row0}, +{h}) ch "
+            f"[{x_coff}, +{c}), w {tuple(w.shape)}, y {tuple(y.shape)} ch "
+            f"[{y_coff}, +{co}): want c % 32 == 0, co % 16 == 0 and slices "
+            "inside their tensors")
+    fn = _build.load("conv_silu").conv_silu_nhwc
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 18 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _build.check(fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
+                    bsz, h, wid, c, rows, x_row0, xcs, x_coff,
+                    kh, kw, stride, pad_t, pad_l, oh, ow, co, ycs, y_coff,
+                    _build.stream_ptr()), "conv_silu_nhwc")
