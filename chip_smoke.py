@@ -14,8 +14,14 @@ non-zero on failure before the last line is printed:
  3. Each kernel against its plain PyTorch version on the card, at the
     shapes the serving path gives it (batch 8, 640 px): K1 the NMS
     keep-mask (must be equal), K2 the fused stem tail and K3 the eight
-    fused ELAN spans (within a stated tolerance), each with its time, the
-    plain version's time, its bound and a cuDNN yardstick (`library_ms`).
+    fused ELAN spans (within a stated tolerance), K4 the int8 matmul with
+    dequant at the 41 quantized 1x1 convs of one forward (must be equal),
+    and K4b, its bench template, at the shapes of
+    `tools/bench_int8_pallas.py` (int8 equal, bf16 within a stated bound).
+    Each with its time, the plain version's time, its bound and a library
+    yardstick (`library_ms`: cuDNN, or `torch._int_mm`). K1-K3 are timed
+    one call between two events; K4 and K4b, whose calls are short enough
+    for the host's launch cost to show, by replaying a CUDA graph.
  4. `ServingEngine` end to end on full-width yolov7 deploy, 640 px, batch
     8, bf16, random weights from a seeded torch.Generator: a few batches
     through `infer` and a few requests through `DynamicBatcher` (with its
@@ -24,12 +30,21 @@ non-zero on failure before the last line is printed:
     here on the same card (the untransformed deploy plan through cuDNN,
     with the plain keep-mask, in fp32 and in bf16) as the tolerances
     below say. Then img/s, p50 latency and a profile of the device time.
+ 4b. The mixed int8 engine on the same weights: calibrated on two noise
+    batches, the K4-eligible 1x1 convs quantized, then the same engines
+    and main path. Launches must be K1 = K2 = F, K3 = 0, K4 = 41 F for F
+    forwards; head inputs and detections must be bit-equal to the same
+    engine with the plain K4, and the head inputs within a sanity limit of
+    the fp32 reference. Then img/s, p50 and a profile. Last, one forward
+    of full int8 (every conv but the head's, dynamic scales) at batch 2:
+    K4 = 41, K2 = 0, bit-equal with the plain K4.
  5. One JSON line of per-kernel numbers, the card's name and power limit,
     and the last line `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -38,6 +53,7 @@ import sys
 import threading
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -52,11 +68,12 @@ import yolo_series_tpu_torch  # noqa: E402
 if Path(yolo_series_tpu_torch.__file__).resolve().parent != ROOT / "yolo_series_tpu_torch":
     raise ImportError(f"yolo_series_tpu_torch is not the one beside {__file__}")
 
+from yolo_series_tpu_torch.infer import quant
 from yolo_series_tpu_torch.infer.serving import DynamicBatcher, ServingEngine
 from yolo_series_tpu_torch.models import layers as L
 from yolo_series_tpu_torch.models.model import Model, _run_layer, apply_model, tree_map
 from yolo_series_tpu_torch.models.reparam import fuse_model
-from yolo_series_tpu_torch.ops import _build, fused_elan, fused_stem, nms_keep
+from yolo_series_tpu_torch.ops import _build, fused_elan, fused_stem, int8_mm, nms_keep
 from yolo_series_tpu_torch.ops.boxes import box_iou
 from yolo_series_tpu_torch.ops.nms import fused_head_nms
 
@@ -65,6 +82,7 @@ CFG = ROOT / "yolo_series_tpu_torch/models/cfg/deploy/yolov7.yaml"
 BATCH, IMG = 8, 640
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_BF16 = 989e12
+PEAK_INT8 = 1979e12    # int8 tensor-core operations
 PEAK_FP32 = 67e12      # CUDA cores, outside the tensor cores
 PEAK_BYTES = 3.35e12
 
@@ -97,6 +115,22 @@ CONV_REL_TOL = 2e-2
 # the kernel's keep-mask must give the same detections as the plain one.
 FEAT_RATIO = 1.5
 MATCH_IOU, MATCH_SCORE, MATCH_MARGIN = 0.5, 0.1, 0.05
+# The mixed int8 engine against the same fp32 reference: a sanity limit,
+# not a quality claim. Per-tensor int8 inputs calibrated at the 99.99th
+# percentile (~4 sigma / 127 a step) add ~1% RMS noise at each of the 41
+# quantized convs, and the random network carries it to the head inputs:
+# 4.9% relative RMS at width 0.5, 128 px on the CPU (7.6% with every conv
+# but the head's quantized, dynamic scales). A wrong scale, channel or
+# transpose gives ~100%.
+INT8_FEAT_MAX = 0.25
+# K4b's bf16 form against fp32 sums of the same products: two fp32 sums of
+# K terms in different orders, each add rounded (or truncated, in the
+# tensor cores) by at most 2^-23 relative, differ by at most
+# K * 2^-22 * sum_k |x_mk w_kn|.
+BF16_MM_TOL = 2.0 ** -22
+# bench shapes of tools/bench_int8_pallas.py: its two 1x1-conv probes
+# (SHAPES_1X1) and its square compute probe
+K4B_SHAPES = ((12800, 1024, 512), (3200, 2048, 1024), (8192, 1024, 1024))
 
 
 def log(*a):
@@ -124,6 +158,34 @@ def cuda_ms(fn, iters=20, warmup=3) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def graph_ms(fn, reps=5, iters=10) -> float:
+    """Device time of one fn() call: `reps` calls captured in a CUDA graph,
+    the graph replayed `iters` times between two events (median), so the
+    host's cost of launching is not counted, as for calls that a forward
+    runs back to back while the card is busy."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    times = []
+    for _ in range(iters):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    del graph
     return statistics.median(times)
 
 
@@ -328,6 +390,125 @@ def check_k3(dev, rows):
     rows["K3"] = dict(tot, bound_by=max(by, key=by.get))
 
 
+# ------------------------------------------------------- K4 / K4b ---
+
+def k4_shapes(plan, batch, img):
+    """(M, K, N) of the K4 launches of one forward of `plan` (the fused
+    deploy plan) at `batch` x `img` px: every conv that
+    `quant.pallas_1x1_eligible` passes (the convs `quantize_model(mixed=
+    True)` quantizes), at its layer's resolution."""
+    def convs(block):
+        if isinstance(block, (L.ConvBnAct, L.RepConv, L.PlainConv)):
+            return [block]
+        if isinstance(block, L.Composite):
+            return [c for child in block.children().values() for c in convs(child)]
+        return []
+
+    out = []
+    for spec in plan.layers:
+        if spec.is_head:
+            continue
+        side = int(img / spec.stride)
+        out += [(batch * side * side, blk.c1, blk.c2)
+                for blk in convs(spec.block) * spec.n_seq
+                if quant.pallas_1x1_eligible(blk)]
+    return out
+
+
+def _int8(gen, shape, dev):
+    return torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8).to(dev)
+
+
+def check_k4(dev, rows, plan):
+    """K4 at every (M, K, N) of one batch-8, 640 px forward: equal to the
+    plain version; times summed over the forward."""
+    gen = torch.Generator().manual_seed(4)
+    shapes = k4_shapes(plan, BATCH, IMG)
+    tot = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    by = {"bytes": 0.0, "operations": 0.0}
+    ops_all = bytes_all = 0
+    for m, k, n in shapes:
+        xq = _int8(gen, (m, k), dev)
+        wq = _int8(gen, (n, k), dev).t()        # (K, N) column-major, as OIHW
+        scale = (torch.rand(n, generator=gen) * 1e-2 + 1e-4).to(dev)
+        bias = torch.randn(n, generator=gen).to(dev)
+        got = int8_mm.int8_matmul_dequant(xq, wq, scale, bias)
+        torch.cuda.synchronize()
+        want = int8_mm.int8_matmul_dequant_plain(xq, wq, scale, bias)
+        if not torch.equal(got, want):
+            diff = int((got != want).sum())
+            raise AssertionError(f"K4 ({m}, {k}, {n}): {diff} outputs differ from plain")
+        tot["max_abs_err"] = max(tot["max_abs_err"], (got - want).abs().max().item())
+        ms = graph_ms(lambda: int8_mm.int8_matmul_dequant(xq, wq, scale, bias))
+        plain_ms = graph_ms(lambda: int8_mm.int8_matmul_dequant_plain(xq, wq, scale, bias),
+                            reps=2, iters=3)
+        lib_ms = graph_ms(lambda: torch._int_mm(xq, wq).float() * scale + bias)
+        ops, nb = 2 * m * k * n, nbytes(xq, wq, scale, bias, got)
+        b_ms, b_by = bound_ms(ops, PEAK_INT8, nb)
+        log(f"K4 int8_matmul_dequant ({m}, {k}, {n}): equal to plain; {ms:.4f} ms, "
+            f"plain {plain_ms:.3f} ms, _int_mm+dequant {lib_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by})")
+        for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                       ("bound_ms", b_ms)):
+            tot[key] += v
+        by[b_by] += b_ms
+        ops_all += ops
+        bytes_all += nb
+    log(f"K4 all {len(shapes)} convs (one batch-{BATCH} forward, {ops_all / 1e9:.1f} G "
+        f"int8 ops, {bytes_all / 1e9:.3f} GB): {tot['ms']:.3f} ms, plain "
+        f"{tot['plain_ms']:.3f} ms, _int_mm+dequant {tot['library_ms']:.3f} ms, bound "
+        f"{tot['bound_ms']:.4f} ms")
+    rows["K4"] = dict(tot, bound_by=max(by, key=by.get))
+
+
+def check_k4b(dev, rows):
+    """K4b, the bench template, at the bench's shapes: int8 -> int32 equal
+    to the plain version, bf16 -> fp32 within BF16_MM_TOL; rates against
+    torch._int_mm and bf16 torch.matmul. The row's numbers are the int8
+    form's, summed over the shapes."""
+    gen = torch.Generator().manual_seed(5)
+    tot = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    by = {"bytes": 0.0, "operations": 0.0}
+    for m, k, n in K4B_SHAPES:
+        ops = 2 * m * k * n
+        x, w = _int8(gen, (m, k), dev), _int8(gen, (n, k), dev).t()
+        got = int8_mm.matmul(x, w, torch.int32)
+        torch.cuda.synchronize()
+        want = int8_mm.matmul_plain(x, w, torch.int32)
+        if not torch.equal(got, want):
+            raise AssertionError(f"K4b int8 ({m}, {k}, {n}) differs from plain")
+        tot["max_abs_err"] = max(tot["max_abs_err"], float((got - want).abs().max()))
+        ms = graph_ms(lambda: int8_mm.matmul(x, w, torch.int32))
+        plain_ms = graph_ms(lambda: int8_mm.matmul_plain(x, w, torch.int32), reps=2,
+                            iters=3)
+        lib_ms = graph_ms(lambda: torch._int_mm(x, w))
+        b_ms, b_by = bound_ms(ops, PEAK_INT8, nbytes(x, w, got))
+        for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                       ("bound_ms", b_ms)):
+            tot[key] += v
+        by[b_by] += b_ms
+
+        xb = (torch.randn((m, k), generator=gen)).to(dev, torch.bfloat16)
+        wb = (torch.randn((n, k), generator=gen) / math.sqrt(k)).to(dev, torch.bfloat16).t()
+        gotb = int8_mm.matmul(xb, wb, torch.float32)
+        torch.cuda.synchronize()
+        wantb = int8_mm.matmul_plain(xb, wb, torch.float32)
+        errb = (gotb - wantb).abs()
+        limit = k * BF16_MM_TOL * (xb.float().abs() @ wb.float().abs())
+        if not bool((errb <= limit).all()):
+            raise AssertionError(f"K4b bf16 ({m}, {k}, {n}): max abs err "
+                                 f"{errb.max().item()} beyond K * 2^-22 * sum|xw|")
+        msb = graph_ms(lambda: int8_mm.matmul(xb, wb, torch.float32))
+        libb = graph_ms(lambda: torch.matmul(xb, wb))
+        log(f"K4b matmul ({m}, {k}, {n}): int8 equal to plain, {ms:.4f} ms = "
+            f"{ops / ms / 1e9:.1f} TOPS (_int_mm {lib_ms:.4f} ms = "
+            f"{ops / lib_ms / 1e9:.1f} TOPS, plain {plain_ms:.3f} ms, bound "
+            f"{b_ms:.4f} ms, {b_by}); bf16 max abs err {errb.max().item():.3g}, "
+            f"{msb:.4f} ms = {ops / msb / 1e9:.1f} TFLOP/s (torch.matmul bf16 "
+            f"{libb:.4f} ms = {ops / libb / 1e9:.1f} TFLOP/s)")
+    rows["K4b"] = dict(tot, bound_by=max(by, key=by.get))
+
+
 # --------------------------------------------------------- serving ---
 
 def _bn_leaves(tree):
@@ -447,32 +628,30 @@ def agreement(name, got, want):
     return float(np.mean(fracs))
 
 
-def serving(dev, width=1.0, img=IMG, batch=BATCH, requests=12):
-    """Phase 4. Returns the launch counts of the main-path run and the
-    serving numbers."""
+def make_model(dev, width=1.0, img=IMG):
+    """yolov7 deploy at `width` with random weights (torch.Generator seed
+    0), livened on two noise frames and re-parameterized. Returns a
+    namespace with the fused plan, params and state, and the numpy
+    generator that made the frames (phase 4 draws its images from it)."""
     model = Model.from_yaml(_cfg(width), seed=0, device=dev)
-    n_params = model.num_params()
     rng = np.random.default_rng(0)
     calib = torch.from_numpy(rng.integers(0, 256, (2, img, img, 3), np.uint8))
     obj_bias = liven(model.plan, model.params, model.state,
                      calib.to(dev).float() / 255.0)
-    plan = model.plan
-    params, state = fuse_model(plan, model.params, model.state)
-    engine = ServingEngine(plan, params, state, batch_size=batch, img_size=img,
-                           dtype=torch.bfloat16, device=dev)
-    engine1 = ServingEngine(plan, params, state, batch_size=1, img_size=img,
-                            dtype=torch.bfloat16, device=dev)
-    names = [type(layer.block).__name__ for layer in engine.plan.layers]
-    log(f"serving: yolov7 deploy width {width}, {n_params} params, {img} px, "
-        f"batch {batch}, bf16; objectness bias {obj_bias:.3f}; the plan has "
-        f"{names.count('FusedStem')} FusedStem, {names.count('FusedELAN')} FusedELAN")
-    if names.count("FusedStem") != 1 or names.count("FusedELAN") != 8:
-        raise AssertionError(f"transforms did not engage: {names}")
+    params, state = fuse_model(model.plan, model.params, model.state)
+    return SimpleNamespace(plan=model.plan, params=params, state=state, rng=rng,
+                           n_params=model.num_params(), obj_bias=obj_bias,
+                           width=width, img=img, dev=dev)
 
-    # references on the same card: the untransformed fused plan through
-    # cuDNN with the plain keep-mask, in the working dtype and in fp32
-    ref_params = {torch.float32: params, torch.bfloat16: tree_map(
-        lambda t: t.to(torch.bfloat16) if t.dtype == torch.float32 else t, params)}
+
+def make_reference(m):
+    """The references on the same card: the untransformed fused plan through
+    cuDNN with the plain keep-mask, in the working dtype and in fp32.
+    Returns (normalized, reference): uint8 images -> the input in a dtype,
+    and (images, dtype) -> (head inputs, numpy detections)."""
+    dev = m.dev
+    ref_params = {torch.float32: m.params, torch.bfloat16: tree_map(
+        lambda t: t.to(torch.bfloat16) if t.dtype == torch.float32 else t, m.params)}
 
     def normalized(images, dtype=torch.bfloat16):
         return torch.from_numpy(images).to(dev).to(dtype) / 255.0
@@ -480,9 +659,9 @@ def serving(dev, width=1.0, img=IMG, batch=BATCH, requests=12):
     @torch.inference_mode()
     def reference(images, dtype):
         p = ref_params[dtype]
-        feats, _ = apply_model(plan, p, state, normalized(images, dtype), dtype=dtype,
+        feats, _ = apply_model(m.plan, p, m.state, normalized(images, dtype), dtype=dtype,
                                return_head_inputs=True)
-        out = fused_head_nms(plan.head, p["layers"][-1], feats, conf_thres=0.25,
+        out = fused_head_nms(m.plan.head, p["layers"][-1], feats, conf_thres=0.25,
                              iou_thres=0.45, max_det=100, max_nms=1024,
                              compute_dtype=dtype, keep_fn=nms_keep.nms_keep_mask_plain)
         return feats, {"num_dets": out.num_dets[:, None].cpu().numpy(),
@@ -490,46 +669,132 @@ def serving(dev, width=1.0, img=IMG, batch=BATCH, requests=12):
                        "det_scores": out.scores.cpu().numpy(),
                        "det_classes": out.classes.cpu().numpy()}
 
-    batches = [rng.integers(0, 256, (batch, img, img, 3), np.uint8) for _ in range(3)]
-    lone = [rng.integers(0, 256, (img, img, 3), np.uint8) for _ in range(2)]
-    frames = [f for f in rng.integers(0, 256, (requests, img, img, 3), np.uint8)]
-    engine.warmup(1)
-    engine1.warmup(1)
-    torch.cuda.synchronize() if dev.type == "cuda" else None
+    return normalized, reference
 
-    # ---- the main path, counted ----
-    for c in (nms_keep.nms_keep_mask, fused_stem.fused_stem, fused_elan.fused_elan):
-        c.launches = 0
-    engine.batches = engine1.batches = 0
+
+def zero_counts():
+    for fn in COUNTED.values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {kid: fn.launches for kid, fn in COUNTED.items()}
+
+
+def drive(engine, engine1, batches, lone, frames):
+    """The main path: `infer` on each batch and on a partial one, then lone
+    and concurrent requests through a `DynamicBatcher` with the batch-1
+    engine. Returns (outs, partial, lone results, concurrent results)."""
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize()
     outs = [engine.infer(b) for b in batches]
     partial = engine.infer(batches[0][:3])
     batcher = DynamicBatcher(engine, max_delay_ms=20, bs1_engine=engine1)
     lone_res = [DynamicBatcher.wait(batcher.submit(f), timeout=300) for f in lone]
-    results = [None] * requests
+    results = [None] * len(frames)
 
     def client(i):
         results[i] = DynamicBatcher.wait(batcher.submit(frames[i]), timeout=300)
 
-    threads = [threading.Thread(target=client, args=(i,)) for i in range(requests)]
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(frames))]
     for t in threads:
         t.start()
     for t in threads:
         t.join(timeout=300)
     batcher.close()
-    if dev.type == "cuda":
+    if engine.device.type == "cuda":
         torch.cuda.synchronize()
-    counts = {"K1": nms_keep.nms_keep_mask.launches,
-              "K2": fused_stem.fused_stem.launches,
-              "K3": fused_elan.fused_elan.launches}
+    if any(r is None for r in results + lone_res):
+        raise AssertionError("a batcher request got no result")
+    return outs, partial, lone_res, results
+
+
+def agreements(what, reference, outs, partial, lone_res, results, batches, lone,
+               frames):
+    """Mean detection agreement with the fp32 reference of the engine's
+    outputs and of cuDNN bf16's, over the main path's image sets."""
+    stacked = lambda rs: {k: np.stack([r[k] for r in rs]) for k in rs[0]}  # noqa: E731
+    sets = [(f"infer batch {j}", outs[j], b) for j, b in enumerate(batches)]
+    sets += [("partial batch", partial, batches[0][:3]),
+             ("batcher", stacked(results), np.stack(frames)),
+             ("bs1 path", stacked(lone_res), np.stack(lone))]
+    agree_eng, agree_bf16 = [], []
+    for name, got, images in sets:
+        _, want = reference(images, torch.float32)
+        _, cudnn = reference(images, torch.bfloat16)
+        agree_eng.append(agreement(name, got, want))
+        agree_bf16.append(agreement(name, cudnn, want))
+        log(f"{what}: {name}: detections agree {agree_eng[-1]:.3f} with the "
+            f"fp32 reference (cuDNN bf16 {agree_bf16[-1]:.3f}); "
+            f"{int(got['num_dets'].sum())} / {int(want['num_dets'].sum())} detections")
+    return float(np.mean(agree_eng)), float(np.mean(agree_bf16))
+
+
+def speed(engine, engine1, batches, lone, what):
+    """img/s from the device time of one `end2end`, host-to-host `infer`
+    p50 at the engine's batch and at batch 1, and a profile."""
+    batch = engine.batch_size
+    xd = torch.from_numpy(batches[0]).to(engine.device)
+    fwd_ms = cuda_ms(lambda: engine.end2end(xd), iters=20)
+    lat = []
+    for _ in range(20):
+        t = time.perf_counter()
+        engine.infer(batches[1])
+        lat.append((time.perf_counter() - t) * 1e3)
+    lat1 = []
+    for _ in range(20):
+        t = time.perf_counter()
+        engine1.infer(lone[0][None])
+        lat1.append((time.perf_counter() - t) * 1e3)
+    res = dict(img_s=batch / fwd_ms * 1e3, device_ms_bs8=fwd_ms,
+               p50_ms_bs8=statistics.median(lat), p50_ms_bs1=statistics.median(lat1))
+    log(f"{what}: {res['img_s']:.1f} img/s (device time of one batch-{batch} "
+        f"end2end {fwd_ms:.3f} ms); infer p50 host-to-host batch {batch} "
+        f"{res['p50_ms_bs8']:.3f} ms, batch 1 {res['p50_ms_bs1']:.3f} ms")
+    res.update(profile_forwards(lambda: engine.end2end(xd)))
+    return res
+
+
+def plan_names(engine):
+    names = [type(layer.block).__name__ for layer in engine.plan.layers]
+    return names.count("FusedStem"), names.count("FusedELAN")
+
+
+def serving(dev, m, batch=BATCH, requests=12):
+    """Phase 4: the bf16 engine. Returns the launch counts of the main-path
+    run and the serving numbers."""
+    img, rng = m.img, m.rng
+    plan, params, state = m.plan, m.params, m.state
+    engine = ServingEngine(plan, params, state, batch_size=batch, img_size=img,
+                           dtype=torch.bfloat16, device=dev)
+    engine1 = ServingEngine(plan, params, state, batch_size=1, img_size=img,
+                            dtype=torch.bfloat16, device=dev)
+    n_stem, n_elan = plan_names(engine)
+    log(f"serving: yolov7 deploy width {m.width}, {m.n_params} params, {img} px, "
+        f"batch {batch}, bf16; objectness bias {m.obj_bias:.3f}; the plan has "
+        f"{n_stem} FusedStem, {n_elan} FusedELAN")
+    if (n_stem, n_elan) != (1, 8):
+        raise AssertionError(f"transforms did not engage: {n_stem} stems, {n_elan} spans")
+    normalized, reference = make_reference(m)
+
+    batches = [rng.integers(0, 256, (batch, img, img, 3), np.uint8) for _ in range(3)]
+    lone = [rng.integers(0, 256, (img, img, 3), np.uint8) for _ in range(2)]
+    frames = [f for f in rng.integers(0, 256, (requests, img, img, 3), np.uint8)]
+    engine.warmup(1)
+    engine1.warmup(1)
+
+    # ---- the main path, counted ----
+    zero_counts()
+    engine.batches = engine1.batches = 0
+    outs, partial, lone_res, results = drive(engine, engine1, batches, lone, frames)
+    counts = read_counts()
     forwards = engine.batches + engine1.batches
     log(f"serving: {len(batches) + 1} infer batches, {len(lone)} lone + "
         f"{requests} concurrent batcher requests -> {engine.batches} batch-{batch} "
         f"and {engine1.batches} batch-1 forwards; launches {counts}")
-    want = {"K1": forwards, "K2": forwards, "K3": 8 * forwards}
+    want = {"K1": forwards, "K2": forwards, "K3": 8 * forwards, "K4": 0, "K4b": 0}
     if dev.type == "cuda" and counts != want:
         raise AssertionError(f"launch counts {counts}, want {want}")
-    if any(r is None for r in results + lone_res):
-        raise AssertionError("a batcher request got no result")
 
     # ---- the output against the references ----
     with torch.inference_mode():
@@ -557,21 +822,8 @@ def serving(dev, width=1.0, img=IMG, batch=BATCH, requests=12):
         raise AssertionError(f"head inputs: {err_eng} relative RMS from the fp32 "
                              f"reference, cuDNN bf16 {err_bf16}")
 
-    stacked = lambda rs: {k: np.stack([r[k] for r in rs]) for k in rs[0]}  # noqa: E731
-    sets = [(f"infer batch {j}", outs[j], b) for j, b in enumerate(batches)]
-    sets += [("partial batch", partial, batches[0][:3]),
-             ("batcher", stacked(results), np.stack(frames)),
-             ("bs1 path", stacked(lone_res), np.stack(lone))]
-    agree_eng, agree_bf16 = [], []
-    for name, got, images in sets:
-        _, want = reference(images, torch.float32)
-        _, cudnn = reference(images, torch.bfloat16)
-        agree_eng.append(agreement(name, got, want))
-        agree_bf16.append(agreement(name, cudnn, want))
-        log(f"serving: {name}: detections agree {agree_eng[-1]:.3f} with the "
-            f"fp32 reference (cuDNN bf16 {agree_bf16[-1]:.3f}); "
-            f"{int(got['num_dets'].sum())} / {int(want['num_dets'].sum())} detections")
-    agree_eng, agree_bf16 = float(np.mean(agree_eng)), float(np.mean(agree_bf16))
+    agree_eng, agree_bf16 = agreements("serving", reference, outs, partial, lone_res,
+                                       results, batches, lone, frames)
     if not agree_eng >= agree_bf16 - MATCH_MARGIN:
         raise AssertionError(f"detections agree with the fp32 reference {agree_eng:.3f}, "
                              f"cuDNN bf16's {agree_bf16:.3f}")
@@ -581,25 +833,152 @@ def serving(dev, width=1.0, img=IMG, batch=BATCH, requests=12):
            "agreement_cudnn_bf16": agree_bf16, "feature_rms_err": err_eng,
            "feature_rms_err_cudnn_bf16": err_bf16}
     if dev.type == "cuda":
-        xd = torch.from_numpy(batches[0]).to(dev)
-        fwd_ms = cuda_ms(lambda: engine.end2end(xd), iters=20)
-        lat = []
-        for _ in range(20):
-            t = time.perf_counter()
-            engine.infer(batches[1])
-            lat.append((time.perf_counter() - t) * 1e3)
-        lat1 = []
-        for _ in range(20):
-            t = time.perf_counter()
-            engine1.infer(lone[0][None])
-            lat1.append((time.perf_counter() - t) * 1e3)
-        res.update(img_s=batch / fwd_ms * 1e3, device_ms_bs8=fwd_ms,
-                   p50_ms_bs8=statistics.median(lat), p50_ms_bs1=statistics.median(lat1))
-        log(f"serving: {res['img_s']:.1f} img/s (device time of one batch-{batch} "
-            f"end2end {fwd_ms:.3f} ms); infer p50 host-to-host batch {batch} "
-            f"{res['p50_ms_bs8']:.3f} ms, batch 1 {res['p50_ms_bs1']:.3f} ms")
-        res.update(profile_forwards(lambda: engine.end2end(xd)))
+        res.update(speed(engine, engine1, batches, lone, "serving"))
     return res
+
+
+@contextlib.contextmanager
+def plain_k4():
+    """Inside: every K4 call runs the plain version, on the card too (the
+    reference run of the bit-equality checks; it counts no launch)."""
+    kernel = int8_mm.int8_matmul_dequant
+    int8_mm.int8_matmul_dequant = int8_mm.int8_matmul_dequant_plain
+    try:
+        yield
+    finally:
+        int8_mm.int8_matmul_dequant = kernel
+
+
+def _count_wq(tree):
+    if isinstance(tree, dict):
+        return ("wq" in tree) + sum(_count_wq(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_count_wq(v) for v in tree)
+    return 0
+
+
+def same_as_plain_k4(name, engine, normalized, images):
+    """Head inputs and detections of `engine` on `images`, with K4 and with
+    the plain K4: they must be bit-equal. Returns the head inputs."""
+    runs = []
+    for plain in (False, True):
+        with plain_k4() if plain else contextlib.nullcontext(), torch.inference_mode():
+            feats, _ = apply_model(engine.plan, engine._params, engine._state,
+                                   normalized(images), dtype=torch.bfloat16,
+                                   return_head_inputs=True)
+            runs.append((feats, engine.infer(images)))
+    (fk, dk), (fp, dp) = runs
+    for lvl, (a, b) in enumerate(zip(fk, fp)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name}: head input {lvl} differs between K4 and "
+                                 "the plain K4")
+    for key in dp:
+        if not np.array_equal(dk[key], dp[key]):
+            raise AssertionError(f"{name}: {key} differ between K4 and the plain K4")
+    log(f"{name}: head inputs and detections bit-equal with K4 and with the plain "
+        f"K4 ({int(dp['num_dets'].sum())} detections)")
+    return fk
+
+
+def int8_serving(dev, m, batch=BATCH, requests=12):
+    """Phase 4b: the mixed int8 engine (calibrated scales, the K4-eligible
+    1x1 convs quantized), as `tools/exp_int8_serve.py` builds it. Returns
+    its launch counts and numbers."""
+    img = m.img
+    rng = np.random.default_rng(1)
+    cal = [rng.uniform(0, 1, (2, img, img, 3)).astype(np.float32) for _ in range(2)]
+    t = time.perf_counter()
+    scales = quant.calibrate(m.plan, m.params, m.state, cal)
+    cal_s = time.perf_counter() - t
+    qp, qs = quant.quantize_model(m.plan, m.params, m.state, scales, mixed=True)
+    n_k4 = len(k4_shapes(m.plan, 1, img))
+    if _count_wq(qp) != n_k4:
+        raise AssertionError(f"{_count_wq(qp)} quantized convs, want {n_k4}")
+    engine = ServingEngine(m.plan, qp, qs, batch_size=batch, img_size=img,
+                           dtype=torch.bfloat16, device=dev)
+    engine1 = ServingEngine(m.plan, qp, qs, batch_size=1, img_size=img,
+                            dtype=torch.bfloat16, device=dev)
+    n_stem, n_elan = plan_names(engine)
+    log(f"int8 serving: calibrated {len(scales)} conv inputs on 2 x 2 noise frames "
+        f"in {cal_s:.1f} s; {n_k4} convs quantized (mixed); the plan has {n_stem} "
+        f"FusedStem, {n_elan} FusedELAN")
+    # a span fuses only while its 1x1 convs stay fp: at full width each has
+    # a quantized one (at width 0.5 the 64-channel first span has none)
+    if n_stem != 1 or (m.width == 1.0 and n_elan != 0):
+        raise AssertionError(f"want the fused stem and, at full width, no fused span "
+                             f"in mixed int8; got {n_stem} stems, {n_elan} spans")
+    normalized, reference = make_reference(m)
+
+    batches = [rng.integers(0, 256, (batch, img, img, 3), np.uint8) for _ in range(3)]
+    lone = [rng.integers(0, 256, (img, img, 3), np.uint8) for _ in range(2)]
+    frames = [f for f in rng.integers(0, 256, (requests, img, img, 3), np.uint8)]
+    engine.warmup(1)
+    engine1.warmup(1)
+
+    # ---- the int8 main path, counted ----
+    zero_counts()
+    engine.batches = engine1.batches = 0
+    outs, partial, lone_res, results = drive(engine, engine1, batches, lone, frames)
+    counts = read_counts()
+    forwards = engine.batches + engine1.batches
+    log(f"int8 serving: {engine.batches} batch-{batch} and {engine1.batches} batch-1 "
+        f"forwards; launches {counts}")
+    want = {"K1": forwards, "K2": forwards, "K3": n_elan * forwards,
+            "K4": n_k4 * forwards, "K4b": 0}
+    if dev.type == "cuda" and counts != want:
+        raise AssertionError(f"int8 launch counts {counts}, want {want}")
+
+    # ---- K4 against its plain version on the whole path; the error ----
+    feats = same_as_plain_k4("int8 serving", engine, normalized, batches[0])
+    f32, _ = reference(batches[0], torch.float32)
+    f16, _ = reference(batches[0], torch.bfloat16)
+    err_int8, err_bf16 = feature_error(feats, f32), feature_error(f16, f32)
+    log(f"int8 serving: head inputs {err_int8:.4f} relative RMS from the fp32 "
+        f"reference (cuDNN bf16 {err_bf16:.4f}); limit {INT8_FEAT_MAX}")
+    if not err_int8 <= INT8_FEAT_MAX:
+        raise AssertionError(f"int8 head inputs {err_int8} relative RMS from the fp32 "
+                             f"reference > {INT8_FEAT_MAX}")
+    agree_int8, agree_bf16 = agreements("int8 serving", reference, outs, partial,
+                                        lone_res, results, batches, lone, frames)
+    log(f"int8 serving: detections agree {agree_int8:.3f} with the fp32 reference "
+        f"(cuDNN bf16 {agree_bf16:.3f})")
+
+    res = {"launches": counts, "forwards": forwards, "agreement": agree_int8,
+           "agreement_cudnn_bf16": agree_bf16, "feature_rms_err": err_int8,
+           "feature_rms_err_cudnn_bf16": err_bf16, "calibrate_s": cal_s}
+    if dev.type == "cuda":
+        res.update(speed(engine, engine1, batches, lone, "int8 serving"))
+    return res
+
+
+def full_int8(dev, m, batch=2):
+    """Full int8 (every conv but the head's, dynamic activation scales), as
+    `tools/serve_http.py --int8` builds it: one counted forward through a
+    batch-`batch` engine, bit-equal with the plain K4."""
+    qp, qs = quant.quantize_model(m.plan, m.params, m.state)
+    engine = ServingEngine(m.plan, qp, qs, batch_size=batch, img_size=m.img,
+                           dtype=torch.bfloat16, device=dev)
+    normalized, reference = make_reference(m)
+    images = np.random.default_rng(2).integers(0, 256, (batch, m.img, m.img, 3), np.uint8)
+    zero_counts()
+    out = engine.infer(images)
+    counts = read_counts()
+    n_k4 = len(k4_shapes(m.plan, 1, m.img))
+    log(f"full int8: {_count_wq(qp)} convs quantized (dynamic scales), plan "
+        f"{plan_names(engine)} (FusedStem, FusedELAN); one batch-{batch} forward: "
+        f"launches {counts}, {int(out['num_dets'].sum())} detections")
+    want = {"K1": 1, "K2": 0, "K3": 0, "K4": n_k4, "K4b": 0}
+    if dev.type == "cuda" and counts != want:
+        raise AssertionError(f"full int8 launch counts {counts}, want {want}")
+    feats = same_as_plain_k4("full int8", engine, normalized, images)
+    f32, _ = reference(images, torch.float32)
+    err = feature_error(feats, f32)
+    log(f"full int8: head inputs {err:.4f} relative RMS from the fp32 reference; "
+        f"limit {INT8_FEAT_MAX}")
+    if not err <= INT8_FEAT_MAX:
+        raise AssertionError(f"full int8 head inputs {err} relative RMS from the fp32 "
+                             f"reference > {INT8_FEAT_MAX}")
+    return {"launches": counts, "feature_rms_err": err}
 
 
 # substrings of the names of cuDNN's convolution kernels
@@ -619,8 +998,8 @@ def profile_forwards(fn, n=5):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    groups = {"conv_silu (K2, K3)": 0.0, "nms_keep (K1)": 0.0, "cuDNN conv": 0.0,
-              "other": 0.0}
+    groups = {"conv_silu (K2, K3)": 0.0, "nms_keep (K1)": 0.0, "int8_mm (K4)": 0.0,
+              "cuDNN conv": 0.0, "other": 0.0}
     top = []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
@@ -631,6 +1010,7 @@ def profile_forwards(fn, n=5):
         name = e.key
         g = ("conv_silu (K2, K3)" if "conv_silu" in name else
              "nms_keep (K1)" if "nms_keep" in name else
+             "int8_mm (K4)" if "int8_mm" in name else
              "cuDNN conv" if any(k in name.lower() for k in CUDNN_NAMES)
              else "other")
         groups[g] += us / 1e3 / n
@@ -640,7 +1020,7 @@ def profile_forwards(fn, n=5):
         log("profile: no device time recorded (not measured)")
         return {"profile": None}
     top.sort(reverse=True)
-    log(f"profile: {n} batch-{BATCH} forwards, {wall_ms / n:.3f} ms wall each, device "
+    log(f"profile: {n} forwards, {wall_ms / n:.3f} ms wall each, device "
         f"busy {busy:.3f} ms ({busy / (wall_ms / n):.1%}); by group (ms/forward): "
         + ", ".join(f"{k} {v:.3f}" for k, v in groups.items()))
     log("profile: top kernels (ms/forward): "
@@ -668,7 +1048,15 @@ KERNELS = (
      "yolo_series_tpu/ops/pallas_stem.py:78"),
     ("K3", "fused_elan", "yolo_series_tpu_torch/csrc/conv_silu.cu",
      "yolo_series_tpu/ops/pallas_elan.py:80"),
+    ("K4", "int8_matmul_dequant", "yolo_series_tpu_torch/csrc/int8_mm.cu",
+     "yolo_series_tpu/ops/pallas_int8.py:32"),
+    ("K4b", "int8_mm.matmul", "yolo_series_tpu_torch/csrc/int8_mm.cu",
+     "tools/bench_int8_pallas.py:65"),
 )
+# each kernel's wrapper, whose `launches` counts its launches
+COUNTED = {"K1": nms_keep.nms_keep_mask, "K2": fused_stem.fused_stem,
+           "K3": fused_elan.fused_elan, "K4": int8_mm.int8_matmul_dequant,
+           "K4b": int8_mm.matmul}
 
 
 def main() -> int:
@@ -686,24 +1074,35 @@ def main() -> int:
     secs = _build.build()
     log(f"build: {len(_build.SOURCES)} kernel sources in {secs:.1f} s")
 
+    m = make_model(dev)
     rows = {}
     check_k1(dev, rows)
     check_k2(dev, rows)
     check_k3(dev, rows)
-    srv = serving(dev)
+    check_k4(dev, rows, m.plan)
+    check_k4b(dev, rows)
+    srv = serving(dev, m)
+    srv8 = int8_serving(dev, m)
+    full = full_int8(dev, m)
 
+    # K1-K3 as the bf16 path launched them, K4 (and K4b: none) as the
+    # int8 path did
+    launches = {**srv["launches"], "K4": srv8["launches"]["K4"],
+                "K4b": srv8["launches"]["K4b"]}
     kernels = []
     for kid, name, src, rep in KERNELS:
         r = rows[kid]
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": rep, "launches": srv["launches"][kid],
+                        "replaces": rep, "launches": launches[kid],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-    log(json.dumps({"serving": {k: srv[k] for k in (
-        "img_s", "device_ms_bs8", "p50_ms_bs8", "p50_ms_bs1", "profile",
-        "feature_rms_err", "feature_rms_err_cudnn_bf16", "agreement",
-        "agreement_cudnn_bf16")}, "card": card}))
+    keys = ("img_s", "device_ms_bs8", "p50_ms_bs8", "p50_ms_bs1", "profile",
+            "feature_rms_err", "feature_rms_err_cudnn_bf16", "agreement",
+            "agreement_cudnn_bf16")
+    log(json.dumps({"serving": {k: srv[k] for k in keys},
+                    "int8_serving": {k: srv8[k] for k in keys + ("calibrate_s",)},
+                    "full_int8": full, "card": card}))
     log(json.dumps({"kernels": kernels}))
     log(smi())
     log(json.dumps({"ok": True, "device": {

@@ -31,13 +31,14 @@ def to_numpy(tree):
 
 def to_jax_tree(tree, key=None):
     """The port's param tree back to the JAX package's numpy form (the
-    inverse of `models/convert.from_jax_params`: OIHW -> HWIO)."""
+    inverse of `models/convert.from_jax_params`: OIHW -> HWIO for `w` and
+    the int8 `wq`)."""
     if isinstance(tree, dict):
         return {k: to_jax_tree(v, k) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [to_jax_tree(v, key) for v in tree]
     a = tree.detach().cpu().numpy()
-    return a.transpose(2, 3, 1, 0) if key == "w" and a.ndim == 4 else a
+    return a.transpose(2, 3, 1, 0) if key in ("w", "wq") and a.ndim == 4 else a
 
 
 def jax_model(width=0.5, seed=0, size=128, candidates=150):

@@ -13,9 +13,10 @@ import numpy as np
 import pytest
 import torch
 
+from yolo_series_tpu_torch.infer import quant
 from yolo_series_tpu_torch.ops import fused_elan as fe
 from yolo_series_tpu_torch.ops import fused_stem as fs
-from yolo_series_tpu_torch.ops import nms_keep
+from yolo_series_tpu_torch.ops import int8_mm, nms_keep
 
 pytestmark = pytest.mark.cuda
 
@@ -108,3 +109,72 @@ def test_fused_elan_kernel_equals_plain(cuda, order):
     want = fe.fused_elan_plain(x, pc, order)
     assert got.shape == want.shape == (2, h, w, cout)
     _close(got, want)
+
+
+def _int8(rng, shape, cuda):
+    return torch.from_numpy(rng.integers(-127, 128, shape, dtype=np.int8)).to(cuda)
+
+
+# M not a multiple of the 128-row tile, a one-row M, and the widest K and N
+# of the yolov7 path
+@pytest.mark.parametrize("m,k,n", [(320, 256, 128), (1, 128, 128), (3200, 2048, 1024),
+                                   (20000, 128, 384)])
+def test_int8_matmul_dequant_kernel_equals_plain(cuda, m, k, n):
+    rng = np.random.default_rng(m)
+    xq, w = _int8(rng, (m, k), cuda), _int8(rng, (n, k), cuda).t()
+    scale = torch.from_numpy(rng.uniform(1e-4, 1e-2, n).astype(np.float32)).to(cuda)
+    bias = torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(cuda)
+    before = int8_mm.int8_matmul_dequant.launches
+    got = int8_mm.int8_matmul_dequant(xq, w, scale, bias)
+    torch.cuda.synchronize()
+    assert int8_mm.int8_matmul_dequant.launches == before + 1
+    assert torch.equal(got, int8_mm.int8_matmul_dequant_plain(xq, w, scale, bias))
+
+
+@pytest.mark.parametrize("m,k,n", [(12800, 1024, 512), (3200, 2048, 1024), (200, 128, 256)])
+def test_matmul_kernel_equals_plain(cuda, m, k, n):
+    """K4b: int8 -> int32 equal; bf16 -> fp32 within K * 2^-22 * sum|x w|
+    (two fp32 sums of K terms in different orders)."""
+    rng = np.random.default_rng(n)
+    x, w = _int8(rng, (m, k), cuda), _int8(rng, (n, k), cuda).t()
+    got = int8_mm.matmul(x, w, torch.int32)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32
+    assert torch.equal(got, int8_mm.matmul_plain(x, w, torch.int32))
+    xb = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(cuda, torch.bfloat16)
+    wb = torch.from_numpy(rng.normal(size=(n, k)).astype(np.float32) / k ** 0.5).to(
+        cuda, torch.bfloat16).t()
+    gotb = int8_mm.matmul(xb, wb, torch.float32)
+    torch.cuda.synchronize()
+    err = (gotb - int8_mm.matmul_plain(xb, wb, torch.float32)).abs()
+    assert bool((err <= k * 2.0 ** -22 * (xb.float().abs() @ wb.float().abs())).all())
+
+
+def test_int8_mm_wrappers_refuse_unaligned_or_transposed(cuda):
+    rng = np.random.default_rng(0)
+    x, w = _int8(rng, (256, 96), cuda), _int8(rng, (128, 96), cuda).t()
+    s = torch.ones(128, device=cuda)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        int8_mm.int8_matmul_dequant(x, w, s, s)
+    x, w = _int8(rng, (256, 128), cuda), _int8(rng, (64, 128), cuda).t()
+    with pytest.raises(ValueError, match="multiples of 128"):
+        int8_mm.matmul(x, w, torch.int32)
+    x, w = _int8(rng, (256, 128), cuda), _int8(rng, (128, 128), cuda)  # row-major (K, N)
+    with pytest.raises(ValueError, match="column-major"):
+        int8_mm.int8_matmul_dequant(x, w, s, s)
+
+
+@pytest.mark.parametrize("k,s,c,n", [(1, 1, 128, 256), (3, 1, 32, 64), (3, 2, 3, 32),
+                                     (1, 1, 96, 128)])
+def test_int8_conv_on_card_equals_cpu(cuda, k, s, c, n):
+    """`quant.int8_conv` on the card (K4, or the im2col product through
+    torch._int_mm) gives the CPU's result bit for bit."""
+    rng = np.random.default_rng(k * 10 + c)
+    x = torch.from_numpy(rng.normal(size=(2, c, 20, 20)).astype(np.float32)).contiguous(
+        memory_format=torch.channels_last)
+    w = torch.from_numpy(rng.normal(size=(n, c, k, k)).astype(np.float32))
+    wq, sw = quant.quantize_weight(w)
+    b = torch.from_numpy(rng.normal(size=n).astype(np.float32))
+    want = quant.int8_conv(x, wq, sw, b, s, k // 2, 1)
+    got = quant.int8_conv(x.to(cuda), wq.to(cuda), sw.to(cuda), b.to(cuda), s, k // 2, 1)
+    assert torch.equal(got.cpu(), want)

@@ -2,9 +2,10 @@
 `ServingEngine`, `DynamicBatcher`).
 
 ServingEngine: fixed batch and size, uint8 NHWC frames in, normalize in
-the working dtype, the re-parameterized deploy graph with the three
-serving transforms always applied (fused stem, fast stem, fused ELAN
-spans), then `ops/nms.fused_head_nms`. The response contract is the
+the working dtype, the re-parameterized deploy graph (fp, or int8 from
+`infer/quant.quantize_model`) with the three serving transforms always
+applied (fused stem, fast stem, fused ELAN spans) where they match, then
+`ops/nms.fused_head_nms`. The response contract is the
 Triton client's (deploy/triton-inference-server/client.py:15-16):
 num_dets (B, 1), det_boxes (B, max_det, 4), det_scores (B, max_det),
 det_classes (B, max_det). The engine runs eagerly on its device.
@@ -42,8 +43,10 @@ class ServingEngine:
                  conf_thres=0.25, iou_thres=0.45, max_det=100,
                  dtype=torch.bfloat16, max_nms=1024, pack_output=False,
                  device=None):
-        """plan/params/state: the fused deploy model (`reparam.fuse_model`).
-        device: the card unless "cpu" is asked for."""
+        """plan/params/state: the fused deploy model (`reparam.fuse_model`),
+        or its int8 form (`infer/quant.quantize_model`); the transforms
+        then match the convs that stayed fp. device: the card unless "cpu"
+        is asked for."""
         self.device = _device(device)
         plan, params, state = make_fused_stem(plan, params, state)
         plan, params, state = make_fast_stem(plan, params, state, max_pairs=2)
@@ -55,8 +58,18 @@ class ServingEngine:
                 return t.to(self.device, dtype)
             return t.to(self.device)
 
+        def place_tree(tree):  # an int8 leaf keeps sw, sx and b in fp32,
+            # as the JAX package does (quant.int8_conv dequantizes in fp32)
+            if isinstance(tree, dict) and "wq" in tree:
+                return tree_map(lambda t: t.to(self.device), tree)
+            if isinstance(tree, dict):
+                return {k: place_tree(v) for k, v in tree.items()}
+            if isinstance(tree, (list, tuple)):
+                return type(tree)(place_tree(v) for v in tree)
+            return place(tree) if isinstance(tree, torch.Tensor) else tree
+
         self.plan = plan
-        self._params = tree_map(place, params)
+        self._params = place_tree(params)
         self._state = tree_map(place, state)
         self.batch_size = batch_size
         self.img_size = img_size

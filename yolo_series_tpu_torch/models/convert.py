@@ -4,8 +4,9 @@ JAX counterpart: the param/state trees of `yolo_series_tpu.models.model`
 (`init_model`, `reparam.fuse_model`). `from_jax_params` takes those trees
 with numpy leaves — unfused (BN) or fused ({w, b}) — and returns the
 port's trees: the same nesting and keys, torch tensors on the CPU, conv
-weights turned from HWIO into OIHW. Both packages then compute the same
-function of the same weights.
+weights (`w`, and `wq` of the int8 trees of `infer/quant.py`) turned
+from HWIO into OIHW; the int8 leaves' `sw`, `sx` and `b` stay fp32. Both
+packages then compute the same function of the same weights.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ def _convert(tree, key=None):
     if isinstance(tree, (list, tuple)):
         return [_convert(v, key) for v in tree]
     t = _tensor(tree)
-    if key == "w" and t.ndim == 4:  # HWIO -> OIHW
+    if key in ("w", "wq") and t.ndim == 4:  # HWIO -> OIHW (fp32 or int8)
         t = t.permute(3, 2, 0, 1).contiguous()
     return t
 

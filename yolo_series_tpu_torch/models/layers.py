@@ -8,9 +8,10 @@ transforms stay plain tree edits. Params are dicts of tensors; conv
 weights are OIHW. Activations are NCHW tensors, kept in `channels_last`
 memory by the model, so a permute gives kernels contiguous NHWC.
 
-Only what the yolov7 deploy graph runs is here: ConvBnAct (BN or fused
-{w, b} form), PlainConv (detect-head convs), MP, Upsample, Concat, SPPCSPC
-and RepConv. The rest of the zoo is ROADMAP queue 1, slice 3.
+Only what the yolov7 deploy graph runs is here: ConvBnAct (BN, fused
+{w, b} or int8 {wq, sw, b[, sx]} form), PlainConv (detect-head convs), MP,
+Upsample, Concat, SPPCSPC and RepConv. The rest of the zoo is ROADMAP
+queue 1, slice 3.
 """
 
 from __future__ import annotations
@@ -27,9 +28,13 @@ BN_EPS = 1e-3       # layers.BN_EPS of the JAX package
 
 @dataclasses.dataclass(frozen=True)
 class Ctx:
-    """Per-forward context: the working dtype of the convs."""
+    """Per-forward context: the working dtype of the convs, and the int8
+    calibration hook `observer(path, x)`, fired at every conv input with
+    the conv's param path (set only while an observer is given)."""
 
     dtype: torch.dtype = torch.float32
+    observer: Any = None
+    path: str = ""
 
 
 ACTIVATIONS = {"silu": F.silu, "identity": lambda x: x}
@@ -161,9 +166,19 @@ class Composite(Block):
         kids = self.children()
 
         def call(name, x):
-            return kids[name].apply(params[name], state[name], x, ctx)[0]
+            c = (dataclasses.replace(ctx, path=f"{ctx.path}/{name}")
+                 if ctx.observer is not None else ctx)
+            return kids[name].apply(params[name], state[name], x, c)[0]
 
         return call
+
+
+def _int8_conv(params, x, stride, padding, groups):
+    """The int8 deploy form ({wq, sw, b[, sx]}, `infer/quant.py`) on fp32."""
+    from yolo_series_tpu_torch.infer.quant import int8_conv
+
+    return int8_conv(x.float(), params["wq"], params["sw"], params["b"], stride,
+                     padding, groups, params.get("sx"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -196,6 +211,11 @@ class ConvBnAct(Block):
     def apply(self, params, state, x, ctx):
         _, fn = get_activation(self.act)
         pad = autopad(self.k, self.p)
+        if ctx.observer is not None:
+            ctx.observer(ctx.path, x)
+        if "wq" in params:  # int8 deploy form (infer/quant.py)
+            y = _int8_conv(params, x, self.s, pad, self.g)
+            return fn(y).to(x.dtype), state
         if "bn" in params:
             y = conv2d(x, params["w"], None, self.s, pad, self.g, ctx.dtype)
             y = batch_norm(params["bn"], state["bn"], y)
@@ -232,6 +252,10 @@ class PlainConv(Block):
 
     def apply(self, params, state, x, ctx):
         pad = self.p if self.p is not None else 0
+        if ctx.observer is not None:
+            ctx.observer(ctx.path, x)
+        if "wq" in params:
+            return _int8_conv(params, x, self.s, pad, self.g).to(x.dtype), state
         return conv2d(x, params["w"], params["b"], self.s, pad, self.g,
                       ctx.dtype), state
 
@@ -383,6 +407,10 @@ class RepConv(Composite):
 
     def apply(self, params, state, x, ctx):
         _, fn = get_activation(self.act)
+        if ctx.observer is not None:
+            ctx.observer(ctx.path, x)
+        if "wq" in params:  # int8 deploy form
+            return fn(_int8_conv(params, x, self.s, 1, self.g)).to(x.dtype), state
         if "w" in params:  # fused deploy form
             return fn(conv2d(x, params["w"], params["b"], self.s, 1, self.g,
                              ctx.dtype)), state

@@ -10,6 +10,7 @@ boundary, as in the JAX package; inside, activations are NCHW tensors in
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -54,28 +55,37 @@ def init_model(plan: GraphPlan, generator: torch.Generator) -> Tuple[Any, Any]:
     return {"layers": params}, {"layers": state}
 
 
-def _run_layer(ctx, spec, p, s, inp):
+def _run_layer(ctx, spec, p, s, inp, idx=0):
+    """One non-head layer. With an observer, the blocks see the param path
+    of layer `idx` ("l{idx}", or "l{idx}.{r}" for a repeat)."""
+    def at(path):
+        return dataclasses.replace(ctx, path=path) if ctx.observer is not None else ctx
+
     if spec.n_seq > 1:
         cur = inp
         for r in range(spec.n_seq):
-            cur, _ = spec.block.apply(p[r], s[r], cur, ctx)
+            cur, _ = spec.block.apply(p[r], s[r], cur, at(f"l{idx}.{r}"))
         return cur
-    return spec.block.apply(p, s, inp, ctx)[0]
+    return spec.block.apply(p, s, inp, at(f"l{idx}"))[0]
 
 
 def apply_model(plan: GraphPlan, params, state, x, *, training: bool = False,
-                dtype: torch.dtype = torch.float32,
+                dtype: torch.dtype = torch.float32, observer=None,
                 return_head_inputs: bool = False):
     """Run the graph. x: (B, H, W, C) NHWC in [0, 1].
 
     Returns (out, state): the head's {"pred": (B, A, no), "raw": [...]}, or
     with return_head_inputs=True the head's per-level NHWC inputs (the
     serving path fuses the head with NMS, ops/nms.fused_head_nms).
+
+    observer(path, x): fired at every conv input with the paths of
+    `infer/quant.quantize_tree` ("l3", "l51/cv1", "l7.0"; the head's convs
+    with path "", as in the JAX package), for int8 calibration.
     """
     if training:
         raise NotImplementedError(
             "the training-mode forward is ROADMAP queue 1, slice 2 (item 8)")
-    ctx = Ctx(dtype=dtype)
+    ctx = Ctx(dtype=dtype, observer=observer)
     lp, ls = params["layers"], state["layers"]
     saved: Dict[int, torch.Tensor] = {}
     y = x.to(dtype).permute(0, 3, 1, 2).contiguous(
@@ -90,7 +100,7 @@ def apply_model(plan: GraphPlan, params, state, x, *, training: bool = False,
                 return [t.permute(0, 2, 3, 1) for t in inp], state
             out, _ = spec.block.apply(lp[idx], ls[idx], inp, ctx)
             return out, state
-        y = _run_layer(ctx, spec, lp[idx], ls[idx], inp)
+        y = _run_layer(ctx, spec, lp[idx], ls[idx], inp, idx)
         if idx in plan.save:
             saved[idx] = y
     raise ValueError("graph plan ended without a head layer")

@@ -29,10 +29,11 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
-# per-source extra flags: the keep-mask must round IoU exactly as the plain
-# PyTorch version does, so no multiply-add contraction in that file
-EXTRA_FLAGS = {"nms_keep": ["-fmad=false"]}
-SOURCES = ("nms_keep", "conv_silu")
+# per-source extra flags: the keep-mask's IoU and the int8 matmul's dequant
+# epilogue must round exactly as their plain PyTorch versions do, so no
+# multiply-add contraction in those files
+EXTRA_FLAGS = {"nms_keep": ["-fmad=false"], "int8_mm": ["-fmad=false"]}
+SOURCES = ("nms_keep", "conv_silu", "int8_mm")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
