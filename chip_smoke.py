@@ -10,26 +10,33 @@ It imports torch, numpy and the port only. Phases, each of which exits
 non-zero on failure before the last line is printed:
 
  1. torch / CUDA versions and the card (`nvidia-smi` name and power limit).
- 2. Build every kernel of the serving path (`nvcc`, sm_90a), timed.
+ 2. Build every kernel of the serving path (`nvcc`, sm_90a), timed, and
+    print `ptxas -v`'s registers, shared memory and spills of conv_silu.
  3. Each kernel against its plain PyTorch version on the card, at the
     shapes the serving path gives it (batch 8, 640 px): K1 the NMS
     keep-mask (must be equal), K2 the fused stem tail and K3 the eight
-    fused ELAN spans (within a stated tolerance), K4 the int8 matmul with
+    fused ELAN spans (within a stated tolerance; beside the fused bound,
+    the staged floor: the sum of each launch's own bound), then each of
+    their 51 conv + SiLU launches alone (ms, TFLOP/s, GB/s, share of its
+    bound, cuDNN on the same tensors), K4 the int8 matmul with
     dequant at the 41 quantized 1x1 convs of one forward (must be equal),
     and K4b, its bench template, at the shapes of
     `tools/bench_int8_pallas.py` (int8 equal, bf16 within a stated bound).
     Each with its time, the plain version's time, its bound and a library
-    yardstick (`library_ms`: cuDNN, or `torch._int_mm`). K1-K3 are timed
-    one call between two events; K4 and K4b, whose calls are short enough
-    for the host's launch cost to show, by replaying a CUDA graph.
+    yardstick (`library_ms`: cuDNN, or `torch._int_mm`). K1 is timed one
+    call between two events; K2-K4b, whose calls are short enough for the
+    host's launch cost to show, by replaying a CUDA graph (device time),
+    and K2, K3 and their cuDNN chains also one call between two events.
  4. `ServingEngine` end to end on full-width yolov7 deploy, 640 px, batch
     8, bf16, random weights from a seeded torch.Generator: a few batches
     through `infer` and a few requests through `DynamicBatcher` (with its
     batch-1 low-latency engine). The kernel launch counters must grow by
-    the expected amounts, and the output must agree with references built
+    the expected amounts (conv_silu: 3 launches per stem, 6 per span),
+    and the output must agree with references built
     here on the same card (the untransformed deploy plan through cuDNN,
     with the plain keep-mask, in fp32 and in bf16) as the tolerances
-    below say. Then img/s, p50 latency and a profile of the device time.
+    below say. Then img/s, p50 latency, the host's enqueue time of one
+    forward and a profile of the device time.
  4b. The mixed int8 engine on the same weights: calibrated on two noise
     batches, the K4-eligible 1x1 convs quantized, then the same engines
     and main path. Launches must be K1 = K2 = F, K3 = 0, K4 = 41 F for F
@@ -73,7 +80,8 @@ from yolo_series_tpu_torch.infer.serving import DynamicBatcher, ServingEngine
 from yolo_series_tpu_torch.models import layers as L
 from yolo_series_tpu_torch.models.model import Model, _run_layer, apply_model, tree_map
 from yolo_series_tpu_torch.models.reparam import fuse_model
-from yolo_series_tpu_torch.ops import _build, fused_elan, fused_stem, int8_mm, nms_keep
+from yolo_series_tpu_torch.ops import (_build, conv_silu, fused_elan, fused_stem,
+                                       int8_mm, nms_keep)
 from yolo_series_tpu_torch.ops.boxes import box_iou
 from yolo_series_tpu_torch.ops.nms import fused_head_nms
 
@@ -313,7 +321,8 @@ def check_k2(dev, rows):
     torch.cuda.synchronize()
     want = fused_stem.fused_stem_plain(x, p)
     err = _close("K2 fused_stem", got, want)
-    ms = cuda_ms(lambda: fused_stem.fused_stem(x, p))
+    ms = graph_ms(lambda: fused_stem.fused_stem(x, p))
+    one_ms = cuda_ms(lambda: fused_stem.fused_stem(x, p))
     plain_ms = cuda_ms(lambda: fused_stem.fused_stem_plain(x, p), iters=5)
     xr = x[:, fused_stem._PAD:-fused_stem._PAD]
 
@@ -322,31 +331,38 @@ def check_k2(dev, rows):
         s2 = _cudnn_conv_silu(s1, p["ws2"], p["b2"], 1, (1, 1, 1, 1))
         return _cudnn_conv_silu(s2, p["ws3"], p["b3"], 2, (1, 1, 1, 1))
 
-    lib_ms = cuda_ms(library)
-    ops = 2 * BATCH * (hx * wid * 4 * c1 * cm + hx * wid * 9 * cm * cm
-                       + (hx // 2) * (wid // 2) * 9 * cm * c2)
+    lib_ms, lib_one_ms = graph_ms(library), cuda_ms(library)
+    stages = stem_stages(BATCH, hx, wid, c1, cm, c2)
+    ops = sum(stage_cost(st)[0] for st in stages)
     b_ms, b_by = bound_ms(ops, PEAK_BF16, nbytes(x, got, *p.values()))
+    floor = staged_floor(stages)
     log(f"K2 fused_stem x {tuple(x.shape)} -> {tuple(got.shape)}: max abs err "
-        f"{err:.4g}; {ms:.3f} ms, plain {plain_ms:.3f} ms, cuDNN {lib_ms:.3f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by}, {ops / 1e9:.1f} GFLOP)")
+        f"{err:.4g}; {ms:.3f} ms (one call {one_ms:.3f}), plain {plain_ms:.3f} ms, "
+        f"cuDNN {lib_ms:.3f} ms (one call {lib_one_ms:.3f}), bound {b_ms:.4f} ms "
+        f"({b_by}, {ops / 1e9:.1f} GFLOP), staged floor {floor:.4f} ms")
     rows["K2"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                      bound_by=b_by, library_ms=lib_ms)
+                      bound_by=b_by, library_ms=lib_ms, staged_floor_ms=floor,
+                      one_call_ms=one_ms, library_one_call_ms=lib_one_ms)
 
 
 def span_params(gen, cin, ct, cc, cout, order, dev):
+    """A span's params as `fused_elan.pack_span` lays them out (merged
+    x4/x5 weight included)."""
     _, cat = fused_elan.concat_slots(order, ct, cc)
-    return {"w4": _conv_w(gen, 1, 1, cin, ct, dev), "b4": _bf16(gen, (ct,), 0.1, dev),
-            "w5": _conv_w(gen, 1, 1, cin, ct, dev), "b5": _bf16(gen, (ct,), 0.1, dev),
-            "wc0": _conv_w(gen, 3, 3, ct, cc, dev), "bc0": _bf16(gen, (cc,), 0.1, dev),
-            "wc": torch.stack([_conv_w(gen, 3, 3, cc, cc, dev) for _ in range(3)]),
-            "bc": _bf16(gen, (3, cc), 0.1, dev),
-            "w11": _conv_w(gen, 1, 1, cat, cout, dev), "b11": _bf16(gen, (cout,), 0.1, dev)}
+    return fused_elan.merge_x45({
+        "w4": _conv_w(gen, 1, 1, cin, ct, dev), "b4": _bf16(gen, (ct,), 0.1, dev),
+        "w5": _conv_w(gen, 1, 1, cin, ct, dev), "b5": _bf16(gen, (ct,), 0.1, dev),
+        "wc0": _conv_w(gen, 3, 3, ct, cc, dev), "bc0": _bf16(gen, (cc,), 0.1, dev),
+        "wc": torch.stack([_conv_w(gen, 3, 3, cc, cc, dev) for _ in range(3)]),
+        "bc": _bf16(gen, (3, cc), 0.1, dev),
+        "w11": _conv_w(gen, 1, 1, cat, cout, dev), "b11": _bf16(gen, (cout,), 0.1, dev)})
 
 
 def check_k3(dev, rows):
     gen = torch.Generator().manual_seed(3)
     tot = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
-               library_ms=0.0)
+               library_ms=0.0, staged_floor_ms=0.0, one_call_ms=0.0,
+               library_one_call_ms=0.0)
     by = {"bytes": 0.0, "operations": 0.0}  # bound time of each kind
     for h, cin, ct, cc, cout, order in SPANS:
         p = span_params(gen, cin, ct, cc, cout, order, dev)
@@ -355,9 +371,10 @@ def check_k3(dev, rows):
         torch.cuda.synchronize()
         want = fused_elan.fused_elan_plain(x, p, order)
         err = _close(f"K3 fused_elan {order} {h}x{h}x{cin}", got, want)
-        ms = cuda_ms(lambda: fused_elan.fused_elan(x, p, order))
+        ms = graph_ms(lambda: fused_elan.fused_elan(x, p, order))
+        one_ms = cuda_ms(lambda: fused_elan.fused_elan(x, p, order))
         plain_ms = cuda_ms(lambda: fused_elan.fused_elan_plain(x, p, order), iters=5)
-        slots, cat_w = fused_elan.concat_slots(order, ct, cc)
+        slots, _ = fused_elan.concat_slots(order, ct, cc)
 
         def library():
             same = (1, 1, 1, 1)
@@ -369,25 +386,116 @@ def check_k3(dev, rows):
             cat = torch.cat([t[n] for n in slots], dim=-1)
             return _cudnn_conv_silu(cat, p["w11"], p["b11"], 1, (0, 0, 0, 0))
 
-        lib_ms = cuda_ms(library)
-        ops = 2 * BATCH * h * h * (2 * cin * ct + 9 * ct * cc + 27 * cc * cc
-                                   + cat_w * cout)
-        nb = nbytes(x, got, *p.values())
+        lib_ms, lib_one_ms = graph_ms(library), cuda_ms(library)
+        stages = span_stages(BATCH, h, cin, ct, cc, cout, order)
+        ops = sum(stage_cost(st)[0] for st in stages)
+        # the fused bound: the span's input, weights and output only (the
+        # merged w45/b45 repeat w4/w5, b4/b5)
+        nb = nbytes(x, got, *(v for k, v in p.items() if k not in ("w45", "b45")))
         b_ms, b_by = bound_ms(ops, PEAK_BF16, nb)
+        floor = staged_floor(stages)
         log(f"K3 fused_elan {order:8s} x {tuple(x.shape)} -> {tuple(got.shape)}: "
-            f"max abs err {err:.4g}; {ms:.3f} ms, plain {plain_ms:.3f} ms, cuDNN "
-            f"{lib_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}, "
-            f"{ops / 1e9:.1f} GFLOP)")
+            f"max abs err {err:.4g}; {ms:.3f} ms (one call {one_ms:.3f}), plain "
+            f"{plain_ms:.3f} ms, cuDNN {lib_ms:.3f} ms (one call {lib_one_ms:.3f}), "
+            f"bound {b_ms:.4f} ms ({b_by}, {ops / 1e9:.1f} GFLOP), staged floor "
+            f"{floor:.4f} ms")
         tot["max_abs_err"] = max(tot["max_abs_err"], err)
         for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
-                       ("bound_ms", b_ms)):
+                       ("bound_ms", b_ms), ("staged_floor_ms", floor),
+                       ("one_call_ms", one_ms), ("library_one_call_ms", lib_one_ms)):
             tot[key] += v
         by[b_by] += b_ms
     # the spans run one after another: their bounds add up
-    log(f"K3 all 8 spans (one batch-{BATCH} forward): {tot['ms']:.3f} ms, plain "
-        f"{tot['plain_ms']:.3f} ms, cuDNN {tot['library_ms']:.3f} ms, bound "
-        f"{tot['bound_ms']:.4f} ms")
+    log(f"K3 all 8 spans (one batch-{BATCH} forward): {tot['ms']:.3f} ms (one call "
+        f"each {tot['one_call_ms']:.3f}), plain {tot['plain_ms']:.3f} ms, cuDNN "
+        f"{tot['library_ms']:.3f} ms (one call each {tot['library_one_call_ms']:.3f}), "
+        f"bound {tot['bound_ms']:.4f} ms, staged floor {tot['staged_floor_ms']:.4f} ms")
     rows["K3"] = dict(tot, bound_by=max(by, key=by.get))
+
+
+# Each launch of the conv + SiLU kernel in K2 and K3: (label, B, H, W, c,
+# KH, KW, stride, pad (top, bottom, left, right), co). A span's x4 and x5
+# are one launch (x45, N = 2 ct).
+def stem_stages(b, hx, wid, c1, cm, c2):
+    return [("K2 s1 k2", b, hx, wid, c1, 2, 2, 1, (1, 0, 1, 0), cm),
+            ("K2 s2 k3", b, hx, wid, cm, 3, 3, 1, (1, 1, 1, 1), cm),
+            ("K2 s3 k3/s2", b, hx, wid, cm, 3, 3, 2, (1, 1, 1, 1), c2)]
+
+
+def span_stages(b, h, cin, ct, cc, cout, order):
+    tag = f"{order[:4]}{h}"
+    _, cat = fused_elan.concat_slots(order, ct, cc)
+    same = (1, 1, 1, 1)
+    return ([(f"K3 {tag} x45", b, h, h, cin, 1, 1, 1, (0, 0, 0, 0), 2 * ct),
+             (f"K3 {tag} c1", b, h, h, ct, 3, 3, 1, same, cc)]
+            + [(f"K3 {tag} c{j}", b, h, h, cc, 3, 3, 1, same, cc) for j in (2, 3, 4)]
+            + [(f"K3 {tag} out", b, h, h, cat, 1, 1, 1, (0, 0, 0, 0), cout)])
+
+
+def stage_cost(stage):
+    """(operations, bytes, output shape) of one launch: 2 M N K, and its
+    input, weight, bias and output each moved once."""
+    _, b, h, w, c, kh, kw, stride, (t, bo, l, r), co = stage
+    oh, ow = (h + t + bo - kh) // stride + 1, (w + l + r - kw) // stride + 1
+    ops = 2 * b * oh * ow * co * kh * kw * c
+    nb = 2 * (b * h * w * c + kh * kw * c * co + co + b * oh * ow * co)
+    return ops, nb, (b, oh, ow, co)
+
+
+def staged_floor(stages):
+    """Least time of a design that writes each stage's output to device
+    memory: the sum over its launches of each one's bound."""
+    total = 0.0
+    for st in stages:
+        ops, nb, _ = stage_cost(st)
+        total += bound_ms(ops, PEAK_BF16, nb)[0]
+    return total
+
+
+def check_stages(dev, rows):
+    """Every launch of K2 and K3 at its serving shape, alone: the kernel
+    against the plain version, its time (CUDA-graph replay), achieved
+    TFLOP/s and GB/s, its share of its own bound, and one cuDNN conv + SiLU
+    on the same tensors."""
+    gen = torch.Generator().manual_seed(6)
+    stages = stem_stages(BATCH, IMG // 2, IMG // 2, 128, 64, 128)
+    for h, cin, ct, cc, cout, order in SPANS:
+        stages += span_stages(BATCH, h, cin, ct, cc, cout, order)
+    out = []
+    for st in stages:
+        label, b, h, w, c, kh, kw, stride, pad, co = st
+        ops, nb, yshape = stage_cost(st)
+        x = _bf16(gen, (b, h, w, c), 1.0, dev)
+        wt = _conv_w(gen, kh, kw, c, co, dev)
+        bias = _bf16(gen, (co,), 0.1, dev)
+        y = torch.empty(yshape, dtype=torch.bfloat16, device=dev)
+
+        def run():
+            conv_silu.launch(x, wt, bias, y, h=h, c=c, stride=stride, pad_t=pad[0],
+                             pad_l=pad[2])
+
+        run()
+        torch.cuda.synchronize()
+        err = _close(label, y, conv_silu.conv_silu_plain(x, wt, bias, stride, pad))
+        ms = graph_ms(run)
+        lib_ms = graph_ms(lambda: _cudnn_conv_silu(x, wt, bias, stride, pad))
+        b_ms, b_by = bound_ms(ops, PEAK_BF16, nb)
+        m, k = b * yshape[1] * yshape[2], kh * kw * c
+        log(f"stage {label:16s} (M, N, K, s) = ({m}, {co}, {k}, {stride}): "
+            f"{ms:.4f} ms, {ops / ms / 1e9:.1f} TFLOP/s, {nb / ms / 1e6:.1f} GB/s, "
+            f"{b_ms / ms:.1%} of its bound {b_ms:.4f} ms ({b_by}); cuDNN "
+            f"{lib_ms:.4f} ms; max abs err {err:.3g}")
+        out.append(dict(stage=label, m=m, n=co, k=k, stride=stride, ms=ms,
+                        bound_ms=b_ms, bound_by=b_by, cudnn_ms=lib_ms))
+        del x, wt, bias, y
+    k2 = [r for r in out if r["stage"].startswith("K2")]
+    k3 = [r for r in out if r["stage"].startswith("K3")]
+    for name, rs in (("K2", k2), ("K3", k3)):
+        log(f"stages {name}: {len(rs)} launches, {sum(r['ms'] for r in rs):.3f} ms "
+            f"alone (graph replay) against a staged floor of "
+            f"{sum(r['bound_ms'] for r in rs):.4f} ms; cuDNN "
+            f"{sum(r['cudnn_ms'] for r in rs):.3f} ms")
+    rows["stages"] = out
 
 
 # ------------------------------------------------------- K4 / K4b ---
@@ -675,6 +783,7 @@ def make_reference(m):
 def zero_counts():
     for fn in COUNTED.values():
         fn.launches = 0
+    conv_silu.launch.launches = 0
 
 
 def read_counts():
@@ -746,11 +855,23 @@ def speed(engine, engine1, batches, lone, what):
         t = time.perf_counter()
         engine1.infer(lone[0][None])
         lat1.append((time.perf_counter() - t) * 1e3)
+    # the host's time to enqueue one end2end (host clock, no synchronise
+    # inside the window): beside the device busy time, it says whether the
+    # host or the card paces the engine
+    enq = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        engine.end2end(xd)
+        enq.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
     res = dict(img_s=batch / fwd_ms * 1e3, device_ms_bs8=fwd_ms,
-               p50_ms_bs8=statistics.median(lat), p50_ms_bs1=statistics.median(lat1))
+               p50_ms_bs8=statistics.median(lat), p50_ms_bs1=statistics.median(lat1),
+               enqueue_ms_bs8=statistics.median(enq))
     log(f"{what}: {res['img_s']:.1f} img/s (device time of one batch-{batch} "
         f"end2end {fwd_ms:.3f} ms); infer p50 host-to-host batch {batch} "
-        f"{res['p50_ms_bs8']:.3f} ms, batch 1 {res['p50_ms_bs1']:.3f} ms")
+        f"{res['p50_ms_bs8']:.3f} ms, batch 1 {res['p50_ms_bs1']:.3f} ms; host "
+        f"enqueue of one end2end {res['enqueue_ms_bs8']:.3f} ms (median of 20)")
     res.update(profile_forwards(lambda: engine.end2end(xd)))
     return res
 
@@ -795,6 +916,13 @@ def serving(dev, m, batch=BATCH, requests=12):
     want = {"K1": forwards, "K2": forwards, "K3": 8 * forwards, "K4": 0, "K4b": 0}
     if dev.type == "cuda" and counts != want:
         raise AssertionError(f"launch counts {counts}, want {want}")
+    # device launches of the conv + SiLU kernel: 3 per stem, 6 per span
+    conv_launches = conv_silu.launch.launches
+    log(f"serving: {conv_launches} conv_silu launches for {forwards} forwards "
+        f"(3 per stem + 6 per span = {3 + 6 * 8} a forward)")
+    if dev.type == "cuda" and conv_launches != (3 + 6 * 8) * forwards:
+        raise AssertionError(f"{conv_launches} conv_silu launches, want "
+                             f"{(3 + 6 * 8) * forwards}")
 
     # ---- the output against the references ----
     with torch.inference_mode():
@@ -927,6 +1055,10 @@ def int8_serving(dev, m, batch=BATCH, requests=12):
             "K4": n_k4 * forwards, "K4b": 0}
     if dev.type == "cuda" and counts != want:
         raise AssertionError(f"int8 launch counts {counts}, want {want}")
+    want_conv = (3 + 6 * n_elan) * forwards
+    if dev.type == "cuda" and conv_silu.launch.launches != want_conv:
+        raise AssertionError(f"int8: {conv_silu.launch.launches} conv_silu launches, "
+                             f"want {want_conv}")
 
     # ---- K4 against its plain version on the whole path; the error ----
     feats = same_as_plain_k4("int8 serving", engine, normalized, batches[0])
@@ -1073,12 +1205,15 @@ def main() -> int:
 
     secs = _build.build()
     log(f"build: {len(_build.SOURCES)} kernel sources in {secs:.1f} s")
+    for line in _build.ptxas_info("conv_silu"):
+        log(f"conv_silu.cu {line}")
 
     m = make_model(dev)
     rows = {}
     check_k1(dev, rows)
     check_k2(dev, rows)
     check_k3(dev, rows)
+    check_stages(dev, rows)
     check_k4(dev, rows, m.plan)
     check_k4b(dev, rows)
     srv = serving(dev, m)
@@ -1097,12 +1232,14 @@ def main() -> int:
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-    keys = ("img_s", "device_ms_bs8", "p50_ms_bs8", "p50_ms_bs1", "profile",
+    keys = ("img_s", "device_ms_bs8", "p50_ms_bs8", "p50_ms_bs1", "enqueue_ms_bs8",
+            "profile",
             "feature_rms_err", "feature_rms_err_cudnn_bf16", "agreement",
             "agreement_cudnn_bf16")
     log(json.dumps({"serving": {k: srv[k] for k in keys},
                     "int8_serving": {k: srv8[k] for k in keys + ("calibrate_s",)},
-                    "full_int8": full, "card": card}))
+                    "full_int8": full, "fused": {"K2": rows["K2"], "K3": rows["K3"]},
+                    "stages": rows["stages"], "card": card}))
     log(json.dumps({"kernels": kernels}))
     log(smi())
     log(json.dumps({"ok": True, "device": {

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from yolo_series_tpu_torch.infer import quant
+from yolo_series_tpu_torch.ops import conv_silu
 from yolo_series_tpu_torch.ops import fused_elan as fe
 from yolo_series_tpu_torch.ops import fused_stem as fs
 from yolo_series_tpu_torch.ops import int8_mm, nms_keep
@@ -85,8 +86,10 @@ def test_fused_stem_kernel_equals_plain(cuda):
          "ws3": _bf16(rng, (3, 3, cm, co), 0.05), "b3": _bf16(rng, (co,), 0.1)}
     x = _bf16(rng, (2, hx + 2 * fs._PAD, w, c1), 1.0)  # halo rows non-zero
     pc = {k: v.to(cuda) for k, v in p.items()}
+    before = conv_silu.launch.launches
     got = fs.fused_stem(x.to(cuda), pc)
     torch.cuda.synchronize()
+    assert conv_silu.launch.launches == before + 3
     want = fs.fused_stem_plain(x.to(cuda), pc)
     assert got.shape == want.shape == (2, hx // 2, w // 2, co)
     _close(got, want)
@@ -102,13 +105,103 @@ def test_fused_elan_kernel_equals_plain(cuda, order):
          "wc0": _bf16(rng, (3, 3, ct, cc), 0.05), "bc0": _bf16(rng, (cc,), 0.1),
          "wc": _bf16(rng, (3, 3, 3, cc, cc), 0.05), "bc": _bf16(rng, (3, cc), 0.1),
          "w11": _bf16(rng, (1, 1, cat, cout), 0.05), "b11": _bf16(rng, (cout,), 0.1)}
-    pc = {k: v.to(cuda) for k, v in p.items()}
+    pc = fe.merge_x45({k: v.to(cuda) for k, v in p.items()})
     x = _bf16(rng, (2, h, w, cin), 1.0).to(cuda)
+    before = conv_silu.launch.launches
     got = fe.fused_elan(x, pc, order)
     torch.cuda.synchronize()
+    assert conv_silu.launch.launches == before + 6  # x4 and x5 in one launch
     want = fe.fused_elan_plain(x, pc, order)
     assert got.shape == want.shape == (2, h, w, cout)
     _close(got, want)
+
+
+def test_fused_elan_kernel_wants_merged_weights(cuda):
+    rng = np.random.default_rng(2)
+    cin, ct, cc, cout = 64, 32, 32, 64
+    _, cat = fe.concat_slots("backbone", ct, cc)
+    p = {"w4": _bf16(rng, (1, 1, cin, ct), 0.1), "b4": _bf16(rng, (ct,), 0.1),
+         "w5": _bf16(rng, (1, 1, cin, ct), 0.1), "b5": _bf16(rng, (ct,), 0.1),
+         "wc0": _bf16(rng, (3, 3, ct, cc), 0.05), "bc0": _bf16(rng, (cc,), 0.1),
+         "wc": _bf16(rng, (3, 3, 3, cc, cc), 0.05), "bc": _bf16(rng, (3, cc), 0.1),
+         "w11": _bf16(rng, (1, 1, cat, cout), 0.05), "b11": _bf16(rng, (cout,), 0.1)}
+    pc = {k: v.to(cuda) for k, v in p.items()}
+    with pytest.raises(ValueError, match="w45"):
+        fe.fused_elan(_bf16(rng, (1, 8, 8, cin), 1.0).to(cuda), pc, "backbone")
+
+
+# One conv + SiLU launch against the plain version at the kernel's edges:
+# (name, B, rows, W, x channels, x_coff, c, x_row0, h, KH, stride, (pad t, b,
+# l, r), co, y channels, y_coff). Ragged 128-pixel tiles (W = 20, 24), a
+# 32-channel input (half of a 64-channel TMA box), stride 2, the stem's k2
+# pad (1, 0, 1, 0) read past 3 non-zero halo rows, channel slices at
+# non-zero offsets on both sides, and the widest N (1024) and K (4608) of the
+# yolov7 path.
+CONV_EDGES = [
+    ("ragged_w20", 2, 20, 20, 64, 0, 64, 0, 20, 3, 1, (1, 1, 1, 1), 64, 64, 0),
+    ("ragged_w24_c32", 2, 12, 24, 32, 0, 32, 0, 12, 3, 1, (1, 1, 1, 1), 48, 48, 0),
+    ("stride2", 2, 24, 24, 64, 0, 64, 0, 24, 3, 2, (1, 1, 1, 1), 128, 128, 0),
+    ("stride2_odd", 1, 21, 19, 64, 0, 64, 0, 21, 3, 2, (1, 1, 1, 1), 64, 64, 0),
+    ("k2_halo", 2, 22, 20, 128, 0, 128, 3, 16, 2, 1, (1, 0, 1, 0), 64, 64, 0),
+    ("slices", 2, 16, 24, 160, 64, 64, 0, 16, 3, 1, (1, 1, 1, 1), 96, 192, 32),
+    ("slice_c32", 1, 10, 20, 96, 32, 32, 0, 10, 1, 1, (0, 0, 0, 0), 32, 96, 64),
+    ("widest_n", 1, 20, 20, 512, 0, 512, 0, 20, 1, 1, (0, 0, 0, 0), 1024, 1024, 0),
+    ("widest_k", 2, 20, 20, 512, 0, 512, 0, 20, 3, 1, (1, 1, 1, 1), 256, 256, 0),
+]
+
+
+@pytest.mark.parametrize("case", CONV_EDGES, ids=[c[0] for c in CONV_EDGES])
+def test_conv_silu_kernel_edges_equal_plain(cuda, case):
+    (_, bsz, rows, wid, xcs, x_coff, c, x_row0, h, k, stride, pad, co, ycs,
+     y_coff) = case
+    rng = np.random.default_rng(len(case[0]))
+    kw = 2 if pad == (1, 0, 1, 0) else k
+    x = _bf16(rng, (bsz, rows, wid, xcs), 1.0).to(cuda)
+    w = _bf16(rng, (k, kw, c, co), 1.0 / np.sqrt(k * kw * c)).to(cuda)
+    b = _bf16(rng, (co,), 0.1).to(cuda)
+    want = conv_silu.conv_silu_plain(
+        x[:, x_row0:x_row0 + h, :, x_coff:x_coff + c], w, b, stride, pad)
+    # a sentinel in the channels outside the output slice: they stay untouched
+    y = torch.full((bsz,) + tuple(want.shape[1:3]) + (ycs,), 7.0,
+                   dtype=torch.bfloat16, device=cuda)
+    before = conv_silu.launch.launches
+    conv_silu.launch(x, w, b, y, h=h, c=c, stride=stride, pad_t=pad[0],
+                     pad_l=pad[2], x_row0=x_row0, x_coff=x_coff, y_coff=y_coff)
+    torch.cuda.synchronize()
+    assert conv_silu.launch.launches == before + 1
+    _close(y[..., y_coff:y_coff + co], want)
+    outside = torch.cat([y[..., :y_coff], y[..., y_coff + co:]], -1)
+    assert bool((outside == 7.0).all())
+
+
+def test_conv_silu_launch_refuses_what_the_kernel_does_not_take(cuda):
+    rng = np.random.default_rng(3)
+
+    def t(*shape):
+        return _bf16(rng, shape, 1.0).to(cuda)
+
+    x, w, b, y = t(1, 8, 8, 64), t(3, 3, 64, 64), t(64), t(1, 8, 8, 64)
+    ok = dict(h=8, c=64, stride=1, pad_t=1, pad_l=1)
+    bad = [
+        (t(1, 8, 8, 48), t(3, 3, 48, 64), b, y, dict(ok, c=48)),       # c % 32
+        (x, t(3, 3, 64, 24), t(24), t(1, 8, 8, 24), ok),                 # co % 16
+        (t(1, 8, 8, 72), w, b, y, dict(ok, x_coff=4)),                   # x_coff % 8
+        (x, w, b, t(1, 8, 8, 72), dict(ok, y_coff=4)),                   # y_coff % 8
+        (x, w, b, t(1, 8, 8, 100), ok),                                  # y stride % 8
+        (x, w, b, t(1, 3, 3, 64), dict(ok, stride=3)),                   # stride 3
+        (x, w, b, t(1, 8, 8, 96), dict(ok, y_coff=64)),                  # y slice out
+        (t(1, 8, 8, 96), w, b, y, dict(ok, x_coff=64)),                  # x slice out
+        (x, w, b, y, dict(ok, x_row0=1)),                                # rows out
+        (x, w, t(32), y, ok),                                            # bias shape
+        (x.float(), w, b, y, ok),                                        # dtype
+        (x.transpose(1, 2), w, b, y, ok),                                # layout
+        (x.cpu(), w, b, y, ok),                                          # device
+    ]
+    for i, (xi, wi, bi, yi, kw) in enumerate(bad):
+        before = conv_silu.launch.launches
+        with pytest.raises(ValueError):
+            conv_silu.launch(xi, wi, bi, yi, **kw)
+        assert conv_silu.launch.launches == before, i
 
 
 def _int8(rng, shape, cuda):

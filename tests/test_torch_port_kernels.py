@@ -19,6 +19,7 @@ from yolo_series_tpu.ops.pallas_nms import nms_keep_mask_pallas
 from yolo_series_tpu_torch.models import graph as tgraph
 from yolo_series_tpu_torch.models import reparam as treparam
 from yolo_series_tpu_torch.models.convert import from_jax_params
+from yolo_series_tpu_torch.ops import conv_silu
 from yolo_series_tpu_torch.ops import fused_elan as tfe
 from yolo_series_tpu_torch.ops import fused_stem as tfs
 from yolo_series_tpu_torch.ops import nms_keep
@@ -87,6 +88,75 @@ def test_span_packing_unpacks_to_jax(fused_half):
         for k, v in want.items():
             assert got[k].dtype == torch.bfloat16
             _bf16_equal(got[k], v, v.shape)
+
+
+def test_span_packing_merges_x4_x5_for_one_launch(fused_half):
+    """pack_span keeps w4, b4, w5, b5 (compared with JAX above) and adds the
+    kernel's merged w45 = [w5 | w4], b45 = [b5 | b4]: the order of their
+    concat slots."""
+    _, _, _, tplan, fp, _ = fused_half
+    for i, _ in tfe.find_elan_spans(tplan, fp):
+        got = tfe.pack_span(fp["layers"], i)
+        assert torch.equal(got["w45"], torch.cat([got["w5"], got["w4"]], dim=3))
+        assert torch.equal(got["b45"], torch.cat([got["b5"], got["b4"]]))
+        assert got["w45"].is_contiguous() and got["w45"].dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("order", ["backbone", "head"])
+def test_merged_x45_conv_equals_the_two_convs(order):
+    """One plain conv with the merged weight gives, in the x5 and x4 concat
+    slots, the two plain convs bit for bit (the kernel's x45 launch)."""
+    rng = np.random.default_rng(7)
+    cin, ct, cc = 64, 32, 32
+    x = torch.from_numpy(_bf16_np(rng, (2, 8, 12, cin), 1.0)).to(torch.bfloat16)
+    p = {k: torch.from_numpy(_bf16_np(rng, shape, 0.1)).to(torch.bfloat16)
+         for k, shape in (("w4", (1, 1, cin, ct)), ("b4", (ct,)),
+                          ("w5", (1, 1, cin, ct)), ("b5", (ct,)))}
+    m = tfe.merge_x45(p)
+    both = conv_silu.conv_silu_plain(x, m["w45"], m["b45"])
+    slots, _ = tfe.concat_slots(order, ct, cc)
+    assert slots["x4"] == slots["x5"] + ct  # x5 then x4, side by side
+    assert torch.equal(both[..., :ct], conv_silu.conv_silu_plain(x, p["w5"], p["b5"]))
+    assert torch.equal(both[..., ct:], conv_silu.conv_silu_plain(x, p["w4"], p["b4"]))
+
+
+# (M, N, K, stride) of every conv + SiLU launch of K2 and K3 at batch 8,
+# 640 px: the stem's three stages, then per span x45 (x4 and x5 in one
+# launch), c1..c4 and the output 1x1
+STAGE_SHAPES = (
+    [(819200, 64, 512, 1), (819200, 64, 576, 1), (204800, 128, 576, 2)]
+    + [(204800, 128, 128, 1)] + [(204800, 64, 576, 1)] * 4 + [(204800, 256, 256, 1)]
+    + [(51200, 256, 256, 1)] + [(51200, 128, 1152, 1)] * 4 + [(51200, 512, 512, 1)]
+    + [(12800, 512, 512, 1)] + [(12800, 256, 2304, 1)] * 4 + [(12800, 1024, 1024, 1)]
+    + [(3200, 512, 1024, 1)] + [(3200, 256, 2304, 1)] * 4 + [(3200, 1024, 1024, 1)]
+    + [(12800, 512, 512, 1), (12800, 128, 2304, 1)] + [(12800, 128, 1152, 1)] * 3
+    + [(12800, 256, 1024, 1)]
+    + [(51200, 256, 256, 1), (51200, 64, 1152, 1)] + [(51200, 64, 576, 1)] * 3
+    + [(51200, 128, 512, 1)]
+    + [(12800, 512, 512, 1), (12800, 128, 2304, 1)] + [(12800, 128, 1152, 1)] * 3
+    + [(12800, 256, 1024, 1)]
+    + [(3200, 1024, 1024, 1), (3200, 256, 4608, 1)] + [(3200, 256, 2304, 1)] * 3
+    + [(3200, 512, 2048, 1)])
+
+
+def test_chip_smoke_stages_are_the_serving_launches():
+    """The stage list `chip_smoke.py` times and sums into the staged floor
+    is the 51 launches a batch-8, 640 px forward makes (3 stem + 6 a span)."""
+    import chip_smoke
+
+    stages = chip_smoke.stem_stages(8, 320, 320, 128, 64, 128)
+    for h, cin, ct, cc, cout, order in chip_smoke.SPANS:
+        stages += chip_smoke.span_stages(8, h, cin, ct, cc, cout, order)
+    got = []
+    for st in stages:
+        _, _, _, _, c, kh, kw, stride, _, co = st
+        _, _, (b, oh, ow, _) = chip_smoke.stage_cost(st)
+        got.append((b * oh * ow, co, kh * kw * c, stride))
+    assert got == STAGE_SHAPES
+    spans = sum(chip_smoke.staged_floor(chip_smoke.span_stages(8, *sp))
+                for sp in chip_smoke.SPANS)
+    assert round(chip_smoke.staged_floor(stages[:3]), 4) == 0.2035
+    assert round(spans, 4) == 0.5479
 
 
 def test_stem_packing_unpacks_to_jax(fused_half):

@@ -5,10 +5,13 @@ the span input (x4, x5), four chained 3x3 convs from x5 (c1..c4), the
 channel concat (backbone c4,c2,x5,x4 / head c4,c3,c2,c1,x5,x4) and an
 output 1x1 conv, each conv + bias + SiLU. `make_fused_elan` rewrites every
 span `find_elan_spans` finds into one FusedELAN block; its host op
-`fused_elan` is 7 launches of the conv + SiLU kernel
+`fused_elan` is 6 launches of the conv + SiLU kernel
 (`csrc/conv_silu.cu`) that write x4, x5 and c1..c4 straight into their
-channel slices of one concat buffer, so the concat costs nothing. In the
-backbone order c1 and c3 are not concatenated and go to a scratch buffer.
+channel slices of one concat buffer, so the concat costs nothing. x5 and
+x4 read the same input and sit side by side in the concat (x5 first), so
+one launch computes both with the merged weight [w5 | w4] (`merge_x45`)
+and reads the input once. In the backbone order c1 and c3 are not
+concatenated and go to a scratch buffer.
 
 Unlike the JAX package, which engages its kernel only where it paid on
 the TPU, this rewrite applies to every span found.
@@ -58,10 +61,18 @@ def fused_elan_plain(x: torch.Tensor, p, order: str) -> torch.Tensor:
     return cs(cat, p["w11"], p["b11"])
 
 
+def merge_x45(p) -> dict:
+    """`p` with the span's two 1x1 convs merged for one launch: w45 =
+    [w5 | w4] along the output channels and b45 = [b5 | b4], the order of
+    their concat slots."""
+    return {**p, "w45": torch.cat([p["w5"], p["w4"]], dim=3).contiguous(),
+            "b45": torch.cat([p["b5"], p["b4"]]).contiguous()}
+
+
 def fused_elan(x: torch.Tensor, p, order: str) -> torch.Tensor:
     """One ELAN span on (B, H, W, CIN) bf16 NHWC; returns (B, H, W, COUT)
     bf16. The CPU takes the plain version; a CUDA tensor launches the
-    kernel 7 times."""
+    kernel 6 times and needs the merged x4/x5 params of `merge_x45`."""
     cin, ct = p["w4"].shape[2], p["w4"].shape[3]
     cc, cout = p["wc0"].shape[3], p["w11"].shape[3]
     if x.ndim != 4 or x.shape[3] != cin:
@@ -70,6 +81,9 @@ def fused_elan(x: torch.Tensor, p, order: str) -> torch.Tensor:
         return fused_elan_plain(x, p, order)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    if "w45" not in p:
+        raise ValueError("fused_elan on CUDA wants the merged x4/x5 weight "
+                         "'w45' (pack_span / merge_x45)")
     bsz, h, w, _ = x.shape
     slots, cat_w = concat_slots(order, ct, cc)
     cat = torch.empty((bsz, h, w, cat_w), dtype=torch.bfloat16, device=x.device)
@@ -81,9 +95,7 @@ def fused_elan(x: torch.Tensor, p, order: str) -> torch.Tensor:
 
     one = dict(stride=1, pad_t=0, pad_l=0)
     same = dict(stride=1, pad_t=1, pad_l=1)
-    conv_silu.launch(x, p["w4"], p["b4"], cat, h=h, c=cin,
-                     y_coff=slots["x4"], **one)
-    conv_silu.launch(x, p["w5"], p["b5"], cat, h=h, c=cin,
+    conv_silu.launch(x, p["w45"], p["b45"], cat, h=h, c=cin,
                      y_coff=slots["x5"], **one)
     src = (cat, slots["x5"], ct)
     weights = [(p["wc0"], p["bc0"])] + [(p["wc"][j], p["bc"][j]) for j in range(3)]
@@ -108,7 +120,8 @@ class FusedELAN(Block):
     Params (HWIO bf16, the kernel's layout; each is the JAX packed form
     of `_pack_span` before its reshape): {w4, b4 (layer i), w5, b5 (layer
     i+1), wc0, bc0 (first chain conv), wc (3, 3, 3, cc, cc), bc (3, cc)
-    (chain convs 2-4), w11, b11 (output conv)}."""
+    (chain convs 2-4), w11, b11 (output conv)}, and the kernel's merged
+    w45 = [w5 | w4], b45 = [b5 | b4]."""
 
     c1: int
     ct: int      # 1x1 branch width
@@ -201,14 +214,14 @@ def pack_span(lp, i) -> dict:
     """Fused params of layers i..i+7 -> FusedELAN params (HWIO bf16)."""
     p = [lp[i + j] for j in range(8)]
     vec = lambda b: b.detach().to(torch.bfloat16)  # noqa: E731
-    return {
+    return merge_x45({
         "w4": kernel_weight(p[0]["w"]), "b4": vec(p[0]["b"]),
         "w5": kernel_weight(p[1]["w"]), "b5": vec(p[1]["b"]),
         "wc0": kernel_weight(p[2]["w"]), "bc0": vec(p[2]["b"]),
         "wc": torch.stack([kernel_weight(p[j]["w"]) for j in (3, 4, 5)]),
         "bc": torch.stack([vec(p[j]["b"]) for j in (3, 4, 5)]),
         "w11": kernel_weight(p[7]["w"]), "b11": vec(p[7]["b"]),
-    }
+    })
 
 
 def make_fused_elan(plan: GraphPlan, params, state):
