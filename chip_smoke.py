@@ -11,22 +11,25 @@ non-zero on failure before the last line is printed:
 
  1. torch / CUDA versions and the card (`nvidia-smi` name and power limit).
  2. Build every kernel of the serving path (`nvcc`, sm_90a), timed, and
-    print `ptxas -v`'s registers, shared memory and spills of conv_silu.
+    print `ptxas -v`'s registers, shared memory and spills of conv_silu
+    from its build log.
  3. Each kernel against its plain PyTorch version on the card, at the
     shapes the serving path gives it (batch 8, 640 px): K1 the NMS
     keep-mask (must be equal), K2 the fused stem tail and K3 the eight
     fused ELAN spans (within a stated tolerance; beside the fused bound,
-    the staged floor: the sum of each launch's own bound), then each of
-    their 51 conv + SiLU launches alone (ms, TFLOP/s, GB/s, share of its
-    bound, cuDNN on the same tensors), K4 the int8 matmul with
+    the staged floor: the sum of each launch's own bound), each with its
+    51 conv + SiLU launches, recorded as the stem and spans make them,
+    alone (ms, TFLOP/s, GB/s, share of its bound, cuDNN on the same
+    slices), K4 the int8 matmul with
     dequant at the 41 quantized 1x1 convs of one forward (must be equal),
     and K4b, its bench template, at the shapes of
     `tools/bench_int8_pallas.py` (int8 equal, bf16 within a stated bound).
     Each with its time, the plain version's time, its bound and a library
-    yardstick (`library_ms`: cuDNN, or `torch._int_mm`). K1 is timed one
-    call between two events; K2-K4b, whose calls are short enough for the
-    host's launch cost to show, by replaying a CUDA graph (device time),
-    and K2, K3 and their cuDNN chains also one call between two events.
+    yardstick (`library_ms`: cuDNN, or `torch._int_mm`). K1, K2, K3 and
+    their cuDNN chains are timed one call between two events (K2 and K3
+    also by CUDA-graph replay, beside); K4, K4b and the single conv
+    launches, whose calls are short enough for the host's launch cost to
+    show, by replaying a CUDA graph (device time).
  4. `ServingEngine` end to end on full-width yolov7 deploy, 640 px, batch
     8, bf16, random weights from a seeded torch.Generator: a few batches
     through `infer` and a few requests through `DynamicBatcher` (with its
@@ -310,19 +313,101 @@ def _cudnn_conv_silu(x, w, b, stride, pad):
     return torch.nn.functional.silu(y).permute(0, 2, 3, 1)
 
 
+@contextlib.contextmanager
+def recorded_launches():
+    """Inside: each conv_silu.launch also appends its (args, kwargs) to the
+    list yielded, so that the launches timed alone are the path's own."""
+    real, calls = conv_silu.launch, []
+
+    def record(*args, **kw):
+        calls.append((args, kw))
+        real(*args, **kw)
+
+    conv_silu.launch = record
+    try:
+        yield calls
+    finally:
+        conv_silu.launch = real
+
+
+def launch_stage(call):
+    """The logical input and output slices, stride, pad (top, bottom, left,
+    right; symmetric where that gives the same output), operations and
+    bytes (each slice, weight and bias moved once) of a recorded launch."""
+    (x, w, b, y), kw = call
+    h, c, s, t, l = kw["h"], kw["c"], kw["stride"], kw["pad_t"], kw["pad_l"]
+    r0, x0, y0 = kw.get("x_row0", 0), kw.get("x_coff", 0), kw.get("y_coff", 0)
+    kh, kwd, _, co = w.shape
+    bsz, oh, ow, _ = y.shape
+    wid = x.shape[2]
+    bo = t if (h + 2 * t - kh) // s + 1 == oh else (oh - 1) * s + kh - h - t
+    r = l if (wid + 2 * l - kwd) // s + 1 == ow else (ow - 1) * s + kwd - wid - l
+    xs, ys = x[:, r0:r0 + h, :, x0:x0 + c], y[..., y0:y0 + co]
+    return SimpleNamespace(x=xs, w=w, b=b, y=ys, stride=s, pad=(t, bo, l, r),
+                           ops=2 * bsz * oh * ow * co * kh * kwd * c,
+                           nbytes=nbytes(w, b) + 2 * (xs.numel() + ys.numel()))
+
+
+def check_launches(kid, names, calls):
+    """Each recorded launch of K2 or K3 alone, at the tensors the path gave
+    it: against the plain version, its time (CUDA-graph replay), achieved
+    TFLOP/s and GB/s, its share of its own bound, and one cuDNN conv + SiLU
+    on contiguous copies of the same slices. Returns one row a launch."""
+    if len(calls) != len(names):
+        raise AssertionError(f"{kid}: {len(calls)} conv_silu launches, want {len(names)}")
+    out = []
+    for name, (args, kwargs) in zip(names, calls):
+        label, st = f"{kid} {name}", launch_stage((args, kwargs))
+        conv_silu.launch(*args, **kwargs)
+        torch.cuda.synchronize()
+        err = _close(label, st.y, conv_silu.conv_silu_plain(st.x, st.w, st.b, st.stride,
+                                                            st.pad))
+        ms = graph_ms(lambda: conv_silu.launch(*args, **kwargs))
+        xc = st.x.contiguous()
+        lib_ms = graph_ms(lambda: _cudnn_conv_silu(xc, st.w, st.b, st.stride, st.pad))
+        del xc
+        b_ms, b_by = bound_ms(st.ops, PEAK_BF16, st.nbytes)
+        kh, kw, c, co = st.w.shape
+        m, k = st.y.shape[0] * st.y.shape[1] * st.y.shape[2], kh * kw * c
+        log(f"stage {label:16s} (M, N, K, s) = ({m}, {co}, {k}, {st.stride}): "
+            f"{ms:.4f} ms, {st.ops / ms / 1e9:.1f} TFLOP/s, {st.nbytes / ms / 1e6:.1f} "
+            f"GB/s, {b_ms / ms:.1%} of its bound {b_ms:.4f} ms ({b_by}); cuDNN "
+            f"{lib_ms:.4f} ms; max abs err {err:.3g}; tile {conv_silu.launch.tile}")
+        out.append(dict(stage=label, m=m, n=co, k=k, stride=st.stride, ms=ms,
+                        bound_ms=b_ms, bound_by=b_by, cudnn_ms=lib_ms, ops=st.ops,
+                        tile=conv_silu.launch.tile))
+    return out
+
+
+def stages_total(kid, stages):
+    log(f"stages {kid}: {len(stages)} launches, {sum(r['ms'] for r in stages):.3f} ms "
+        f"alone (graph replay) against a staged floor of "
+        f"{sum(r['bound_ms'] for r in stages):.4f} ms; cuDNN "
+        f"{sum(r['cudnn_ms'] for r in stages):.3f} ms")
+
+
+STEM_LAUNCHES = ("s1 k2", "s2 k3", "s3 k3/s2")
+SPAN_LAUNCHES = ("x45", "c1", "c2", "c3", "c4", "out")   # x4 and x5 in one launch
+
+
 def check_k2(dev, rows):
+    """K2 at its serving shape against its plain version. `ms` and
+    `library_ms` are one call between two events, as they have been since
+    the port began; the CUDA-graph replay of the same call (no host launch
+    cost) goes beside them. Then each of its launches alone."""
     gen = torch.Generator().manual_seed(2)
     c1, cm, c2, hx, wid = 128, 64, 128, IMG // 2, IMG // 2
     p = {"wk2": _conv_w(gen, 2, 2, c1, cm, dev), "b1": _bf16(gen, (cm,), 0.1, dev),
          "ws2": _conv_w(gen, 3, 3, cm, cm, dev), "b2": _bf16(gen, (cm,), 0.1, dev),
          "ws3": _conv_w(gen, 3, 3, cm, c2, dev), "b3": _bf16(gen, (c2,), 0.1, dev)}
     x = _bf16(gen, (BATCH, hx + 2 * fused_stem._PAD, wid, c1), 1.0, dev)
-    got = fused_stem.fused_stem(x, p)
+    with recorded_launches() as calls:
+        got = fused_stem.fused_stem(x, p)
     torch.cuda.synchronize()
     want = fused_stem.fused_stem_plain(x, p)
     err = _close("K2 fused_stem", got, want)
-    ms = graph_ms(lambda: fused_stem.fused_stem(x, p))
-    one_ms = cuda_ms(lambda: fused_stem.fused_stem(x, p))
+    ms = cuda_ms(lambda: fused_stem.fused_stem(x, p))
+    g_ms = graph_ms(lambda: fused_stem.fused_stem(x, p))
     plain_ms = cuda_ms(lambda: fused_stem.fused_stem_plain(x, p), iters=5)
     xr = x[:, fused_stem._PAD:-fused_stem._PAD]
 
@@ -331,18 +416,22 @@ def check_k2(dev, rows):
         s2 = _cudnn_conv_silu(s1, p["ws2"], p["b2"], 1, (1, 1, 1, 1))
         return _cudnn_conv_silu(s2, p["ws3"], p["b3"], 2, (1, 1, 1, 1))
 
-    lib_ms, lib_one_ms = graph_ms(library), cuda_ms(library)
-    stages = stem_stages(BATCH, hx, wid, c1, cm, c2)
-    ops = sum(stage_cost(st)[0] for st in stages)
+    lib_ms, lib_g_ms = cuda_ms(library), graph_ms(library)
+    stages = check_launches("K2", STEM_LAUNCHES, calls)
+    del calls
+    ops = sum(r["ops"] for r in stages)
     b_ms, b_by = bound_ms(ops, PEAK_BF16, nbytes(x, got, *p.values()))
-    floor = staged_floor(stages)
+    floor = sum(r["bound_ms"] for r in stages)
     log(f"K2 fused_stem x {tuple(x.shape)} -> {tuple(got.shape)}: max abs err "
-        f"{err:.4g}; {ms:.3f} ms (one call {one_ms:.3f}), plain {plain_ms:.3f} ms, "
-        f"cuDNN {lib_ms:.3f} ms (one call {lib_one_ms:.3f}), bound {b_ms:.4f} ms "
-        f"({b_by}, {ops / 1e9:.1f} GFLOP), staged floor {floor:.4f} ms")
+        f"{err:.4g}; one call {ms:.3f} ms (graph replay {g_ms:.3f}), plain "
+        f"{plain_ms:.3f} ms, cuDNN one call {lib_ms:.3f} ms (graph replay "
+        f"{lib_g_ms:.3f}), bound {b_ms:.4f} ms ({b_by}, {ops / 1e9:.1f} GFLOP), "
+        f"staged floor {floor:.4f} ms")
+    stages_total("K2", stages)
     rows["K2"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                       bound_by=b_by, library_ms=lib_ms, staged_floor_ms=floor,
-                      one_call_ms=one_ms, library_one_call_ms=lib_one_ms)
+                      graph_ms=g_ms, library_graph_ms=lib_g_ms)
+    rows["stages"] = stages
 
 
 def span_params(gen, cin, ct, cc, cout, order, dev):
@@ -359,20 +448,24 @@ def span_params(gen, cin, ct, cc, cout, order, dev):
 
 
 def check_k3(dev, rows):
+    """K3 on each of the 8 spans at its serving shape, timed as K2 is, and
+    summed over the spans; then each span's launches alone."""
     gen = torch.Generator().manual_seed(3)
     tot = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
-               library_ms=0.0, staged_floor_ms=0.0, one_call_ms=0.0,
-               library_one_call_ms=0.0)
+               library_ms=0.0, staged_floor_ms=0.0, graph_ms=0.0,
+               library_graph_ms=0.0)
     by = {"bytes": 0.0, "operations": 0.0}  # bound time of each kind
+    stages = []
     for h, cin, ct, cc, cout, order in SPANS:
         p = span_params(gen, cin, ct, cc, cout, order, dev)
         x = _bf16(gen, (BATCH, h, h, cin), 1.0, dev)
-        got = fused_elan.fused_elan(x, p, order)
+        with recorded_launches() as calls:
+            got = fused_elan.fused_elan(x, p, order)
         torch.cuda.synchronize()
         want = fused_elan.fused_elan_plain(x, p, order)
         err = _close(f"K3 fused_elan {order} {h}x{h}x{cin}", got, want)
-        ms = graph_ms(lambda: fused_elan.fused_elan(x, p, order))
-        one_ms = cuda_ms(lambda: fused_elan.fused_elan(x, p, order))
+        ms = cuda_ms(lambda: fused_elan.fused_elan(x, p, order))
+        g_ms = graph_ms(lambda: fused_elan.fused_elan(x, p, order))
         plain_ms = cuda_ms(lambda: fused_elan.fused_elan_plain(x, p, order), iters=5)
         slots, _ = fused_elan.concat_slots(order, ct, cc)
 
@@ -386,116 +479,36 @@ def check_k3(dev, rows):
             cat = torch.cat([t[n] for n in slots], dim=-1)
             return _cudnn_conv_silu(cat, p["w11"], p["b11"], 1, (0, 0, 0, 0))
 
-        lib_ms, lib_one_ms = graph_ms(library), cuda_ms(library)
-        stages = span_stages(BATCH, h, cin, ct, cc, cout, order)
-        ops = sum(stage_cost(st)[0] for st in stages)
+        lib_ms, lib_g_ms = cuda_ms(library), graph_ms(library)
+        span = check_launches(f"K3 {order[:4]}{h}", SPAN_LAUNCHES, calls)
+        del calls
+        stages += span
+        ops = sum(r["ops"] for r in span)
         # the fused bound: the span's input, weights and output only (the
         # merged w45/b45 repeat w4/w5, b4/b5)
         nb = nbytes(x, got, *(v for k, v in p.items() if k not in ("w45", "b45")))
         b_ms, b_by = bound_ms(ops, PEAK_BF16, nb)
-        floor = staged_floor(stages)
+        floor = sum(r["bound_ms"] for r in span)
         log(f"K3 fused_elan {order:8s} x {tuple(x.shape)} -> {tuple(got.shape)}: "
-            f"max abs err {err:.4g}; {ms:.3f} ms (one call {one_ms:.3f}), plain "
-            f"{plain_ms:.3f} ms, cuDNN {lib_ms:.3f} ms (one call {lib_one_ms:.3f}), "
-            f"bound {b_ms:.4f} ms ({b_by}, {ops / 1e9:.1f} GFLOP), staged floor "
-            f"{floor:.4f} ms")
+            f"max abs err {err:.4g}; one call {ms:.3f} ms (graph replay {g_ms:.3f}), "
+            f"plain {plain_ms:.3f} ms, cuDNN one call {lib_ms:.3f} ms (graph replay "
+            f"{lib_g_ms:.3f}), bound {b_ms:.4f} ms ({b_by}, {ops / 1e9:.1f} GFLOP), "
+            f"staged floor {floor:.4f} ms")
         tot["max_abs_err"] = max(tot["max_abs_err"], err)
         for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
                        ("bound_ms", b_ms), ("staged_floor_ms", floor),
-                       ("one_call_ms", one_ms), ("library_one_call_ms", lib_one_ms)):
+                       ("graph_ms", g_ms), ("library_graph_ms", lib_g_ms)):
             tot[key] += v
         by[b_by] += b_ms
     # the spans run one after another: their bounds add up
-    log(f"K3 all 8 spans (one batch-{BATCH} forward): {tot['ms']:.3f} ms (one call "
-        f"each {tot['one_call_ms']:.3f}), plain {tot['plain_ms']:.3f} ms, cuDNN "
-        f"{tot['library_ms']:.3f} ms (one call each {tot['library_one_call_ms']:.3f}), "
-        f"bound {tot['bound_ms']:.4f} ms, staged floor {tot['staged_floor_ms']:.4f} ms")
+    log(f"K3 all 8 spans (one batch-{BATCH} forward): one call each {tot['ms']:.3f} ms "
+        f"(graph replay {tot['graph_ms']:.3f}), plain {tot['plain_ms']:.3f} ms, cuDNN "
+        f"one call each {tot['library_ms']:.3f} ms (graph replay "
+        f"{tot['library_graph_ms']:.3f}), bound {tot['bound_ms']:.4f} ms, staged floor "
+        f"{tot['staged_floor_ms']:.4f} ms")
+    stages_total("K3", stages)
     rows["K3"] = dict(tot, bound_by=max(by, key=by.get))
-
-
-# Each launch of the conv + SiLU kernel in K2 and K3: (label, B, H, W, c,
-# KH, KW, stride, pad (top, bottom, left, right), co). A span's x4 and x5
-# are one launch (x45, N = 2 ct).
-def stem_stages(b, hx, wid, c1, cm, c2):
-    return [("K2 s1 k2", b, hx, wid, c1, 2, 2, 1, (1, 0, 1, 0), cm),
-            ("K2 s2 k3", b, hx, wid, cm, 3, 3, 1, (1, 1, 1, 1), cm),
-            ("K2 s3 k3/s2", b, hx, wid, cm, 3, 3, 2, (1, 1, 1, 1), c2)]
-
-
-def span_stages(b, h, cin, ct, cc, cout, order):
-    tag = f"{order[:4]}{h}"
-    _, cat = fused_elan.concat_slots(order, ct, cc)
-    same = (1, 1, 1, 1)
-    return ([(f"K3 {tag} x45", b, h, h, cin, 1, 1, 1, (0, 0, 0, 0), 2 * ct),
-             (f"K3 {tag} c1", b, h, h, ct, 3, 3, 1, same, cc)]
-            + [(f"K3 {tag} c{j}", b, h, h, cc, 3, 3, 1, same, cc) for j in (2, 3, 4)]
-            + [(f"K3 {tag} out", b, h, h, cat, 1, 1, 1, (0, 0, 0, 0), cout)])
-
-
-def stage_cost(stage):
-    """(operations, bytes, output shape) of one launch: 2 M N K, and its
-    input, weight, bias and output each moved once."""
-    _, b, h, w, c, kh, kw, stride, (t, bo, l, r), co = stage
-    oh, ow = (h + t + bo - kh) // stride + 1, (w + l + r - kw) // stride + 1
-    ops = 2 * b * oh * ow * co * kh * kw * c
-    nb = 2 * (b * h * w * c + kh * kw * c * co + co + b * oh * ow * co)
-    return ops, nb, (b, oh, ow, co)
-
-
-def staged_floor(stages):
-    """Least time of a design that writes each stage's output to device
-    memory: the sum over its launches of each one's bound."""
-    total = 0.0
-    for st in stages:
-        ops, nb, _ = stage_cost(st)
-        total += bound_ms(ops, PEAK_BF16, nb)[0]
-    return total
-
-
-def check_stages(dev, rows):
-    """Every launch of K2 and K3 at its serving shape, alone: the kernel
-    against the plain version, its time (CUDA-graph replay), achieved
-    TFLOP/s and GB/s, its share of its own bound, and one cuDNN conv + SiLU
-    on the same tensors."""
-    gen = torch.Generator().manual_seed(6)
-    stages = stem_stages(BATCH, IMG // 2, IMG // 2, 128, 64, 128)
-    for h, cin, ct, cc, cout, order in SPANS:
-        stages += span_stages(BATCH, h, cin, ct, cc, cout, order)
-    out = []
-    for st in stages:
-        label, b, h, w, c, kh, kw, stride, pad, co = st
-        ops, nb, yshape = stage_cost(st)
-        x = _bf16(gen, (b, h, w, c), 1.0, dev)
-        wt = _conv_w(gen, kh, kw, c, co, dev)
-        bias = _bf16(gen, (co,), 0.1, dev)
-        y = torch.empty(yshape, dtype=torch.bfloat16, device=dev)
-
-        def run():
-            conv_silu.launch(x, wt, bias, y, h=h, c=c, stride=stride, pad_t=pad[0],
-                             pad_l=pad[2])
-
-        run()
-        torch.cuda.synchronize()
-        err = _close(label, y, conv_silu.conv_silu_plain(x, wt, bias, stride, pad))
-        ms = graph_ms(run)
-        lib_ms = graph_ms(lambda: _cudnn_conv_silu(x, wt, bias, stride, pad))
-        b_ms, b_by = bound_ms(ops, PEAK_BF16, nb)
-        m, k = b * yshape[1] * yshape[2], kh * kw * c
-        log(f"stage {label:16s} (M, N, K, s) = ({m}, {co}, {k}, {stride}): "
-            f"{ms:.4f} ms, {ops / ms / 1e9:.1f} TFLOP/s, {nb / ms / 1e6:.1f} GB/s, "
-            f"{b_ms / ms:.1%} of its bound {b_ms:.4f} ms ({b_by}); cuDNN "
-            f"{lib_ms:.4f} ms; max abs err {err:.3g}")
-        out.append(dict(stage=label, m=m, n=co, k=k, stride=stride, ms=ms,
-                        bound_ms=b_ms, bound_by=b_by, cudnn_ms=lib_ms))
-        del x, wt, bias, y
-    k2 = [r for r in out if r["stage"].startswith("K2")]
-    k3 = [r for r in out if r["stage"].startswith("K3")]
-    for name, rs in (("K2", k2), ("K3", k3)):
-        log(f"stages {name}: {len(rs)} launches, {sum(r['ms'] for r in rs):.3f} ms "
-            f"alone (graph replay) against a staged floor of "
-            f"{sum(r['bound_ms'] for r in rs):.4f} ms; cuDNN "
-            f"{sum(r['cudnn_ms'] for r in rs):.3f} ms")
-    rows["stages"] = out
+    rows["stages"] += stages
 
 
 # ------------------------------------------------------- K4 / K4b ---
@@ -1205,15 +1218,16 @@ def main() -> int:
 
     secs = _build.build()
     log(f"build: {len(_build.SOURCES)} kernel sources in {secs:.1f} s")
-    for line in _build.ptxas_info("conv_silu"):
-        log(f"conv_silu.cu {line}")
+    report = _build.LOGS.get("conv_silu")
+    for line in (report or "built earlier: no ptxas report").splitlines():
+        if report is None or "ptxas info" in line or "bytes stack frame" in line:
+            log(f"conv_silu.cu {line.strip()}")
 
     m = make_model(dev)
     rows = {}
     check_k1(dev, rows)
     check_k2(dev, rows)
     check_k3(dev, rows)
-    check_stages(dev, rows)
     check_k4(dev, rows, m.plan)
     check_k4b(dev, rows)
     srv = serving(dev, m)

@@ -132,28 +132,46 @@ def test_fused_elan_kernel_wants_merged_weights(cuda):
 
 # One conv + SiLU launch against the plain version at the kernel's edges:
 # (name, B, rows, W, x channels, x_coff, c, x_row0, h, KH, stride, (pad t, b,
-# l, r), co, y channels, y_coff). Ragged 128-pixel tiles (W = 20, 24), a
-# 32-channel input (half of a 64-channel TMA box), stride 2, the stem's k2
-# pad (1, 0, 1, 0) read past 3 non-zero halo rows, channel slices at
-# non-zero offsets on both sides, and the widest N (1024) and K (4608) of the
-# yolov7 path.
+# l, r), co, y channels, y_coff, the (GEMM rows, N) tile the kernel picks).
+# Ragged tiles (W = 20, 24), a 32-channel input (half of a 64-channel TMA
+# box), stride 2, the stem's k2 pad (1, 0, 1, 0) read past 3 non-zero halo
+# rows, channel slices at non-zero offsets on both sides, and the widest N
+# (1024) and K (4608) of the yolov7 path, each on the tile of its size: the
+# kernel takes N = 128 where CO > 64 and those tiles still cover the SMs
+# (partial N tiles at CO = 96 and 192), and 256-row tiles at N = 64 where
+# there are two for every CTA slot (two CTAs an SM). The sizes are chosen
+# to pick the same tile on every Hopper card of 114 to 132 SMs.
+SAME, ONE = (1, 1, 1, 1), (0, 0, 0, 0)
 CONV_EDGES = [
-    ("ragged_w20", 2, 20, 20, 64, 0, 64, 0, 20, 3, 1, (1, 1, 1, 1), 64, 64, 0),
-    ("ragged_w24_c32", 2, 12, 24, 32, 0, 32, 0, 12, 3, 1, (1, 1, 1, 1), 48, 48, 0),
-    ("stride2", 2, 24, 24, 64, 0, 64, 0, 24, 3, 2, (1, 1, 1, 1), 128, 128, 0),
-    ("stride2_odd", 1, 21, 19, 64, 0, 64, 0, 21, 3, 2, (1, 1, 1, 1), 64, 64, 0),
-    ("k2_halo", 2, 22, 20, 128, 0, 128, 3, 16, 2, 1, (1, 0, 1, 0), 64, 64, 0),
-    ("slices", 2, 16, 24, 160, 64, 64, 0, 16, 3, 1, (1, 1, 1, 1), 96, 192, 32),
-    ("slice_c32", 1, 10, 20, 96, 32, 32, 0, 10, 1, 1, (0, 0, 0, 0), 32, 96, 64),
-    ("widest_n", 1, 20, 20, 512, 0, 512, 0, 20, 1, 1, (0, 0, 0, 0), 1024, 1024, 0),
-    ("widest_k", 2, 20, 20, 512, 0, 512, 0, 20, 3, 1, (1, 1, 1, 1), 256, 256, 0),
+    ("ragged_w20", 2, 20, 20, 64, 0, 64, 0, 20, 3, 1, SAME, 64, 64, 0, (128, 64)),
+    ("ragged_w24_c32", 2, 12, 24, 32, 0, 32, 0, 12, 3, 1, SAME, 48, 48, 0, (128, 64)),
+    ("stride2", 2, 24, 24, 64, 0, 64, 0, 24, 3, 2, SAME, 128, 128, 0, (128, 64)),
+    ("stride2_odd", 1, 21, 19, 64, 0, 64, 0, 21, 3, 2, SAME, 64, 64, 0, (128, 64)),
+    ("k2_halo", 2, 22, 20, 128, 0, 128, 3, 16, 2, 1, (1, 0, 1, 0), 64, 64, 0, (128, 64)),
+    ("slices", 2, 16, 24, 160, 64, 64, 0, 16, 3, 1, SAME, 96, 192, 32, (128, 64)),
+    ("slice_c32", 1, 10, 20, 96, 32, 32, 0, 10, 1, 1, ONE, 32, 96, 64, (128, 64)),
+    ("widest_n", 1, 20, 20, 512, 0, 512, 0, 20, 1, 1, ONE, 1024, 1024, 0, (128, 64)),
+    ("widest_k", 2, 20, 20, 512, 0, 512, 0, 20, 3, 1, SAME, 256, 256, 0, (128, 64)),
+    ("n128_w24_co96_slices", 12, 48, 24, 160, 64, 64, 0, 48, 3, 1, SAME, 96, 192, 32,
+     (128, 128)),
+    ("n128_w20_co192_c32", 20, 40, 20, 96, 32, 32, 0, 40, 3, 1, SAME, 192, 288, 64,
+     (128, 128)),
+    ("n128_stride2_halo", 14, 54, 48, 64, 0, 64, 3, 48, 3, 2, SAME, 192, 192, 0,
+     (128, 128)),
+    ("m256_w24", 48, 96, 24, 64, 0, 64, 0, 96, 3, 1, SAME, 64, 64, 0, (256, 64)),
+    ("m256_w20_c32_slices", 66, 88, 20, 96, 32, 32, 0, 88, 3, 1, SAME, 64, 128, 32,
+     (256, 64)),
+    ("m256_k2_halo", 48, 134, 20, 128, 0, 128, 3, 128, 2, 1, (1, 0, 1, 0), 64, 64, 0,
+     (256, 64)),
+    ("m256_1x1_c32", 76, 40, 40, 96, 32, 32, 0, 40, 1, 1, ONE, 64, 128, 64, (256, 64)),
+    ("m256_stride2", 176, 48, 48, 64, 0, 64, 0, 48, 3, 2, SAME, 64, 64, 0, (256, 64)),
 ]
 
 
 @pytest.mark.parametrize("case", CONV_EDGES, ids=[c[0] for c in CONV_EDGES])
 def test_conv_silu_kernel_edges_equal_plain(cuda, case):
     (_, bsz, rows, wid, xcs, x_coff, c, x_row0, h, k, stride, pad, co, ycs,
-     y_coff) = case
+     y_coff, tile) = case
     rng = np.random.default_rng(len(case[0]))
     kw = 2 if pad == (1, 0, 1, 0) else k
     x = _bf16(rng, (bsz, rows, wid, xcs), 1.0).to(cuda)
@@ -169,6 +187,7 @@ def test_conv_silu_kernel_edges_equal_plain(cuda, case):
                      pad_l=pad[2], x_row0=x_row0, x_coff=x_coff, y_coff=y_coff)
     torch.cuda.synchronize()
     assert conv_silu.launch.launches == before + 1
+    assert conv_silu.launch.tile == tile
     _close(y[..., y_coff:y_coff + co], want)
     outside = torch.cat([y[..., :y_coff], y[..., y_coff + co:]], -1)
     assert bool((outside == 7.0).all())

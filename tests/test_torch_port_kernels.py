@@ -120,43 +120,33 @@ def test_merged_x45_conv_equals_the_two_convs(order):
     assert torch.equal(both[..., ct:], conv_silu.conv_silu_plain(x, p["w4"], p["b4"]))
 
 
-# (M, N, K, stride) of every conv + SiLU launch of K2 and K3 at batch 8,
-# 640 px: the stem's three stages, then per span x45 (x4 and x5 in one
-# launch), c1..c4 and the output 1x1
-STAGE_SHAPES = (
-    [(819200, 64, 512, 1), (819200, 64, 576, 1), (204800, 128, 576, 2)]
-    + [(204800, 128, 128, 1)] + [(204800, 64, 576, 1)] * 4 + [(204800, 256, 256, 1)]
-    + [(51200, 256, 256, 1)] + [(51200, 128, 1152, 1)] * 4 + [(51200, 512, 512, 1)]
-    + [(12800, 512, 512, 1)] + [(12800, 256, 2304, 1)] * 4 + [(12800, 1024, 1024, 1)]
-    + [(3200, 512, 1024, 1)] + [(3200, 256, 2304, 1)] * 4 + [(3200, 1024, 1024, 1)]
-    + [(12800, 512, 512, 1), (12800, 128, 2304, 1)] + [(12800, 128, 1152, 1)] * 3
-    + [(12800, 256, 1024, 1)]
-    + [(51200, 256, 256, 1), (51200, 64, 1152, 1)] + [(51200, 64, 576, 1)] * 3
-    + [(51200, 128, 512, 1)]
-    + [(12800, 512, 512, 1), (12800, 128, 2304, 1)] + [(12800, 128, 1152, 1)] * 3
-    + [(12800, 256, 1024, 1)]
-    + [(3200, 1024, 1024, 1), (3200, 256, 4608, 1)] + [(3200, 256, 2304, 1)] * 3
-    + [(3200, 512, 2048, 1)])
-
-
-def test_chip_smoke_stages_are_the_serving_launches():
-    """The stage list `chip_smoke.py` times and sums into the staged floor
-    is the 51 launches a batch-8, 640 px forward makes (3 stem + 6 a span)."""
+@pytest.mark.parametrize("k,stride,pad,want", [
+    (2, 1, (1, 0), (1, 0, 1, 0)),   # the stem's k2 stage
+    (3, 1, (1, 1), (1, 1, 1, 1)),
+    (3, 2, (1, 0), (1, 1, 1, 1)),   # stride 2: the unread last row padded too
+    (1, 1, (0, 0), (0, 0, 0, 0))])
+def test_chip_smoke_launch_stage_matches_the_launch(k, stride, pad, want):
+    """`chip_smoke.launch_stage`, behind the stage lines and the staged
+    floor, recovers a recorded launch's logical input and output slices and
+    its pad: the plain conv of the slice has the output slice's shape, and
+    the counts are 2 M N K operations and each slice, weight and bias once."""
     import chip_smoke
 
-    stages = chip_smoke.stem_stages(8, 320, 320, 128, 64, 128)
-    for h, cin, ct, cc, cout, order in chip_smoke.SPANS:
-        stages += chip_smoke.span_stages(8, h, cin, ct, cc, cout, order)
-    got = []
-    for st in stages:
-        _, _, _, _, c, kh, kw, stride, _, co = st
-        _, _, (b, oh, ow, _) = chip_smoke.stage_cost(st)
-        got.append((b * oh * ow, co, kh * kw * c, stride))
-    assert got == STAGE_SHAPES
-    spans = sum(chip_smoke.staged_floor(chip_smoke.span_stages(8, *sp))
-                for sp in chip_smoke.SPANS)
-    assert round(chip_smoke.staged_floor(stages[:3]), 4) == 0.2035
-    assert round(spans, 4) == 0.5479
+    h, wid, c, co = 8, 10, 32, 16
+    oh = (h + sum(pad) - k) // stride + 1
+    ow = (wid + sum(pad) - k) // stride + 1
+    x = torch.zeros((2, h + 3, wid, 96), dtype=torch.bfloat16)
+    w = torch.zeros((k, k, c, co), dtype=torch.bfloat16)
+    b = torch.zeros((co,), dtype=torch.bfloat16)
+    y = torch.zeros((2, oh, ow, 48), dtype=torch.bfloat16)
+    st = chip_smoke.launch_stage(((x, w, b, y), dict(
+        h=h, c=c, stride=stride, pad_t=pad[0], pad_l=pad[0], x_row0=3, x_coff=64,
+        y_coff=16)))
+    assert st.pad == want and st.stride == stride
+    assert st.x.shape == (2, h, wid, c) and st.y.shape == (2, oh, ow, co)
+    assert conv_silu.conv_silu_plain(st.x, w, b, stride, st.pad).shape == st.y.shape
+    assert st.ops == 2 * (2 * oh * ow) * co * (k * k * c)
+    assert st.nbytes == 2 * (st.x.numel() + w.numel() + b.numel() + st.y.numel())
 
 
 def test_stem_packing_unpacks_to_jax(fused_half):

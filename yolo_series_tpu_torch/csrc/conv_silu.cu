@@ -577,12 +577,13 @@ Tiling tiling(int rows, int region, int OH, int OW, int ext_y, int ext_x) {
 // y[b, oh, ow, y_coff + n] = bf16(silu(sum x * w + bias)) for the logical input
 // x rows [x_row0, x_row0 + H) and channels [x_coff, x_coff + C) of a
 // (B, x_rows, W, x_cstride) tensor; w is (KH, KW, C, CO), y (B, OH, OW,
-// y_cstride). Returns cudaErrorInvalidValue on what the kernel does not take.
+// y_cstride). Writes the tile it launches, {GEMM rows, N}, to tile[0..1].
+// Returns cudaErrorInvalidValue on what the kernel does not take.
 extern "C" int conv_silu_nhwc(const void* x, const void* w, const void* b, void* y,
                               int B, int H, int W, int C, int x_rows, int x_row0,
                               int x_cstride, int x_coff, int KH, int KW, int stride,
                               int pad_t, int pad_l, int OH, int OW, int CO,
-                              int y_cstride, int y_coff, void* stream) {
+                              int y_cstride, int y_coff, void* stream, int* tile) {
   const bool ok =
       C % 32 == 0 && C > 0 && CO % 16 == 0 && CO > 0 && x_cstride % 8 == 0 &&
       x_coff % 8 == 0 && y_cstride % 8 == 0 && y_coff % 8 == 0 && B >= 1 && OH >= 1 &&
@@ -701,6 +702,8 @@ extern "C" int conv_silu_nhwc(const void* x, const void* w, const void* b, void*
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int slots = kCtasPerSm * sm_count(dev);
   const int nb = p.tiles < slots ? p.tiles : slots;
+  tile[0] = mw * kBM;
+  tile[1] = bn;
   if (bn == 128) return launch<128, 1>(p, nb, dev, st);
   if (mw == 2) return launch<64, 2>(p, nb, dev, st);
   return launch<64, 1>(p, nb, dev, st);

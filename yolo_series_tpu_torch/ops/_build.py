@@ -31,14 +31,18 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 # per-source extra flags: the keep-mask's IoU and the int8 matmul's dequant
 # epilogue must round exactly as their plain PyTorch versions do, so no
-# multiply-add contraction in those files. conv_silu needs none: it reaches
-# libcuda's cuTensorMapEncodeTiled (TMA descriptors) through the runtime's
-# entry-point query (cudaGetDriverEntryPoint), so no -lcuda, and it is raw
-# PTX with no CUTLASS include.
-EXTRA_FLAGS = {"nms_keep": ["-fmad=false"], "int8_mm": ["-fmad=false"]}
+# multiply-add contraction in those files. conv_silu reaches libcuda's
+# cuTensorMapEncodeTiled (TMA descriptors) through the runtime's entry-point
+# query (cudaGetDriverEntryPoint), so no -lcuda, and it is raw PTX with no
+# CUTLASS include; its -Xptxas -v puts the registers, shared memory and
+# spills of each instantiation in its build log.
+EXTRA_FLAGS = {"nms_keep": ["-fmad=false"], "int8_mm": ["-fmad=false"],
+               "conv_silu": ["-Xptxas", "-v"]}
 SOURCES = ("nms_keep", "conv_silu", "int8_mm")
 
 _libs: Dict[str, ctypes.CDLL] = {}
+# nvcc's output of each source compiled by this process
+LOGS: Dict[str, str] = {}
 _lock = threading.Lock()
 
 
@@ -85,28 +89,11 @@ def build(names: Iterable[str] = SOURCES) -> float:
         if p.returncode != 0:
             failed.append(f"{name}.cu:\n{log}")
             continue
+        LOGS[name] = log
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return time.perf_counter() - t0
-
-
-def ptxas_info(name: str) -> List[str]:
-    """`nvcc -Xptxas -v`'s report for `csrc/<name>.cu` (registers, shared
-    memory and spills of each kernel), from a separate compile to a cubin
-    under the build directory."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    flags = [f for f in NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
-    out = BUILD_DIR / f"{name}.{os.getpid()}.cubin"
-    p = subprocess.run([_nvcc()] + flags + EXTRA_FLAGS.get(name, [])
-                       + ["-cubin", "-Xptxas", "-v", "-o", str(out),
-                          str(CSRC / f"{name}.cu")],
-                       capture_output=True, text=True)
-    out.unlink(missing_ok=True)
-    if p.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{p.stdout}{p.stderr}")
-    return [ln.strip() for ln in (p.stdout + p.stderr).splitlines()
-            if "ptxas info" in ln or "bytes stack frame" in ln]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -44,7 +44,8 @@ def _entry():
     """The kernel's C entry point with its argument types, set up once: a
     serving forward makes 51 launches, and the host's cost of each shows."""
     fn = _build.load("conv_silu").conv_silu_nhwc
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 18 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 18 + [ctypes.c_void_p]
+                   + [ctypes.POINTER(ctypes.c_int)])
     fn.restype = ctypes.c_int
     return fn
 
@@ -57,7 +58,8 @@ def launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, y: torch.Tensor,
     x (B, rows, W, x_cstride), y (B, OH, OW, y_cstride), w (KH, KW, c, CO);
     rows of x outside the h logical rows read as the conv's zero padding.
     Channel strides and offsets are multiples of 8 (16-byte TMA rows);
-    stride is 1 or 2."""
+    stride is 1 or 2. Sets `launch.tile` to the (GEMM rows, N) tile that the
+    kernel chose for this launch."""
     for name, t in (("x", x), ("w", w), ("b", b), ("y", y)):
         _check_bf16_cuda(name, t)
     bsz, rows, wid, xcs = x.shape
@@ -74,12 +76,18 @@ def launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, y: torch.Tensor,
             f"[{y_coff}, +{co}), stride {stride}: want c % 32 == 0, co % 16 "
             "== 0, channel strides and offsets % 8 == 0, stride 1 or 2 and "
             "slices inside their tensors")
+    tile = (ctypes.c_int * 2)()
     _build.check(_entry()(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
                           bsz, h, wid, c, rows, x_row0, xcs, x_coff,
                           kh, kw, stride, pad_t, pad_l, oh, ow, co, ycs, y_coff,
-                          _build.stream_ptr()), "conv_silu_nhwc")
-    launch.launches += 1
+                          _build.stream_ptr(), tile), "conv_silu_nhwc")
+    _LAUNCH.launches += 1
+    _LAUNCH.tile = (tile[0], tile[1])
 
 
-# device launches of the kernel (the stem counts 3, a span 6)
+# device launches of the kernel (the stem counts 3, a span 6); the body
+# updates them through _LAUNCH, so they stay right while a caller wraps
+# `launch` (chip_smoke.py records the path's launches that way)
 launch.launches = 0
+launch.tile = None
+_LAUNCH = launch
