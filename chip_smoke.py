@@ -11,7 +11,7 @@ non-zero on failure before the last line is printed:
 
  1. torch / CUDA versions and the card (`nvidia-smi` name and power limit).
  2. Build every kernel of the serving path (`nvcc`, sm_90a), timed, and
-    print `ptxas -v`'s registers, shared memory and spills of conv_silu
+    print `ptxas -v`'s registers, shared memory and spills of each kernel
     from its build log.
  3. Each kernel against its plain PyTorch version on the card, at the
     shapes the serving path gives it (batch 8, 640 px): K1 the NMS
@@ -26,10 +26,11 @@ non-zero on failure before the last line is printed:
     `tools/bench_int8_pallas.py` (int8 equal, bf16 within a stated bound).
     Each with its time, the plain version's time, its bound and a library
     yardstick (`library_ms`: cuDNN, or `torch._int_mm`). K1, K2, K3 and
-    their cuDNN chains are timed one call between two events (K2 and K3
-    also by CUDA-graph replay, beside); K4, K4b and the single conv
-    launches, whose calls are short enough for the host's launch cost to
-    show, by replaying a CUDA graph (device time).
+    their cuDNN chains are timed one call between two events (also by
+    CUDA-graph replay, beside); K4, K4b and the single conv launches,
+    whose calls are short enough for the host's launch cost to show, by
+    replaying a CUDA graph (device time). K4 and K4b print the tile each
+    shape took.
  4. `ServingEngine` end to end on full-width yolov7 deploy, 640 px, batch
     8, bf16, random weights from a seeded torch.Generator: a few batches
     through `infer` and a few requests through `DynamicBatcher` (with its
@@ -264,6 +265,7 @@ def check_k1(dev, rows):
         if diff:
             raise AssertionError(f"K1 K={k}: {diff} keep-mask entries differ")
         ms = cuda_ms(lambda: nms_keep.nms_keep_mask(boxes, valid, 0.45))
+        g_ms = graph_ms(lambda: nms_keep.nms_keep_mask(boxes, valid, 0.45))
         plain_ms = cuda_ms(lambda: nms_keep.nms_keep_mask_plain(boxes, valid, 0.45),
                            iters=5, warmup=1)
         pairs = keep_mask_pairs(boxes, valid, want, 0.45)
@@ -271,12 +273,12 @@ def check_k1(dev, rows):
         b_ms, b_by = bound_ms(13 * pairs, PEAK_FP32,
                               nbytes(boxes, valid) + want.numel())
         log(f"K1 nms_keep_mask B={BATCH} K={k}: equal to plain "
-            f"(kept {int(want.sum())} of {int(valid.sum())} valid); {ms:.4f} ms, "
-            f"plain {plain_ms:.3f} ms, "
+            f"(kept {int(want.sum())} of {int(valid.sum())} valid); one call "
+            f"{ms:.4f} ms (graph replay {g_ms:.4f}), plain {plain_ms:.3f} ms, "
             f"bound {b_ms:.6f} ms ({b_by}, {pairs} IoUs)")
         if k == 1024:  # the serving engine's max_nms
             result = dict(max_abs_err=float(diff), ms=ms, plain_ms=plain_ms,
-                          bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                          bound_ms=b_ms, bound_by=b_by, library_ms=None, graph_ms=g_ms)
     rows["K1"] = result
 
 
@@ -542,10 +544,11 @@ def _int8(gen, shape, dev):
 
 def check_k4(dev, rows, plan):
     """K4 at every (M, K, N) of one batch-8, 640 px forward: equal to the
-    plain version; times summed over the forward."""
+    plain version; times summed over the forward, and one row a conv."""
     gen = torch.Generator().manual_seed(4)
     shapes = k4_shapes(plan, BATCH, IMG)
     tot = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    convs = []
     by = {"bytes": 0.0, "operations": 0.0}
     ops_all = bytes_all = 0
     for m, k, n in shapes:
@@ -560,6 +563,7 @@ def check_k4(dev, rows, plan):
             diff = int((got != want).sum())
             raise AssertionError(f"K4 ({m}, {k}, {n}): {diff} outputs differ from plain")
         tot["max_abs_err"] = max(tot["max_abs_err"], (got - want).abs().max().item())
+        tile = int8_mm.int8_matmul_dequant.tile
         ms = graph_ms(lambda: int8_mm.int8_matmul_dequant(xq, wq, scale, bias))
         plain_ms = graph_ms(lambda: int8_mm.int8_matmul_dequant_plain(xq, wq, scale, bias),
                             reps=2, iters=3)
@@ -567,8 +571,10 @@ def check_k4(dev, rows, plan):
         ops, nb = 2 * m * k * n, nbytes(xq, wq, scale, bias, got)
         b_ms, b_by = bound_ms(ops, PEAK_INT8, nb)
         log(f"K4 int8_matmul_dequant ({m}, {k}, {n}): equal to plain; {ms:.4f} ms, "
-            f"plain {plain_ms:.3f} ms, _int_mm+dequant {lib_ms:.4f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by})")
+            f"{b_ms / ms:.1%} of its bound {b_ms:.4f} ms ({b_by}), tile {tile}; plain "
+            f"{plain_ms:.3f} ms, _int_mm+dequant {lib_ms:.4f} ms")
+        convs.append(dict(m=m, k=k, n=n, tile=tile, ms=ms, bound_ms=b_ms,
+                          library_ms=lib_ms))
         for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
                        ("bound_ms", b_ms)):
             tot[key] += v
@@ -580,6 +586,7 @@ def check_k4(dev, rows, plan):
         f"{tot['plain_ms']:.3f} ms, _int_mm+dequant {tot['library_ms']:.3f} ms, bound "
         f"{tot['bound_ms']:.4f} ms")
     rows["K4"] = dict(tot, bound_by=max(by, key=by.get))
+    rows["k4_convs"] = convs
 
 
 def check_k4b(dev, rows):
@@ -599,6 +606,7 @@ def check_k4b(dev, rows):
         if not torch.equal(got, want):
             raise AssertionError(f"K4b int8 ({m}, {k}, {n}) differs from plain")
         tot["max_abs_err"] = max(tot["max_abs_err"], float((got - want).abs().max()))
+        tile = int8_mm.matmul.tile
         ms = graph_ms(lambda: int8_mm.matmul(x, w, torch.int32))
         plain_ms = graph_ms(lambda: int8_mm.matmul_plain(x, w, torch.int32), reps=2,
                             iters=3)
@@ -621,7 +629,7 @@ def check_k4b(dev, rows):
                                  f"{errb.max().item()} beyond K * 2^-22 * sum|xw|")
         msb = graph_ms(lambda: int8_mm.matmul(xb, wb, torch.float32))
         libb = graph_ms(lambda: torch.matmul(xb, wb))
-        log(f"K4b matmul ({m}, {k}, {n}): int8 equal to plain, {ms:.4f} ms = "
+        log(f"K4b matmul ({m}, {k}, {n}) tile {tile}: int8 equal to plain, {ms:.4f} ms = "
             f"{ops / ms / 1e9:.1f} TOPS (_int_mm {lib_ms:.4f} ms = "
             f"{ops / lib_ms / 1e9:.1f} TOPS, plain {plain_ms:.3f} ms, bound "
             f"{b_ms:.4f} ms, {b_by}); bf16 max abs err {errb.max().item():.3g}, "
@@ -1218,10 +1226,11 @@ def main() -> int:
 
     secs = _build.build()
     log(f"build: {len(_build.SOURCES)} kernel sources in {secs:.1f} s")
-    report = _build.LOGS.get("conv_silu")
-    for line in (report or "built earlier: no ptxas report").splitlines():
-        if report is None or "ptxas info" in line or "bytes stack frame" in line:
-            log(f"conv_silu.cu {line.strip()}")
+    for src in _build.SOURCES:
+        report = _build.LOGS.get(src)
+        for line in (report or "built earlier: no ptxas report").splitlines():
+            if report is None or "ptxas info" in line or "bytes stack frame" in line:
+                log(f"{src}.cu {line.strip()}")
 
     m = make_model(dev)
     rows = {}
@@ -1246,6 +1255,8 @@ def main() -> int:
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+        if kid == "K1":   # one call above; the same call by graph replay
+            kernels[-1]["graph_ms"] = r["graph_ms"]
     keys = ("img_s", "device_ms_bs8", "p50_ms_bs8", "p50_ms_bs1", "enqueue_ms_bs8",
             "profile",
             "feature_rms_err", "feature_rms_err_cudnn_bf16", "agreement",
@@ -1253,7 +1264,8 @@ def main() -> int:
     log(json.dumps({"serving": {k: srv[k] for k in keys},
                     "int8_serving": {k: srv8[k] for k in keys + ("calibrate_s",)},
                     "full_int8": full, "fused": {"K2": rows["K2"], "K3": rows["K3"]},
-                    "stages": rows["stages"], "card": card}))
+                    "stages": rows["stages"], "k4_convs": rows["k4_convs"],
+                    "card": card}))
     log(json.dumps({"kernels": kernels}))
     log(smi())
     log(json.dumps({"ok": True, "device": {

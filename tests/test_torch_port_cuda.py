@@ -56,6 +56,63 @@ def test_nms_keep_kernel_equals_plain(cuda, k):
     assert torch.equal(got, want)
 
 
+def nms_chain(k, offset=0.0):
+    """One suppression chain of k boxes: each overlaps the next at IoU 0.54
+    and the one after at 0.25, so greedy keeps every other box and the
+    fixpoint needs k passes. (As tests/_torch_port_util.py's: this file
+    imports nothing from the tests directory, so that it runs on its own
+    on a machine with a card.)"""
+    x0 = np.arange(k, dtype=np.float64) * 18.0
+    b = np.stack([x0, np.full(k, 100.0), x0 + 60.0, np.full(k, 160.0)], -1)
+    return (b + offset).astype(np.float32)
+
+
+def _nms_case(name, rng, k):
+    """(boxes (B, K, 4), valid (B, K)) of one kernel edge case."""
+    if name == "clusters":
+        return _boxes_with_classes(rng, 4, k, nc=3), rng.uniform(size=(4, k)) < 0.9
+    if name == "all_invalid_rows":
+        valid = rng.uniform(size=(4, k)) < 0.7
+        valid[1] = False
+        valid[3] = False
+        return _boxes_with_classes(rng, 4, k, nc=2), valid
+    if name == "chain":
+        return nms_chain(k)[None], np.ones((1, k), bool)
+    if name == "ties":
+        base = _boxes_with_classes(rng, 1, k // 2, nc=2)[0]
+        boxes = np.concatenate([base, base[::-1]])[None]      # every box twice
+        return np.concatenate([boxes, boxes[:, ::-1]]), np.ones((2, k), bool)
+    # class offsets: coordinates near 3.3e5, a chain and clusters
+    boxes = np.stack([nms_chain(k, 79 * 4096.0), _boxes_with_classes(rng, 1, k, nc=1)[0]
+                      + np.float32(79 * 4096.0)])
+    return boxes, rng.uniform(size=(2, k)) < 0.95
+
+
+NMS_CASES = ([("clusters", k) for k in (1, 31, 33, 256, 1000, 1024)]
+             + [("all_invalid_rows", 100), ("all_invalid_rows", 1024),
+                ("chain", 1024), ("chain", 33), ("ties", 1024), ("ties", 64),
+                ("far_coords", 1024), ("far_coords", 300)])
+
+
+@pytest.mark.parametrize("name,k", NMS_CASES, ids=[f"{n}_{k}" for n, k in NMS_CASES])
+def test_nms_keep_kernel_edges_equal_plain(cuda, name, k):
+    """The bitmask + word-scan kernel at its edges: K not a multiple of 32
+    (1, 31, 33, 1000), a whole word of boxes and the largest K, rows with
+    no valid box, a 1024-long suppression chain, exact duplicates, and
+    coordinates near 3.3e5; bit-equal to the plain version."""
+    rng = np.random.default_rng(k)
+    boxes, valid = _nms_case(name, rng, k)
+    boxes, valid = torch.from_numpy(boxes).to(cuda), torch.from_numpy(valid).to(cuda)
+    before = nms_keep.nms_keep_mask.launches
+    got = nms_keep.nms_keep_mask(boxes, valid, 0.45)
+    torch.cuda.synchronize()
+    assert nms_keep.nms_keep_mask.launches == before + 1
+    want = nms_keep.nms_keep_mask_plain(boxes, valid, 0.45)
+    assert torch.equal(got, want)
+    if name == "chain":   # every other box kept
+        assert got[0].tolist() == [i % 2 == 0 for i in range(k)]
+
+
 def test_nms_keep_kernel_rejects_large_k(cuda):
     boxes = torch.zeros((1, 1025, 4), device=cuda)
     with pytest.raises(ValueError, match="1024"):
@@ -243,6 +300,61 @@ def test_int8_matmul_dequant_kernel_equals_plain(cuda, m, k, n):
     assert torch.equal(got, int8_mm.int8_matmul_dequant_plain(xq, w, scale, bias))
 
 
+# (M, K, N, the tile the wrapper picks on a Hopper card of 114 to 132 SMs):
+# M = 1, ragged M, the 20 px convs at the widest K (M = 3200 with N = 256,
+# 512, 1024) and a large ragged M whose tiles outnumber the persistent CTAs
+K4_AUTO = [(1, 128, 128, (64, 64)), (333, 256, 128, (64, 64)),
+           (3200, 2048, 256, (128, 64)), (3200, 2048, 512, (128, 128)),
+           (3200, 2048, 1024, (128, 128)), (20037, 256, 384, (128, 128))]
+
+
+@pytest.mark.parametrize("m,k,n,tile", K4_AUTO, ids=[f"{m}x{k}x{n}" for m, k, n, _ in K4_AUTO])
+def test_int8_matmul_dequant_kernel_picks_its_tile(cuda, m, k, n, tile):
+    rng = np.random.default_rng(m + n)
+    xq, w = _int8(rng, (m, k), cuda), _int8(rng, (n, k), cuda).t()
+    scale = torch.from_numpy(rng.uniform(1e-4, 1e-2, n).astype(np.float32)).to(cuda)
+    bias = torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(cuda)
+    got = int8_mm.int8_matmul_dequant(xq, w, scale, bias)
+    torch.cuda.synchronize()
+    assert int8_mm.int8_matmul_dequant.tile == tile
+    assert torch.equal(got, int8_mm.int8_matmul_dequant_plain(xq, w, scale, bias))
+
+
+@pytest.mark.parametrize("tile", int8_mm.TILES)
+def test_int8_matmul_dequant_kernel_every_tile_large_m(cuda, tile):
+    """Each tile forced on a large ragged M (many tiles a persistent CTA,
+    the ring running on across them) and a K that wraps the ring."""
+    rng = np.random.default_rng(tile[0] + tile[1])
+    m, k, n = 40037, 1024, 256
+    xq, w = _int8(rng, (m, k), cuda), _int8(rng, (n, k), cuda).t()
+    scale = torch.from_numpy(rng.uniform(1e-4, 1e-2, n).astype(np.float32)).to(cuda)
+    bias = torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(cuda)
+    got = int8_mm.int8_matmul_dequant(xq, w, scale, bias, tile=tile)
+    torch.cuda.synchronize()
+    assert int8_mm.int8_matmul_dequant.tile == tile
+    assert torch.equal(got, int8_mm.int8_matmul_dequant_plain(xq, w, scale, bias))
+
+
+@pytest.mark.parametrize("tile", int8_mm.TILES)
+def test_matmul_kernel_every_tile(cuda, tile):
+    """K4b on each tile: int8 equal, bf16 within K * 2^-22 * sum|x w|."""
+    rng = np.random.default_rng(7 + tile[1])
+    m, k, n = 5000, 512, 256
+    x, w = _int8(rng, (m, k), cuda), _int8(rng, (n, k), cuda).t()
+    got = int8_mm.matmul(x, w, torch.int32, tile=tile)
+    torch.cuda.synchronize()
+    assert int8_mm.matmul.tile == tile
+    assert torch.equal(got, int8_mm.matmul_plain(x, w, torch.int32))
+    xb = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(cuda, torch.bfloat16)
+    wb = torch.from_numpy(rng.normal(size=(n, k)).astype(np.float32) / k ** 0.5).to(
+        cuda, torch.bfloat16).t()
+    gotb = int8_mm.matmul(xb, wb, torch.float32, tile=tile)
+    torch.cuda.synchronize()
+    assert int8_mm.matmul.tile == tile
+    err = (gotb - int8_mm.matmul_plain(xb, wb, torch.float32)).abs()
+    assert bool((err <= k * 2.0 ** -22 * (xb.float().abs() @ wb.float().abs())).all())
+
+
 @pytest.mark.parametrize("m,k,n", [(12800, 1024, 512), (3200, 2048, 1024), (200, 128, 256)])
 def test_matmul_kernel_equals_plain(cuda, m, k, n):
     """K4b: int8 -> int32 equal; bf16 -> fp32 within K * 2^-22 * sum|x w|
@@ -274,6 +386,10 @@ def test_int8_mm_wrappers_refuse_unaligned_or_transposed(cuda):
     x, w = _int8(rng, (256, 128), cuda), _int8(rng, (128, 128), cuda)  # row-major (K, N)
     with pytest.raises(ValueError, match="column-major"):
         int8_mm.int8_matmul_dequant(x, w, s, s)
+    x, w = _int8(rng, (256, 128), cuda), _int8(rng, (128, 128), cuda).t()
+    for tile in ((64, 128), (128, 32), (256, 128)):   # tiles the kernel has not
+        with pytest.raises(ValueError, match="tile"):
+            int8_mm.int8_matmul_dequant(x, w, s, s, tile=tile)
 
 
 @pytest.mark.parametrize("k,s,c,n", [(1, 1, 128, 256), (3, 1, 32, 64), (3, 2, 3, 32),

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from tests._torch_port_util import deploy_cfg, jax_model
+from tests._torch_port_util import deploy_cfg, jax_model, nms_chain
 from yolo_series_tpu.models import graph as jgraph
 from yolo_series_tpu.models import reparam as jreparam
 from yolo_series_tpu.ops import nms as jnms
@@ -23,6 +23,7 @@ from yolo_series_tpu_torch.ops import conv_silu
 from yolo_series_tpu_torch.ops import fused_elan as tfe
 from yolo_series_tpu_torch.ops import fused_stem as tfs
 from yolo_series_tpu_torch.ops import nms_keep
+from yolo_series_tpu_torch.ops.boxes import box_iou
 
 torch.set_num_threads(2)
 
@@ -321,3 +322,131 @@ def test_keep_mask_ties_keep_the_lower_index():
     keep = nms_keep.nms_keep_mask(torch.from_numpy(half),
                                   torch.ones((1, 2), dtype=torch.bool), 0.5)
     assert keep.tolist() == [[True, True]]
+
+
+def _bitmask_scan(boxes, valid, thr):
+    """A numpy model of the keep-mask kernel (csrc/nms_keep.cu) for one
+    image: the suppression bitmask as 32-bit words (bit p % 32 of word
+    p // 32 of row i is IoU(i, p) > thr for p > i), built for valid rows up
+    to the last valid box, then the block-by-block scan: lane w resolves
+    block w alone, every later lane ORs the kept rows' words."""
+    k = len(boxes)
+    nw = (k + 31) // 32
+    iou = box_iou(torch.from_numpy(boxes), torch.from_numpy(boxes)).numpy()
+    n_eff = int(np.flatnonzero(valid)[-1]) + 1 if valid.any() else 0
+    rows = np.zeros((k, nw), np.uint32)
+    for i in np.flatnonzero(valid[:n_eff]):
+        for p in range(i + 1, n_eff):
+            if iou[i, p] > thr:
+                rows[i, p // 32] |= np.uint32(1 << (p % 32))
+    bits = np.zeros(nw * 32, bool)
+    bits[:k] = valid
+    removed = [np.uint32(0xFFFFFFFF) ^ np.uint32(sum(1 << t for t in range(32)
+                                                     if bits[32 * j + t]))
+               for j in range(nw)]
+    for w in range((n_eff + 31) // 32):
+        r = removed[w]
+        for t in range(32):
+            i = 32 * w + t
+            if not (r >> np.uint32(t)) & np.uint32(1):
+                r |= rows[i, w]
+        removed[w] = r
+        kept = np.uint32(0xFFFFFFFF) ^ r
+        for j in range(w + 1, nw):
+            for t in range(32):
+                if (kept >> np.uint32(t)) & np.uint32(1):
+                    removed[j] |= rows[32 * w + t, j]
+    return np.array([not (removed[p // 32] >> np.uint32(p % 32)) & np.uint32(1)
+                     for p in range(k)])
+
+
+@pytest.mark.parametrize("case,k", [("chain", 1), ("chain", 31), ("chain", 33),
+                                    ("chain", 1000), ("clusters", 33),
+                                    ("clusters", 1000), ("ties", 64),
+                                    ("invalid", 31), ("invalid", 1000)])
+def test_keep_mask_bitmask_scan_model_matches_plain_and_jax(case, k):
+    """The kernel's algorithm (words, bit order, block scan, invalid boxes
+    starting removed, work cut at the last valid box) equals the plain
+    version and JAX's nms_keep_mask_full on chains (with class offsets),
+    clusters, exact duplicates and rows with no valid box."""
+    rng = np.random.default_rng(k)
+    if case == "chain":
+        boxes = np.stack([nms_chain(k), nms_chain(k, 79 * 4096.0)])
+        valid = np.ones((2, k), bool)
+        valid[1, k // 2:] = False
+    elif case == "ties":
+        base = _clustered(rng, k // 2, nc=2, sigma=8.0)
+        boxes = np.stack([np.concatenate([base, base[::-1]])] * 2)
+        valid = np.ones((2, k), bool)
+    else:
+        boxes = np.stack([_clustered(rng, k, nc=3, sigma=8.0) for _ in range(3)])
+        valid = rng.uniform(size=(3, k)) < 0.8
+        if case == "invalid":
+            valid[0] = False
+            valid[2, : k // 2] = False
+    got = np.stack([_bitmask_scan(b, v, 0.45) for b, v in zip(boxes, valid)])
+    plain = nms_keep.nms_keep_mask(torch.from_numpy(boxes), torch.from_numpy(valid), 0.45)
+    np.testing.assert_array_equal(got, plain.numpy())
+    np.testing.assert_array_equal(got, _jax_full(boxes, valid, 0.45))
+    if case == "chain":
+        assert got[0].tolist() == [i % 2 == 0 for i in range(k)]
+
+
+# ------------------------------------------------------------------ K4 ---
+
+K4B_SHAPES = ((12800, 1024, 512), (3200, 2048, 1024), (8192, 1024, 1024))
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+def test_k4_tile_choice_fills_the_card(sms):
+    """The tile `ops/int8_mm.pick_tile` gives each of the 41 K4 launches of
+    a batch-8, 640 px forward and each K4b bench shape: one the kernel
+    takes, whose columns divide N, the largest that gives every SM a tile
+    (three quarters of them where K >= 1024), else the smallest; and so one
+    that gives every SM a tile or runs the whole output in one wave of the
+    persistent CTAs."""
+    import chip_smoke
+    from yolo_series_tpu_torch.ops import int8_mm
+
+    shapes = chip_smoke.k4_shapes(tgraph.compile_graph(deploy_cfg(1.0)), 8, 640)
+    assert len(shapes) == 41
+    for m, k, n in shapes + list(K4B_SHAPES):
+        least = 3 * sms // 4 if k >= 1024 else sms
+        bm, bn = int8_mm.pick_tile(m, k, n, sms)
+        assert (bm, bn) in int8_mm.TILES and n % bn == 0
+        tiles = -(-m // bm) * (n // bn)
+        bigger = int8_mm.TILES[:int8_mm.TILES.index((bm, bn))]
+        assert all(-(-m // a) * (n // b) < least for a, b in bigger), (m, n)
+        assert tiles >= least or (bm, bn) == int8_mm.TILES[-1], (m, n)
+        assert tiles >= sms or tiles <= int8_mm.CTAS_PER_SM * sms, (m, n)
+    # the 20 px convs (M = 3200), 50-200 tiles at 128 x 128: a tile for at
+    # least three quarters of the SMs, all in one wave
+    small = [(m, k, n) for m, k, n in shapes if m == 3200]
+    assert len(small) == 14
+    for m, k, n in small:
+        bm, bn = int8_mm.pick_tile(m, k, n, sms)
+        assert 3 * sms // 4 <= -(-m // bm) * (n // bn) <= int8_mm.CTAS_PER_SM * sms, (m, n)
+
+
+@pytest.mark.parametrize("thr", [0.45, 0.5, 0.65, 0.3, 0.0, 1.0, 1e-30])
+def test_keep_mask_threshold_test_without_division(thr):
+    """The keep-mask kernel decides IoU > thr as inter > mid * d (or >= where
+    mid rounds up), mid the midpoint between thr and the next float up,
+    in exact double products, instead of rounding inter / d. A numpy model
+    of that test equals float32 division and comparison: at the threshold,
+    one float either side of it, and away from it."""
+    rng = np.random.default_rng(int(thr * 1000) + 1)
+    t = np.float32(thr)
+    up = np.nextafter(t, np.float32(np.inf))
+    mid = 0.5 * (np.float64(t) + np.float64(up))
+    mid_up = np.float32(mid) != t
+    n = 200_000
+    d = rng.uniform(1, 1e6, n).astype(np.float32)
+    at = (np.float64(t) * d.astype(np.float64)).astype(np.float32)
+    for inter in (at, np.nextafter(at, np.float32(np.inf)), np.nextafter(at, np.float32(0)),
+                  (at * (1 + rng.normal(0, 1e-6, n))).astype(np.float32),
+                  rng.uniform(0, 1e6, n).astype(np.float32)):
+        inter = np.maximum(inter, np.float32(0))
+        x, md = inter.astype(np.float64), mid * d.astype(np.float64)
+        got = (x >= md) if mid_up else (x > md)
+        np.testing.assert_array_equal(got, (inter / d) > t)

@@ -1,16 +1,24 @@
 #!/usr/bin/env python3
-"""K2 (the fused stem) and K3 (the eight fused ELAN spans) of several
-checkouts of the PyTorch port, timed on one card in one run, two ways: one
+"""The kernels of several checkouts of the PyTorch port, timed on one card
+in one run: K1 (the NMS keep-mask, batch 8, K = 1024), K2 (the fused stem),
+K3 (the eight fused ELAN spans), K4 (the int8 matmul with dequant at the 41
+quantized 1x1 convs of one forward) and K4b (its bench template at the
+bench's three shapes, beside `torch._int_mm`). K1, K2 and K3 two ways: one
 call between two CUDA events, and the replay of a CUDA graph of the call
-(device time without the host's launch cost). Batch 8, 640 px, full-width
-yolov7 deploy shapes, random bf16 tensors from fixed seeds.
+(device time without the host's launch cost); K4 and K4b by graph replay.
+Batch 8, 640 px, full-width yolov7 deploy shapes, random tensors from fixed
+seeds, the same for every checkout.
 
     python3 tools/ab_torch_fused.py OLD NEW NEW OLD
+    python3 tools/ab_torch_fused.py --k4-tiles
 
 Each argument is the root of a checkout. Each runs in a process of its own
 that imports that checkout's `yolo_series_tpu_torch` and builds its kernels
-into that checkout's build directory. Prints one JSON line a run, then the
-card's name and power limit. Needs an NVIDIA Hopper GPU and nvcc.
+into that checkout's build directory. Prints one JSON line a run (K4 with
+each conv's ms and, where the checkout reports it, its tile), then the
+card's name and power limit. `--k4-tiles` times this checkout's K4 at each
+of the 41 shapes on every tile the kernel takes, one JSON line a shape.
+Needs an NVIDIA Hopper GPU and nvcc.
 """
 
 from __future__ import annotations
@@ -22,12 +30,125 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
+
+ROOT = Path(__file__).resolve().parents[1]
+INPUTS = ROOT / "build" / "ab_torch_inputs.npz"
+
 BATCH, IMG = 8, 640
+# K4b's bench shapes (tools/bench_int8_pallas.py), as chip_smoke.K4B_SHAPES
+K4B_SHAPES = ((12800, 1024, 512), (3200, 2048, 1024), (8192, 1024, 1024))
 # (H at 640 px, cin, ct, cc, cout, order) of the 8 ELAN spans, plan order
 SPANS = ((160, 128, 64, 64, 256, "backbone"), (80, 256, 128, 128, 512, "backbone"),
          (40, 512, 256, 256, 1024, "backbone"), (20, 1024, 256, 256, 1024, "backbone"),
          (40, 512, 256, 128, 256, "head"), (80, 256, 128, 64, 128, "head"),
          (40, 512, 256, 128, 256, "head"), (20, 1024, 512, 256, 512, "head"))
+
+
+def make_inputs() -> None:
+    """K1's boxes and valid rows and K4's shapes, made by this checkout's
+    `chip_smoke.py` (as its K1 and K4 checks make them) for every run."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from yolo_series_tpu_torch.models import graph
+
+    rng = np.random.default_rng(0)
+    k = 1024
+    boxes = chip_smoke.chain_boxes(rng, BATCH, k)
+    n_valid = rng.integers(k // 2, k + 1, BATCH)
+    n_valid[0] = k
+    plan = graph.compile_graph(chip_smoke._cfg(1.0))
+    INPUTS.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(INPUTS, k1_boxes=boxes, k1_valid=np.arange(k)[None] < n_valid[:, None],
+             k4_shapes=np.array(chip_smoke.k4_shapes(plan, BATCH, IMG)))
+
+
+def event_ms(fn, iters=20, warmup=3):
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def graph_ms(fn, reps=5, iters=10):
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return event_ms(graph.replay, iters=iters, warmup=1) / reps
+
+
+def k4_operands(m, k, n, dev):
+    import torch
+
+    gen = torch.Generator().manual_seed(m * 7 + k * 3 + n)
+    xq = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8).to(dev)
+    wq = torch.randint(-127, 128, (n, k), generator=gen, dtype=torch.int8).to(dev).t()
+    scale = (torch.rand(n, generator=gen) * 1e-2 + 1e-4).to(dev)
+    bias = torch.randn(n, generator=gen).to(dev)
+    return xq, wq, scale, bias
+
+
+def k1_k4(inputs, dev) -> dict:
+    """K1 (one call and graph replay), K4 per conv and summed, K4b per
+    shape beside torch._int_mm."""
+    import torch
+
+    from yolo_series_tpu_torch.ops import int8_mm, nms_keep
+
+    boxes = torch.from_numpy(inputs["k1_boxes"]).to(dev)
+    valid = torch.from_numpy(inputs["k1_valid"]).to(dev)
+    k1 = lambda: nms_keep.nms_keep_mask(boxes, valid, 0.45)  # noqa: E731
+    out = {"K1": {"ms": event_ms(k1), "graph_ms": graph_ms(k1)}}
+    convs = []
+    for m, k, n in inputs["k4_shapes"].tolist():
+        xq, wq, scale, bias = k4_operands(m, k, n, dev)
+        ms = graph_ms(lambda: int8_mm.int8_matmul_dequant(xq, wq, scale, bias))
+        convs.append({"mkn": [m, k, n], "ms": ms,
+                      "tile": getattr(int8_mm.int8_matmul_dequant, "tile", None)})
+        del xq, wq
+    out["K4"] = {"ms": sum(c["ms"] for c in convs), "convs": convs}
+    k4b = []
+    for m, k, n in K4B_SHAPES:
+        x, w, _, _ = k4_operands(m, k, n, dev)
+        k4b.append({"mkn": [m, k, n],
+                    "ms": graph_ms(lambda: int8_mm.matmul(x, w, torch.int32)),
+                    "int_mm_ms": graph_ms(lambda: torch._int_mm(x, w))})
+    out["K4b"] = k4b
+    return out
+
+
+def k4_tiles() -> None:
+    """This checkout's K4 at each of the 41 shapes on every tile."""
+    import torch
+
+    from yolo_series_tpu_torch.ops import int8_mm
+
+    dev = torch.device("cuda")
+    for m, k, n in np.load(INPUTS)["k4_shapes"].tolist():
+        xq, wq, scale, bias = k4_operands(m, k, n, dev)
+        ms = {f"{bm}x{bn}": graph_ms(lambda: int8_mm.int8_matmul_dequant(
+            xq, wq, scale, bias, tile=(bm, bn))) for bm, bn in int8_mm.TILES}
+        print(json.dumps({"mkn": [m, k, n], "picked": int8_mm.pick_tile(m, k, n),
+                          "ms": ms}), flush=True)
 
 
 def one_run(root: str) -> dict:
@@ -38,33 +159,6 @@ def one_run(root: str) -> dict:
     from yolo_series_tpu_torch.ops import conv_silu, fused_elan, fused_stem
 
     dev = torch.device("cuda")
-
-    def event_ms(fn, iters=20, warmup=3):
-        for _ in range(warmup):
-            fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(iters):
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        return statistics.median(times)
-
-    def graph_ms(fn, reps=5, iters=10):
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            for _ in range(2):
-                fn()
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for _ in range(reps):
-                fn()
-        return event_ms(graph.replay, iters=iters, warmup=1) / reps
 
     def rand(gen, shape, std):
         return (torch.randn(shape, generator=gen) * std).to(dev, torch.bfloat16)
@@ -111,6 +205,8 @@ def one_run(root: str) -> dict:
         for key in k3:
             k3[key] += span[key]
     out["K3"] = k3
+    del x, p
+    out.update(k1_k4(np.load(INPUTS), dev))
     return out
 
 
@@ -121,6 +217,11 @@ def main(argv) -> int:
     if not argv:
         print(__doc__, file=sys.stderr)
         return 2
+    make_inputs()
+    if argv == ["--k4-tiles"]:
+        sys.path.insert(0, str(ROOT))
+        k4_tiles()
+        argv = []
     for root in argv:
         res = subprocess.run([sys.executable, __file__, "--run", root],
                              capture_output=True, text=True, timeout=900)

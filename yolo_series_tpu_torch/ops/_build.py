@@ -34,10 +34,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # multiply-add contraction in those files. conv_silu reaches libcuda's
 # cuTensorMapEncodeTiled (TMA descriptors) through the runtime's entry-point
 # query (cudaGetDriverEntryPoint), so no -lcuda, and it is raw PTX with no
-# CUTLASS include; its -Xptxas -v puts the registers, shared memory and
-# spills of each instantiation in its build log.
-EXTRA_FLAGS = {"nms_keep": ["-fmad=false"], "int8_mm": ["-fmad=false"],
-               "conv_silu": ["-Xptxas", "-v"]}
+# CUTLASS include; int8_mm takes the same route. -Xptxas -v puts the
+# registers, shared memory and spills of each kernel in its build log.
+PTXAS_V = ["-Xptxas", "-v"]
+EXTRA_FLAGS = {"nms_keep": ["-fmad=false"] + PTXAS_V, "int8_mm": ["-fmad=false"] + PTXAS_V,
+               "conv_silu": PTXAS_V}
 SOURCES = ("nms_keep", "conv_silu", "int8_mm")
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -2,8 +2,9 @@
 
 `nms_keep_mask(boxes, valid, iou_threshold)` returns, per image, the keep
 mask of exact sequential greedy NMS over score-sorted boxes. On a CUDA
-tensor it launches the kernel `csrc/nms_keep.cu` (one CTA per image); on a
-CPU tensor it runs `nms_keep_mask_plain`, the whole-matrix fixpoint of
+tensor it launches the kernel `csrc/nms_keep.cu` (a cluster of CTAs per
+image builds the suppression bitmask, one warp scans it); on a CPU tensor
+it runs `nms_keep_mask_plain`, the whole-matrix fixpoint of
 `ops/nms.nms_keep_mask_full` in the JAX package. Both run to convergence,
 so they agree on any suppression-chain depth; the Pallas kernel stops
 after `max_iters` (64) passes and agrees only on shallower chains.
@@ -12,6 +13,7 @@ after `max_iters` (64) passes and agrees only on shallower chains.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -19,6 +21,17 @@ from yolo_series_tpu_torch.ops import _build
 from yolo_series_tpu_torch.ops.boxes import box_iou
 
 MAX_K = 1024  # shared-memory capacity of the kernel (16 B per box)
+
+
+@functools.cache
+def _entry():
+    """The kernel's C entry point with its argument types, set up once: the
+    serving path calls it every forward, and the host's cost shows."""
+    fn = _build.load("nms_keep").nms_keep_mask
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def nms_keep_mask_plain(boxes: torch.Tensor, valid: torch.Tensor,
@@ -61,13 +74,8 @@ def nms_keep_mask(boxes: torch.Tensor, valid: torch.Tensor,
     boxes = boxes.contiguous()
     valid = valid.contiguous()
     keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
-    lib = _build.load("nms_keep")
-    fn = lib.nms_keep_mask
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    _build.check(fn(boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(),
-                    b, k, float(iou_threshold), _build.stream_ptr()),
+    _build.check(_entry()(boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(),
+                          b, k, float(iou_threshold), _build.stream_ptr()),
                  "nms_keep_mask")
     nms_keep_mask.launches += 1
     return keep
