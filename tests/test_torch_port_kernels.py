@@ -363,7 +363,8 @@ def _bitmask_scan(boxes, valid, thr):
 @pytest.mark.parametrize("case,k", [("chain", 1), ("chain", 31), ("chain", 33),
                                     ("chain", 1000), ("clusters", 33),
                                     ("clusters", 1000), ("ties", 64),
-                                    ("invalid", 31), ("invalid", 1000)])
+                                    ("invalid", 31), ("invalid", 1000),
+                                    ("chain_boxes", 1000)])
 def test_keep_mask_bitmask_scan_model_matches_plain_and_jax(case, k):
     """The kernel's algorithm (words, bit order, block scan, invalid boxes
     starting removed, work cut at the last valid box) equals the plain
@@ -374,6 +375,11 @@ def test_keep_mask_bitmask_scan_model_matches_plain_and_jax(case, k):
         boxes = np.stack([nms_chain(k), nms_chain(k, 79 * 4096.0)])
         valid = np.ones((2, k), bool)
         valid[1, k // 2:] = False
+    elif case == "chain_boxes":   # chip_smoke.py's K1 input: chains and clusters
+        import chip_smoke
+
+        boxes = chip_smoke.chain_boxes(rng, 2, k)
+        valid = np.arange(k)[None] < np.array([[k], [k - 200]])
     elif case == "ties":
         base = _clustered(rng, k // 2, nc=2, sigma=8.0)
         boxes = np.stack([np.concatenate([base, base[::-1]])] * 2)
