@@ -14,8 +14,11 @@ non-zero on failure before the last line is printed:
     print `ptxas -v`'s registers, shared memory and spills of each kernel
     from its build log.
  3. Each kernel against its plain PyTorch version on the card, at the
-    shapes the serving path gives it (batch 8, 640 px): K1 the NMS
-    keep-mask (must be equal), K2 the fused stem tail and K3 the eight
+    shapes the main paths give it (batch 8, 640 px): K1 the NMS
+    keep-mask (must be equal), K1L the large-K keep-mask at K = 1025, 4096
+    and 8192 on deep suppression chains and on the real eval candidates
+    of the model (conf 0.001, multi-label; must be equal), K2 the fused
+    stem tail and K3 the eight
     fused ELAN spans (within a stated tolerance; beside the fused bound,
     the staged floor: the sum of each launch's own bound), each with its
     51 conv + SiLU launches, recorded as the stem and spans make them,
@@ -25,8 +28,8 @@ non-zero on failure before the last line is printed:
     and K4b, its bench template, at the shapes of
     `tools/bench_int8_pallas.py` (int8 equal, bf16 within a stated bound).
     Each with its time, the plain version's time, its bound and a library
-    yardstick (`library_ms`: cuDNN, or `torch._int_mm`). K1, K2, K3 and
-    their cuDNN chains are timed one call between two events (also by
+    yardstick (`library_ms`: cuDNN, or `torch._int_mm`). K1, K1L, K2, K3
+    and their cuDNN chains are timed one call between two events (also by
     CUDA-graph replay, beside); K4, K4b and the single conv launches,
     whose calls are short enough for the host's launch cost to show, by
     replaying a CUDA graph (device time). K4 and K4b print the tile each
@@ -34,22 +37,40 @@ non-zero on failure before the last line is printed:
  4. `ServingEngine` end to end on full-width yolov7 deploy, 640 px, batch
     8, bf16, random weights from a seeded torch.Generator: a few batches
     through `infer` and a few requests through `DynamicBatcher` (with its
-    batch-1 low-latency engine). The kernel launch counters must grow by
-    the expected amounts (conv_silu: 3 launches per stem, 6 per span),
-    and the output must agree with references built
-    here on the same card (the untransformed deploy plan through cuDNN,
-    with the plain keep-mask, in fp32 and in bf16) as the tolerances
-    below say. Then img/s, p50 latency, the host's enqueue time of one
-    forward and a profile of the device time.
+    batch-1 low-latency engine). Each engine captures a CUDA graph of
+    `end2end` at its first use and replays it after: the kernels' launch
+    counters grow at the eager warm-up call and at the capture only (so 2
+    forwards' worth an engine: conv_silu 3 launches per stem, 6 per span),
+    and every forward is a replay. The graph's output must be bit-equal to
+    the same engine's eager `end2end` on the same frames, and agree with
+    references built here on the same card (the untransformed deploy plan
+    through cuDNN, with the plain keep-mask, in fp32 and in bf16) as the
+    tolerances below say. Then img/s from the replay's device time, p50
+    latency, the host's time per `infer_async` (graph) and per eager
+    `end2end` enqueue, and a profile of the device time. Last, an engine
+    with `ingest_hw=(720, 1280)`: its device letterbox within 1 of the host
+    letterbox on every pixel, and its detections bit-equal to the plain
+    engine's on the same letterboxed pixels, scaled back to the frame.
  4b. The mixed int8 engine on the same weights: calibrated on two noise
     batches, the K4-eligible 1x1 convs quantized, then the same engines
-    and main path. Launches must be K1 = K2 = F, K3 = 0, K4 = 41 F for F
-    forwards; head inputs and detections must be bit-equal to the same
-    engine with the plain K4, and the head inputs within a sanity limit of
-    the fp32 reference. Then img/s, p50 and a profile. Last, one forward
-    of full int8 (every conv but the head's, dynamic scales) at batch 2:
-    K4 = 41, K2 = 0, bit-equal with the plain K4.
- 5. One JSON line of per-kernel numbers, the card's name and power limit,
+    and main path, captured the same way (launches K1 = K2 = 2 E, K3 = 0,
+    K4 = 41 x 2 E for E engines); the graph bit-equal to its eager
+    `end2end`, head inputs and detections bit-equal to the same engine with
+    the plain K4, and the head inputs within a sanity limit of the fp32
+    reference. Then img/s, p50 and a profile. Last, one forward of full
+    int8 (every conv but the head's, dynamic scales) at batch 2: K4 = 41 x
+    2, K2 = 0, bit-equal with the plain K4.
+ 5. Detect: full-width yolov7 in training form (IDetect), random weights
+    made to detect (`liven`), fused by `reparam.fuse_model`, through
+    `infer/detector.Detector` in bf16 on four BGR images of different
+    sizes: K1L (4096 candidates), K2 and K3 (8 spans) launch; the
+    detections are bit-equal to the same Detector's with the plain
+    keep-mask, and agree with an fp32 cuDNN Detector as phase 4's do.
+ 6. Eval: `eval/evaluator.evaluate` in fp32 over 16 synthetic images in two
+    rect batch shapes with labels from the model's own detections: K1L
+    (8192 candidates) launches, and map50 / map equal those of the same
+    run with the plain keep-mask; per-image inference and NMS ms.
+ 7. One JSON line of per-kernel numbers, the card's name and power limit,
     and the last line `{"ok": true, "device": {...}}`.
 """
 
@@ -79,7 +100,10 @@ import yolo_series_tpu_torch  # noqa: E402
 if Path(yolo_series_tpu_torch.__file__).resolve().parent != ROOT / "yolo_series_tpu_torch":
     raise ImportError(f"yolo_series_tpu_torch is not the one beside {__file__}")
 
+from yolo_series_tpu_torch.data.augment import letterbox
+from yolo_series_tpu_torch.eval.evaluator import evaluate, scale_coords_np
 from yolo_series_tpu_torch.infer import quant
+from yolo_series_tpu_torch.infer.detector import Detector
 from yolo_series_tpu_torch.infer.serving import DynamicBatcher, ServingEngine
 from yolo_series_tpu_torch.models import layers as L
 from yolo_series_tpu_torch.models.model import Model, _run_layer, apply_model, tree_map
@@ -87,9 +111,10 @@ from yolo_series_tpu_torch.models.reparam import fuse_model
 from yolo_series_tpu_torch.ops import (_build, conv_silu, fused_elan, fused_stem,
                                        int8_mm, nms_keep)
 from yolo_series_tpu_torch.ops.boxes import box_iou
-from yolo_series_tpu_torch.ops.nms import fused_head_nms
+from yolo_series_tpu_torch.ops.nms import batched_nms, fused_head_nms
 
 CFG = ROOT / "yolo_series_tpu_torch/models/cfg/deploy/yolov7.yaml"
+TRAIN_CFG = ROOT / "yolo_series_tpu_torch/models/cfg/training/yolov7.yaml"
 
 BATCH, IMG = 8, 640
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
@@ -143,6 +168,10 @@ BF16_MM_TOL = 2.0 ** -22
 # bench shapes of tools/bench_int8_pallas.py: its two 1x1-conv probes
 # (SHAPES_1X1) and its square compute probe
 K4B_SHAPES = ((12800, 1024, 512), (3200, 2048, 1024), (8192, 1024, 1024))
+# K1L's inputs: deep chains at these K, and the eval path's candidates
+# (max_nms of `evaluate`)
+K1L_SIZES = (1025, 4096, 8192)
+EVAL_NMS = 8192
 
 
 def log(*a):
@@ -241,13 +270,18 @@ def chain_boxes(rng, b, k, nc=80):
 
 def keep_mask_pairs(boxes, valid, keep, thr) -> int:
     """IoUs greedy NMS needs on these inputs: for each kept box i, one per
-    later box still alive when i is reached."""
+    later box still alive when i is reached (image by image, so that K =
+    8192 stays within a few GB)."""
     k = boxes.shape[1]
     upper = torch.ones((k, k), dtype=torch.bool, device=boxes.device).triu(1)
-    sup = keep[:, :, None] & (box_iou(boxes, boxes) > thr) & upper
-    before = torch.cumsum(sup.int(), 1) - sup.int()   # kept q < i suppress p
-    alive = valid[:, None, :] & (before == 0) & upper
-    return int((alive & keep[:, :, None]).sum())
+    total = 0
+    for b in range(boxes.shape[0]):
+        sup = keep[b, :, None] & (box_iou(boxes[b], boxes[b]) > thr) & upper
+        before = torch.cumsum(sup, 0) - sup.long()   # kept q < i suppress p
+        alive = valid[b, None, :] & (before == 0) & upper
+        total += int((alive & keep[b, :, None]).sum())
+        del sup, before, alive
+    return total
 
 
 def check_k1(dev, rows):
@@ -280,6 +314,130 @@ def check_k1(dev, rows):
             result = dict(max_abs_err=float(diff), ms=ms, plain_ms=plain_ms,
                           bound_ms=b_ms, bound_by=b_by, library_ms=None, graph_ms=g_ms)
     rows["K1"] = result
+
+
+def eval_candidates(m, images, conf_thres=0.001, iou_thres=0.65, max_nms=8192):
+    """The keep-mask inputs (score-sorted class-offset boxes, valid) of
+    `evaluate`'s NMS on `images`: the fp32 forward of the fused model, then
+    `batched_nms` multi-label with `max_nms` candidates, as eval runs it."""
+    got = []
+
+    def grab(boxes, valid, thr):
+        got.append((boxes.clone(), valid.clone()))
+        return torch.zeros_like(valid)
+
+    with torch.inference_mode():
+        x = torch.from_numpy(images).to(m.dev).float() / 255.0
+        out, _ = apply_model(m.plan, m.params, m.state, x, dtype=torch.float32)
+        batched_nms(out["pred"], conf_thres=conf_thres, iou_thres=iou_thres,
+                    multi_label=True, max_nms=max_nms, keep_fn=grab)
+    return got[0]
+
+
+def kernel_ms(fn, names, n=3):
+    """Device ms of one fn() call spent in each kernel whose name holds one
+    of `names` (torch.profiler over n calls; None where nothing was
+    recorded)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {name: None for name in names}
+    if not torch.cuda.is_available():   # a CPU rehearsal of this script
+        return out
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+        for name in names:
+            if name in e.key and us:
+                out[name] = (out[name] or 0.0) + us / 1e3 / n
+    return out
+
+
+def library_nms_ms(boxes, valid, thr):
+    """One call of torchvision's NMS per image on the same score-ordered
+    boxes, where torchvision is installed (it is not a dependency of the
+    port, and nothing installs it); else None."""
+    import importlib.util
+
+    if importlib.util.find_spec("torchvision") is None:
+        return None
+    import torchvision
+
+    k = boxes.shape[1]
+    scores = torch.linspace(1.0, 0.5, k, device=boxes.device)
+
+    def run():
+        for b in range(boxes.shape[0]):
+            torchvision.ops.nms(boxes[b][valid[b]], scores[valid[b]], thr)
+
+    return cuda_ms(run, iters=5)
+
+
+def check_k1l(dev, rows, m):
+    """K1L at B = 8 against the plain keep-mask on deep suppression chains
+    (K = 1025, 4096, 8192) and on the real eval candidates of the model (K
+    = 8192, IoU 0.65): equal. One call and graph replay times, the plain
+    version's, the bound (IoUs greedy needs at 67 TFLOP/s fp32; boxes in,
+    keep out) and beside it the design's own floor (every IoU of the upper
+    triangle, the mask written and read once). The row of the kernels line
+    is the eval candidates', the main path's input."""
+    rng = np.random.default_rng(7)
+    images = rng.integers(0, 256, (BATCH, IMG, IMG, 3), np.uint8)
+    cases = []
+    for k in K1L_SIZES:
+        boxes = torch.from_numpy(chain_boxes(rng, BATCH, k)).to(dev)
+        n_valid = torch.from_numpy(rng.integers(k // 2, k + 1, BATCH)).to(dev)
+        n_valid[0] = k
+        cases.append((f"chains K={k}", boxes,
+                      torch.arange(k, device=dev)[None] < n_valid[:, None], 0.45))
+    boxes, valid = eval_candidates(m, images, max_nms=EVAL_NMS)
+    cases.append((f"eval candidates K={boxes.shape[1]}", boxes, valid, 0.65))
+    runs = []
+    for name, boxes, valid, thr in cases:
+        k = boxes.shape[1]
+        got = nms_keep.nms_keep_mask(boxes, valid, thr)
+        torch.cuda.synchronize()
+        want = nms_keep.nms_keep_mask_plain(boxes, valid, thr)
+        diff = int((got != want).sum())
+        if diff:
+            raise AssertionError(f"K1L {name}: {diff} keep-mask entries differ")
+        call = lambda: nms_keep.nms_keep_mask_large(boxes, valid, thr)  # noqa: E731
+        ms = cuda_ms(call, iters=10)
+        g_ms = graph_ms(call, reps=3, iters=5)
+        plain_ms = cuda_ms(lambda: nms_keep.nms_keep_mask_plain(boxes, valid, thr),
+                           iters=1, warmup=0)
+        split = kernel_ms(call, ("nms_mask_kernel", "nms_scan_kernel"))
+        pairs = keep_mask_pairs(boxes, valid, want, thr)
+        b_ms, b_by = bound_ms(13 * pairs, PEAK_FP32, nbytes(boxes, valid) + want.numel())
+        nw = (k + 63) // 64
+        words = BATCH * sum(nw - i // 64 for i in range(k))   # upper blocks' rows
+        floor_ms = max(13 * BATCH * k * (k - 1) / 2 / PEAK_FP32 * 1e3,
+                       2 * 8 * words / PEAK_BYTES * 1e3)
+        log(f"K1L nms_keep_mask_large B={BATCH} {name}: equal to plain (kept "
+            f"{int(want.sum())} of {int(valid.sum())} valid); one call {ms:.4f} ms "
+            f"(graph replay {g_ms:.4f}), plain {plain_ms:.3f} ms, bound {b_ms:.6f} ms "
+            f"({b_by}, {pairs} IoUs), design floor {floor_ms:.4f} ms (all "
+            f"{BATCH * k * (k - 1) // 2} IoUs, mask {8 * words / 1e6:.1f} MB written "
+            f"and read); profile: mask kernel {split['nms_mask_kernel']} ms, scan "
+            f"kernel {split['nms_scan_kernel']} ms")
+        runs.append(dict(case=name, k=k, ms=ms, graph_ms=g_ms, plain_ms=plain_ms,
+                         mask_ms=split["nms_mask_kernel"], scan_ms=split["nms_scan_kernel"],
+                         bound_ms=b_ms, bound_by=b_by, design_floor_ms=floor_ms,
+                         ious=pairs, kept=int(want.sum()), valid=int(valid.sum())))
+        del got, want
+    ev = runs[-1]
+    boxes, valid, thr = cases[-1][1:]
+    lib_ms = library_nms_ms(boxes, valid, thr)
+    log(f"K1L library yardstick (torchvision.ops.nms, image by image): "
+        f"{'not installed' if lib_ms is None else f'{lib_ms:.4f} ms'}")
+    rows["K1L"] = dict(max_abs_err=0.0, ms=ev["ms"], plain_ms=ev["plain_ms"],
+                       bound_ms=ev["bound_ms"], bound_by=ev["bound_by"], library_ms=lib_ms,
+                       graph_ms=ev["graph_ms"], design_floor_ms=ev["design_floor_ms"])
+    rows["k1l_runs"] = runs
 
 
 # ------------------------------------------------------- K2 / K3 ---
@@ -812,9 +970,11 @@ def read_counts():
 
 
 def drive(engine, engine1, batches, lone, frames):
-    """The main path: `infer` on each batch and on a partial one, then lone
-    and concurrent requests through a `DynamicBatcher` with the batch-1
-    engine. Returns (outs, partial, lone results, concurrent results)."""
+    """The main path: `infer` on each batch and on a partial one (the first
+    call captures the engine's CUDA graph on the card), then lone and
+    concurrent requests through a `DynamicBatcher` with the batch-1 engine
+    (the batcher captures it). Returns (outs, partial, lone results,
+    concurrent results)."""
     if engine.device.type == "cuda":
         torch.cuda.synchronize()
     outs = [engine.infer(b) for b in batches]
@@ -839,6 +999,43 @@ def drive(engine, engine1, batches, lone, frames):
     return outs, partial, lone_res, results
 
 
+def check_path_counts(what, counts, engines, per_forward):
+    """The counted main path of graph engines: each engine ran `end2end`
+    eagerly once (its warm-up) and once under capture, and every forward
+    after that was a replay. So each launch counter holds 2 x engines x its
+    per-forward count, and replays == forwards. Returns the launches the
+    replays made on the card (per-forward count x replays). On the CPU (a
+    rehearsal of this script) nothing launches and nothing is checked."""
+    if engines[0].device.type != "cuda":
+        return {kid: 0 for kid in COUNTED}
+    calls = 2 * len(engines)
+    want = {kid: calls * per_forward.get(kid, 0) for kid in COUNTED}
+    forwards = sum(e.batches for e in engines)
+    replays = sum(e.replays for e in engines)
+    log(f"{what}: {forwards} forwards, all CUDA-graph replays ({replays}); host "
+        f"launch counts (eager warm-up + capture of {len(engines)} engines) {counts}")
+    if counts != want:
+        raise AssertionError(f"{what}: launch counts {counts}, want {want}")
+    if replays != forwards or forwards == 0:
+        raise AssertionError(f"{what}: {replays} replays for {forwards} forwards")
+    replayed = {kid: per_forward.get(kid, 0) * replays for kid in COUNTED}
+    log(f"{what}: launches the replays made on the card: {replayed}")
+    return replayed
+
+
+def graph_equals_eager(what, engine, outs, batches):
+    """Each graph output of the main path equals the same engine's eager
+    `end2end` on the same frames, bit for bit."""
+    for j, (got, images) in enumerate(zip(outs, batches)):
+        with torch.inference_mode():
+            want = engine.to_host(engine.end2end(torch.from_numpy(images).to(engine.device)))
+        for key in want:
+            if not np.array_equal(got[key], want[key]):
+                raise AssertionError(f"{what}: batch {j}: {key} differ between the "
+                                     "CUDA graph and eager end2end")
+    log(f"{what}: CUDA-graph output bit-equal to eager end2end on {len(outs)} batches")
+
+
 def agreements(what, reference, outs, partial, lone_res, results, batches, lone,
                frames):
     """Mean detection agreement with the fp32 reference of the engine's
@@ -861,11 +1058,16 @@ def agreements(what, reference, outs, partial, lone_res, results, batches, lone,
 
 
 def speed(engine, engine1, batches, lone, what):
-    """img/s from the device time of one `end2end`, host-to-host `infer`
-    p50 at the engine's batch and at batch 1, and a profile."""
+    """img/s from `infer_async` (the frames' upload, the graph replay and
+    the outputs' clones) between two events, the replay's device time
+    alone, host-to-host `infer` p50 at the engine's batch and at batch 1,
+    the host's time per `infer_async` and per eager `end2end` (no
+    synchronise inside the window), and profiles of both."""
     batch = engine.batch_size
     xd = torch.from_numpy(batches[0]).to(engine.device)
-    fwd_ms = cuda_ms(lambda: engine.end2end(xd), iters=20)
+    fwd_ms = cuda_ms(lambda: engine.infer_async(batches[0]), iters=20)
+    replay_ms = cuda_ms(engine._graph.replay, iters=20)
+    eager_ms = cuda_ms(lambda: engine.end2end(xd), iters=10)
     lat = []
     for _ in range(20):
         t = time.perf_counter()
@@ -876,24 +1078,35 @@ def speed(engine, engine1, batches, lone, what):
         t = time.perf_counter()
         engine1.infer(lone[0][None])
         lat1.append((time.perf_counter() - t) * 1e3)
-    # the host's time to enqueue one end2end (host clock, no synchronise
-    # inside the window): beside the device busy time, it says whether the
-    # host or the card paces the engine
-    enq = []
-    for _ in range(20):
+
+    def host_ms(fn):
+        # host clock around one call, no synchronise inside the window:
+        # beside the device busy time it says whether the host or the card
+        # paces the engine
+        out = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            out.append((time.perf_counter() - t) * 1e3)
         torch.cuda.synchronize()
-        t = time.perf_counter()
-        engine.end2end(xd)
-        enq.append((time.perf_counter() - t) * 1e3)
-    torch.cuda.synchronize()
-    res = dict(img_s=batch / fwd_ms * 1e3, device_ms_bs8=fwd_ms,
-               p50_ms_bs8=statistics.median(lat), p50_ms_bs1=statistics.median(lat1),
-               enqueue_ms_bs8=statistics.median(enq))
-    log(f"{what}: {res['img_s']:.1f} img/s (device time of one batch-{batch} "
-        f"end2end {fwd_ms:.3f} ms); infer p50 host-to-host batch {batch} "
-        f"{res['p50_ms_bs8']:.3f} ms, batch 1 {res['p50_ms_bs1']:.3f} ms; host "
-        f"enqueue of one end2end {res['enqueue_ms_bs8']:.3f} ms (median of 20)")
-    res.update(profile_forwards(lambda: engine.end2end(xd)))
+        return statistics.median(out)
+
+    res = dict(img_s=batch / fwd_ms * 1e3, device_ms_bs8=fwd_ms, replay_ms_bs8=replay_ms,
+               eager_ms_bs8=eager_ms, p50_ms_bs8=statistics.median(lat),
+               p50_ms_bs1=statistics.median(lat1),
+               host_ms_infer_async=host_ms(lambda: engine.infer_async(batches[0])),
+               enqueue_ms_bs8=host_ms(lambda: engine.end2end(xd)))
+    log(f"{what}: {res['img_s']:.1f} img/s (one batch-{batch} infer_async {fwd_ms:.3f} ms "
+        f"between events: upload, graph replay, output clones; the replay alone "
+        f"{replay_ms:.3f} ms; eager end2end {eager_ms:.3f} ms); infer p50 host-to-host "
+        f"batch {batch} {res['p50_ms_bs8']:.3f} ms, batch 1 {res['p50_ms_bs1']:.3f} ms; "
+        f"host time of one infer_async {res['host_ms_infer_async']:.3f} ms, of one eager "
+        f"end2end {res['enqueue_ms_bs8']:.3f} ms (medians of 20)")
+    res.update(profile_forwards(lambda: engine.infer_async(batches[0]),
+                                f"{what} (graph)"))
+    res["profile_eager"] = profile_forwards(lambda: engine.end2end(xd),
+                                            f"{what} (eager)")["profile"]
     return res
 
 
@@ -903,8 +1116,8 @@ def plan_names(engine):
 
 
 def serving(dev, m, batch=BATCH, requests=12):
-    """Phase 4: the bf16 engine. Returns the launch counts of the main-path
-    run and the serving numbers."""
+    """Phase 4: the bf16 graph engines. Returns the launch counts of the
+    main-path run and the serving numbers."""
     img, rng = m.img, m.rng
     plan, params, state = m.plan, m.params, m.state
     engine = ServingEngine(plan, params, state, batch_size=batch, img_size=img,
@@ -922,28 +1135,22 @@ def serving(dev, m, batch=BATCH, requests=12):
     batches = [rng.integers(0, 256, (batch, img, img, 3), np.uint8) for _ in range(3)]
     lone = [rng.integers(0, 256, (img, img, 3), np.uint8) for _ in range(2)]
     frames = [f for f in rng.integers(0, 256, (requests, img, img, 3), np.uint8)]
-    engine.warmup(1)
-    engine1.warmup(1)
 
-    # ---- the main path, counted ----
+    # ---- the main path, counted: captures, then replays ----
     zero_counts()
-    engine.batches = engine1.batches = 0
     outs, partial, lone_res, results = drive(engine, engine1, batches, lone, frames)
     counts = read_counts()
-    forwards = engine.batches + engine1.batches
-    log(f"serving: {len(batches) + 1} infer batches, {len(lone)} lone + "
-        f"{requests} concurrent batcher requests -> {engine.batches} batch-{batch} "
-        f"and {engine1.batches} batch-1 forwards; launches {counts}")
-    want = {"K1": forwards, "K2": forwards, "K3": 8 * forwards, "K4": 0, "K4b": 0}
-    if dev.type == "cuda" and counts != want:
-        raise AssertionError(f"launch counts {counts}, want {want}")
+    per_forward = {"K1": 1, "K2": 1, "K3": 8}
+    replayed = check_path_counts("serving", counts, (engine, engine1), per_forward)
     # device launches of the conv + SiLU kernel: 3 per stem, 6 per span
     conv_launches = conv_silu.launch.launches
-    log(f"serving: {conv_launches} conv_silu launches for {forwards} forwards "
+    log(f"serving: {conv_launches} conv_silu launches at the warm-up and capture calls "
         f"(3 per stem + 6 per span = {3 + 6 * 8} a forward)")
-    if dev.type == "cuda" and conv_launches != (3 + 6 * 8) * forwards:
-        raise AssertionError(f"{conv_launches} conv_silu launches, want "
-                             f"{(3 + 6 * 8) * forwards}")
+    if dev.type == "cuda" and conv_launches != (3 + 6 * 8) * 4:
+        raise AssertionError(f"{conv_launches} conv_silu launches, want {(3 + 6 * 8) * 4}")
+    graph_equals_eager("serving", engine, outs, batches)
+    graph_equals_eager("serving bs1", engine1, [engine1.infer(lone[0][None])],
+                       [lone[0][None]])
 
     # ---- the output against the references ----
     with torch.inference_mode():
@@ -978,12 +1185,69 @@ def serving(dev, m, batch=BATCH, requests=12):
                              f"cuDNN bf16's {agree_bf16:.3f}")
 
     # ---- speed ----
-    res = {"launches": counts, "forwards": forwards, "agreement": agree_eng,
+    res = {"launches": counts, "replayed_launches": replayed,
+           "forwards": engine.batches + engine1.batches, "agreement": agree_eng,
            "agreement_cudnn_bf16": agree_bf16, "feature_rms_err": err_eng,
            "feature_rms_err_cudnn_bf16": err_bf16}
     if dev.type == "cuda":
         res.update(speed(engine, engine1, batches, lone, "serving"))
+    res["ingest"] = ingest(dev, m, engine)
     return res
+
+
+def ingest(dev, m, engine, hw=(720, 1280)):
+    """An engine that takes raw (B, 720, 1280, 3) frames (`ingest_hw`): its
+    device letterbox within 1 of the host letterbox on every pixel (the
+    stated tolerance: bilinear sums in another order round the other way
+    near .5), its detections bit-equal to the plain engine's on the same
+    letterboxed pixels scaled back to the frame with the same operations,
+    and their agreement with the plain engine on the host's letterbox."""
+    batch = engine.batch_size
+    eng = ServingEngine(m.plan, m.params, m.state, batch_size=batch, img_size=m.img,
+                        dtype=torch.bfloat16, ingest_hw=hw, device=dev)
+    # noise at the letterboxed scale, upscaled x2 and jittered by a few
+    # levels: the network sees the statistics it was livened on (plain
+    # 720p noise averages to flat grey, where it detects nothing), and the
+    # bilinear average still has ties to round
+    rng = np.random.default_rng(5)
+    small = rng.integers(0, 256, (batch, hw[0] // 2, hw[1] // 2, 3)).repeat(2, 1).repeat(2, 2)
+    frames = np.clip(small + rng.integers(-3, 4, small.shape), 0, 255).astype(np.uint8)
+    zero_counts()
+    got = eng.infer(frames)
+    counts = read_counts()
+    check_path_counts(f"ingest {hw}", counts, (eng,), {"K1": 1, "K2": 1, "K3": 8})
+    with torch.inference_mode():
+        dev_lb = eng._letterbox(torch.from_numpy(frames).to(dev)).cpu().numpy()
+    host_lb = np.stack([letterbox(f, m.img, auto=False)[0] for f in frames])
+    diff = np.abs(dev_lb.astype(int) - host_lb.astype(int))
+    log(f"ingest {hw}: device letterbox against the host's: max |diff| {diff.max()}, "
+        f"{(diff > 0).mean():.3%} of pixels differ")
+    if diff.max() > 1:
+        raise AssertionError(f"ingest: device letterbox off the host's by {diff.max()}")
+    ref = engine.infer(dev_lb)
+    (dw, dh), r = eng._pad, eng._ratio
+    b = torch.from_numpy(ref["det_boxes"]).to(dev)
+    x1, y1, x2, y2 = ((b[..., i] - off) / r for i, off in enumerate((dw, dh, dw, dh)))
+    back = torch.stack([x1.clamp(0.0, hw[1]), y1.clamp(0.0, hw[0]),
+                        x2.clamp(0.0, hw[1]), y2.clamp(0.0, hw[0])], -1).cpu().numpy()
+    if not (got["num_dets"] > 0).all():
+        raise AssertionError(f"ingest: detections per frame {got['num_dets'].ravel()}: "
+                             "the check needs some on every frame")
+    for key, want in (("num_dets", ref["num_dets"]), ("det_scores", ref["det_scores"]),
+                      ("det_classes", ref["det_classes"]), ("det_boxes", back)):
+        if not np.array_equal(got[key], want):
+            raise AssertionError(f"ingest: {key} differ from the plain engine on the "
+                                 "same letterboxed pixels")
+    host = engine.infer(host_lb)
+    ratio_pad = ((r, r), (dw, dh))
+    host["det_boxes"] = np.stack([scale_coords_np((m.img, m.img), bx, hw, ratio_pad)
+                                  for bx in host["det_boxes"]])
+    agree = agreement("ingest vs host letterbox", got, host)
+    log(f"ingest {hw}: detections bit-equal to the plain engine on the device-"
+        f"letterboxed pixels, scaled back ({int(got['num_dets'].sum())} detections); "
+        f"agreement {agree:.3f} with the plain engine on the host's letterbox")
+    return {"launches": counts, "max_pixel_diff": int(diff.max()),
+            "pixel_diff_share": float((diff > 0).mean()), "agreement_host_letterbox": agree}
 
 
 @contextlib.contextmanager
@@ -1007,15 +1271,19 @@ def _count_wq(tree):
 
 
 def same_as_plain_k4(name, engine, normalized, images):
-    """Head inputs and detections of `engine` on `images`, with K4 and with
-    the plain K4: they must be bit-equal. Returns the head inputs."""
+    """Head inputs and detections of `engine` on `images`: with K4 (the
+    detections from the engine's CUDA graph) and with the plain K4 (eager,
+    under `plain_k4`): they must be bit-equal. Returns the head inputs."""
     runs = []
+    x = torch.from_numpy(images).to(engine.device)
     for plain in (False, True):
         with plain_k4() if plain else contextlib.nullcontext(), torch.inference_mode():
             feats, _ = apply_model(engine.plan, engine._params, engine._state,
                                    normalized(images), dtype=torch.bfloat16,
                                    return_head_inputs=True)
-            runs.append((feats, engine.infer(images)))
+            dets = (engine.to_host(engine.end2end(x)) if plain
+                    else engine.infer(images))
+            runs.append((feats, dets))
     (fk, dk), (fp, dp) = runs
     for lvl, (a, b) in enumerate(zip(fk, fp)):
         if not torch.equal(a, b):
@@ -1024,15 +1292,15 @@ def same_as_plain_k4(name, engine, normalized, images):
     for key in dp:
         if not np.array_equal(dk[key], dp[key]):
             raise AssertionError(f"{name}: {key} differ between K4 and the plain K4")
-    log(f"{name}: head inputs and detections bit-equal with K4 and with the plain "
-        f"K4 ({int(dp['num_dets'].sum())} detections)")
+    log(f"{name}: head inputs and detections bit-equal with K4 (graph) and with the "
+        f"plain K4 (eager) ({int(dp['num_dets'].sum())} detections)")
     return fk
 
 
 def int8_serving(dev, m, batch=BATCH, requests=12):
-    """Phase 4b: the mixed int8 engine (calibrated scales, the K4-eligible
-    1x1 convs quantized), as `tools/exp_int8_serve.py` builds it. Returns
-    its launch counts and numbers."""
+    """Phase 4b: the mixed int8 graph engines (calibrated scales, the
+    K4-eligible 1x1 convs quantized), as `tools/exp_int8_serve.py` builds
+    them. Returns its launch counts and numbers."""
     img = m.img
     rng = np.random.default_rng(1)
     cal = [rng.uniform(0, 1, (2, img, img, 3)).astype(np.float32) for _ in range(2)]
@@ -1061,25 +1329,18 @@ def int8_serving(dev, m, batch=BATCH, requests=12):
     batches = [rng.integers(0, 256, (batch, img, img, 3), np.uint8) for _ in range(3)]
     lone = [rng.integers(0, 256, (img, img, 3), np.uint8) for _ in range(2)]
     frames = [f for f in rng.integers(0, 256, (requests, img, img, 3), np.uint8)]
-    engine.warmup(1)
-    engine1.warmup(1)
 
-    # ---- the int8 main path, counted ----
+    # ---- the int8 main path, counted: captures, then replays ----
     zero_counts()
-    engine.batches = engine1.batches = 0
     outs, partial, lone_res, results = drive(engine, engine1, batches, lone, frames)
     counts = read_counts()
-    forwards = engine.batches + engine1.batches
-    log(f"int8 serving: {engine.batches} batch-{batch} and {engine1.batches} batch-1 "
-        f"forwards; launches {counts}")
-    want = {"K1": forwards, "K2": forwards, "K3": n_elan * forwards,
-            "K4": n_k4 * forwards, "K4b": 0}
-    if dev.type == "cuda" and counts != want:
-        raise AssertionError(f"int8 launch counts {counts}, want {want}")
-    want_conv = (3 + 6 * n_elan) * forwards
+    per_forward = {"K1": 1, "K2": 1, "K3": n_elan, "K4": n_k4}
+    replayed = check_path_counts("int8 serving", counts, (engine, engine1), per_forward)
+    want_conv = (3 + 6 * n_elan) * 4
     if dev.type == "cuda" and conv_silu.launch.launches != want_conv:
         raise AssertionError(f"int8: {conv_silu.launch.launches} conv_silu launches, "
                              f"want {want_conv}")
+    graph_equals_eager("int8 serving", engine, outs, batches)
 
     # ---- K4 against its plain version on the whole path; the error ----
     feats = same_as_plain_k4("int8 serving", engine, normalized, batches[0])
@@ -1096,7 +1357,8 @@ def int8_serving(dev, m, batch=BATCH, requests=12):
     log(f"int8 serving: detections agree {agree_int8:.3f} with the fp32 reference "
         f"(cuDNN bf16 {agree_bf16:.3f})")
 
-    res = {"launches": counts, "forwards": forwards, "agreement": agree_int8,
+    res = {"launches": counts, "replayed_launches": replayed,
+           "forwards": engine.batches + engine1.batches, "agreement": agree_int8,
            "agreement_cudnn_bf16": agree_bf16, "feature_rms_err": err_int8,
            "feature_rms_err_cudnn_bf16": err_bf16, "calibrate_s": cal_s}
     if dev.type == "cuda":
@@ -1107,7 +1369,8 @@ def int8_serving(dev, m, batch=BATCH, requests=12):
 def full_int8(dev, m, batch=2):
     """Full int8 (every conv but the head's, dynamic activation scales), as
     `tools/serve_http.py --int8` builds it: one counted forward through a
-    batch-`batch` engine, bit-equal with the plain K4."""
+    batch-`batch` graph engine (warm-up + capture, then a replay),
+    bit-equal with the plain K4."""
     qp, qs = quant.quantize_model(m.plan, m.params, m.state)
     engine = ServingEngine(m.plan, qp, qs, batch_size=batch, img_size=m.img,
                            dtype=torch.bfloat16, device=dev)
@@ -1119,10 +1382,8 @@ def full_int8(dev, m, batch=2):
     n_k4 = len(k4_shapes(m.plan, 1, m.img))
     log(f"full int8: {_count_wq(qp)} convs quantized (dynamic scales), plan "
         f"{plan_names(engine)} (FusedStem, FusedELAN); one batch-{batch} forward: "
-        f"launches {counts}, {int(out['num_dets'].sum())} detections")
-    want = {"K1": 1, "K2": 0, "K3": 0, "K4": n_k4, "K4b": 0}
-    if dev.type == "cuda" and counts != want:
-        raise AssertionError(f"full int8 launch counts {counts}, want {want}")
+        f"{int(out['num_dets'].sum())} detections")
+    check_path_counts("full int8", counts, (engine,), {"K1": 1, "K4": n_k4})
     feats = same_as_plain_k4("full int8", engine, normalized, images)
     f32, _ = reference(images, torch.float32)
     err = feature_error(feats, f32)
@@ -1134,11 +1395,149 @@ def full_int8(dev, m, batch=2):
     return {"launches": counts, "feature_rms_err": err}
 
 
+def rows_out(dets, max_det=300):
+    """Detector rows (list of (n, 6)) as the engine's output dict."""
+    b = len(dets)
+    out = {"num_dets": np.array([[len(d)] for d in dets]),
+           "det_boxes": np.zeros((b, max_det, 4), np.float32),
+           "det_scores": np.zeros((b, max_det), np.float32),
+           "det_classes": np.zeros((b, max_det), np.int32)}
+    for i, d in enumerate(dets):
+        out["det_boxes"][i, :len(d)] = d[:, :4]
+        out["det_scores"][i, :len(d)] = d[:, 4]
+        out["det_classes"][i, :len(d)] = d[:, 5]
+    return out
+
+
+def noise_image(rng, hw, size=None):
+    """A (h, w, 3) uint8 image whose letterbox to `size` (IMG) is noise as
+    the network was livened on: noise drawn at the letterboxed scale,
+    resized to (h, w) nearest and jittered by a few levels (noise drawn at
+    720p averages to flat grey in the letterbox, where it detects
+    nothing)."""
+    import cv2
+
+    h, w = hw
+    r = min((size or IMG) / h, (size or IMG) / w)
+    small = rng.integers(0, 256, (round(h * r), round(w * r), 3)).astype(np.uint8)
+    img = cv2.resize(small, (w, h), interpolation=cv2.INTER_NEAREST).astype(int)
+    return np.clip(img + rng.integers(-3, 4, img.shape), 0, 255).astype(np.uint8)
+
+
+def detect(dev, width=1.0):
+    """Phase 5: full-width yolov7 training form (IDetect), random weights
+    (seed 1) livened and fused, through the bf16 Detector (fast stem, fused
+    stem, fused spans) on four BGR images of different sizes. Counted:
+    K1L once (4096 candidates), K2 once, K3 once a span; bit-equal to the
+    same Detector with the plain keep-mask; agreement with an fp32 cuDNN
+    Detector at least cuDNN bf16's less MATCH_MARGIN."""
+    model = Model.from_yaml(_cfg(width, TRAIN_CFG), seed=1, device=dev)
+    rng = np.random.default_rng(11)
+    calib = torch.from_numpy(rng.integers(0, 256, (2, IMG, IMG, 3), np.uint8))
+    liven(model.plan, model.params, model.state, calib.to(dev).float() / 255.0)
+    params, state = fuse_model(model.plan, model.params, model.state)
+    shapes = ((480, 640), (720, 1280), (640, 640), (375, 500))
+    images = [noise_image(rng, hw) for hw in shapes]
+    det = Detector(model.plan, params, state, img_size=IMG, dtype=torch.bfloat16,
+                   device=dev)
+    n_stem, n_elan = plan_names(det)
+    log(f"detect: yolov7 training form ({type(model.plan.head).__name__} head), "
+        f"width {width}, {model.num_params()} params, fused; Detector bf16 at {IMG} px "
+        f"with {n_stem} FusedStem, {n_elan} FusedELAN; images {shapes}")
+    if dev.type == "cuda" and (n_stem, n_elan) != (1, 8):
+        raise AssertionError(f"detect: transforms did not engage: {n_stem}, {n_elan}")
+    zero_counts()
+    got = det(images)
+    counts = read_counts()
+    log(f"detect: {sum(len(d) for d in got)} detections; launches {counts}")
+    want = {kid: 0 for kid in COUNTED} | {"K1L": 1, "K2": 1, "K3": 8}
+    if dev.type == "cuda" and counts != want:
+        raise AssertionError(f"detect: launch counts {counts}, want {want}")
+    plain = Detector(model.plan, params, state, img_size=IMG, dtype=torch.bfloat16,
+                     device=dev, keep_fn=nms_keep.nms_keep_mask_plain)(images)
+    for i, (a, b) in enumerate(zip(got, plain)):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"detect image {i}: detections differ between K1L and "
+                                 "the plain keep-mask")
+    refs = {dt: Detector(model.plan, params, state, img_size=IMG, dtype=dt, device=dev,
+                         fast_stem=False, keep_fn=nms_keep.nms_keep_mask_plain)(images)
+            for dt in (torch.float32, torch.bfloat16)}
+    want32 = rows_out(refs[torch.float32])
+    agree = agreement("detect", rows_out(got), want32)
+    agree_bf16 = agreement("detect cuDNN bf16", rows_out(refs[torch.bfloat16]), want32)
+    log(f"detect: detections bit-equal with K1L and with the plain keep-mask; agree "
+        f"{agree:.3f} with the fp32 cuDNN Detector (cuDNN bf16 {agree_bf16:.3f})")
+    if not agree >= agree_bf16 - MATCH_MARGIN:
+        raise AssertionError(f"detect: agreement {agree:.3f}, cuDNN bf16 {agree_bf16:.3f}")
+    ms = cuda_ms(lambda: det(images), iters=5, warmup=1) if dev.type == "cuda" else None
+    log(f"detect: one call on {len(images)} images {ms} ms (host letterbox, "
+        f"forward, NMS, rows to the host)")
+    return {"launches": counts, "agreement": agree, "agreement_cudnn_bf16": agree_bf16,
+            "detections": sum(len(d) for d in got), "ms": ms}
+
+
+def evaluation(dev, m, batch=BATCH, n_images=16):
+    """Phase 6: `evaluate` in fp32 over 16 synthetic images, rect batches
+    of 8 at 640 x 640 and 384 x 640 (at IMG = 640), labels from the model's own detections
+    (conf 0.25 through the fp32 cuDNN path) jittered by a few pixels, plus
+    one the model does not find an image. Counted: K1L once a batch
+    (8192 candidates); map50 / map equal those of the same run with the
+    plain keep-mask."""
+    rng = np.random.default_rng(13)
+    batches = []
+    for bi, (h, w) in enumerate(((IMG, IMG), (IMG * 3 // 5 // 32 * 32, IMG))):
+        for _ in range(n_images // batch // 2):
+            imgs = rng.integers(0, 256, (batch, h, w, 3), np.uint8)
+            with torch.inference_mode():
+                x = torch.from_numpy(imgs).to(dev).float() / 255.0
+                out, _ = apply_model(m.plan, m.params, m.state, x, dtype=torch.float32)
+                dets = batched_nms(out["pred"], max_det=20,
+                                   keep_fn=nms_keep.nms_keep_mask_plain)
+            labels = np.zeros((batch, 21, 5), np.float32)
+            mask = np.zeros((batch, 21), bool)
+            for si in range(batch):
+                n = int(dets.num_dets[si])
+                xyxy = dets.boxes[si, :n].cpu().numpy() + rng.normal(0, 3, (n, 4))
+                xywh = np.concatenate([(xyxy[:, :2] + xyxy[:, 2:]) / 2,
+                                       xyxy[:, 2:] - xyxy[:, :2]], 1) / [w, h, w, h]
+                rows = np.concatenate([dets.classes[si, :n].cpu().numpy()[:, None], xywh], 1)
+                rows = np.concatenate([rows, [[si % m.plan.nc, 0.5, 0.5, 0.2, 0.3]]])
+                labels[si, :len(rows)] = rows
+                mask[si, :len(rows)] = True
+            batches.append({"images": imgs, "labels": labels, "label_mask": mask,
+                            "shapes": [None] * batch,
+                            "paths": [f"{bi}_{len(batches)}_{si}.jpg" for si in range(batch)]})
+    log(f"eval: {n_images} images in {len(batches)} batches of {batch} "
+        f"({[b['images'].shape[1:3] for b in batches]}), fp32, cuDNN TF32 "
+        f"{torch.backends.cudnn.allow_tf32}, matmul TF32 "
+        f"{torch.backends.cuda.matmul.allow_tf32}")
+    zero_counts()
+    got = evaluate(m.plan, m.params, m.state, batches, device=dev)
+    counts = read_counts()
+    want = {kid: 0 for kid in COUNTED} | {"K1L": len(batches)}
+    if dev.type == "cuda" and counts != want:
+        raise AssertionError(f"eval: launch counts {counts}, want {want}")
+    plain = evaluate(m.plan, m.params, m.state, batches, device=dev,
+                     keep_fn=nms_keep.nms_keep_mask_plain)
+    log(f"eval: map50 {got['map50']:.6f}, map {got['map']:.6f} (plain keep-mask "
+        f"{plain['map50']:.6f}, {plain['map']:.6f}); per image: inference "
+        f"{got['speed_ms']['inference']:.3f} ms, NMS {got['speed_ms']['nms']:.3f} ms "
+        f"(plain keep-mask NMS {plain['speed_ms']['nms']:.3f} ms); launches {counts}")
+    for key in ("map50", "map", "mp", "mr"):
+        if got[key] != plain[key]:
+            raise AssertionError(f"eval: {key} {got[key]} with K1L, {plain[key]} with the "
+                                 "plain keep-mask")
+    if not 0.0 < got["map50"] < 1.0:
+        raise AssertionError(f"eval: map50 {got['map50']} is not a meaningful check")
+    return {"launches": counts, "map50": got["map50"], "map": got["map"],
+            "speed_ms": got["speed_ms"], "plain_nms_ms": plain["speed_ms"]["nms"]}
+
+
 # substrings of the names of cuDNN's convolution kernels
 CUDNN_NAMES = ("conv", "xmma", "cudnn", "cutlass", "gemm")
 
 
-def profile_forwards(fn, n=5):
+def profile_forwards(fn, what="profile", n=5):
     """Device time by kernel over n back-to-back forwards (torch.profiler,
     CUPTI), and the device's busy share of their wall time."""
     from torch.profiler import ProfilerActivity, profile
@@ -1151,7 +1550,7 @@ def profile_forwards(fn, n=5):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    groups = {"conv_silu (K2, K3)": 0.0, "nms_keep (K1)": 0.0, "int8_mm (K4)": 0.0,
+    groups = {"conv_silu (K2, K3)": 0.0, "nms (K1, K1L)": 0.0, "int8_mm (K4)": 0.0,
               "cuDNN conv": 0.0, "other": 0.0}
     top = []
     for e in prof.key_averages():
@@ -1162,7 +1561,7 @@ def profile_forwards(fn, n=5):
             continue
         name = e.key
         g = ("conv_silu (K2, K3)" if "conv_silu" in name else
-             "nms_keep (K1)" if "nms_keep" in name else
+             "nms (K1, K1L)" if "nms_" in name else
              "int8_mm (K4)" if "int8_mm" in name else
              "cuDNN conv" if any(k in name.lower() for k in CUDNN_NAMES)
              else "other")
@@ -1170,23 +1569,24 @@ def profile_forwards(fn, n=5):
         top.append((us / 1e3 / n, name[:70]))
     busy = sum(groups.values())
     if busy == 0.0:
-        log("profile: no device time recorded (not measured)")
+        log(f"{what} profile: no device time recorded (not measured)")
         return {"profile": None}
     top.sort(reverse=True)
-    log(f"profile: {n} forwards, {wall_ms / n:.3f} ms wall each, device "
+    log(f"{what} profile: {n} forwards, {wall_ms / n:.3f} ms wall each, device "
         f"busy {busy:.3f} ms ({busy / (wall_ms / n):.1%}); by group (ms/forward): "
         + ", ".join(f"{k} {v:.3f}" for k, v in groups.items()))
-    log("profile: top kernels (ms/forward): "
+    log(f"{what} profile: top kernels (ms/forward): "
         + "; ".join(f"{name} {ms:.3f}" for ms, name in top[:8]))
     return {"profile": {"wall_ms": wall_ms / n, "busy_ms": busy,
                         "busy_share": busy / (wall_ms / n), "groups_ms": groups}}
 
 
-def _cfg(width):
-    """The port's yolov7 deploy cfg at `width` (1.0: the published one)."""
+def _cfg(width, path=CFG):
+    """The port's yolov7 cfg (deploy, or `path`) at `width` (1.0: the
+    published one)."""
     import yaml
 
-    with open(CFG) as f:
+    with open(path) as f:
         d = yaml.safe_load(f)
     d["width_multiple"] = width
     return d
@@ -1197,6 +1597,10 @@ def _cfg(width):
 KERNELS = (
     ("K1", "nms_keep_mask", "yolo_series_tpu_torch/csrc/nms_keep.cu",
      "yolo_series_tpu/ops/pallas_nms.py:24"),
+    # the counterpart of an XLA function, not of a pallas_call: the tiled
+    # keep-mask the JAX package's _nms_tail takes above 1024 candidates
+    ("K1L", "nms_keep_mask_large", "yolo_series_tpu_torch/csrc/nms_keep.cu",
+     "yolo_series_tpu/ops/nms.py:87"),
     ("K2", "fused_stem", "yolo_series_tpu_torch/csrc/conv_silu.cu",
      "yolo_series_tpu/ops/pallas_stem.py:78"),
     ("K3", "fused_elan", "yolo_series_tpu_torch/csrc/conv_silu.cu",
@@ -1207,7 +1611,8 @@ KERNELS = (
      "tools/bench_int8_pallas.py:65"),
 )
 # each kernel's wrapper, whose `launches` counts its launches
-COUNTED = {"K1": nms_keep.nms_keep_mask, "K2": fused_stem.fused_stem,
+COUNTED = {"K1": nms_keep.nms_keep_mask, "K1L": nms_keep.nms_keep_mask_large,
+           "K2": fused_stem.fused_stem,
            "K3": fused_elan.fused_elan, "K4": int8_mm.int8_matmul_dequant,
            "K4b": int8_mm.matmul}
 
@@ -1235,6 +1640,7 @@ def main() -> int:
     m = make_model(dev)
     rows = {}
     check_k1(dev, rows)
+    check_k1l(dev, rows, m)
     check_k2(dev, rows)
     check_k3(dev, rows)
     check_k4(dev, rows, m.plan)
@@ -1242,11 +1648,20 @@ def main() -> int:
     srv = serving(dev, m)
     srv8 = int8_serving(dev, m)
     full = full_int8(dev, m)
+    det = detect(dev)
+    ev = evaluation(dev, m)
 
-    # K1-K3 as the bf16 path launched them, K4 (and K4b: none) as the
-    # int8 path did
+    # host-side counts of each kernel's main path: K1-K3 as the bf16
+    # engines launched them (warm-up and capture; `graph_launches`: what
+    # their replays launched on the card), K4 (and K4b: none) as the int8
+    # engines did, K1L as detect and eval did
     launches = {**srv["launches"], "K4": srv8["launches"]["K4"],
-                "K4b": srv8["launches"]["K4b"]}
+                "K4b": srv8["launches"]["K4b"],
+                "K1L": det["launches"]["K1L"] + ev["launches"]["K1L"]}
+    replayed = {**srv["replayed_launches"], "K4": srv8["replayed_launches"]["K4"]}
+    for kid in COUNTED:
+        if kid != "K4b" and launches[kid] == 0:
+            raise AssertionError(f"{kid} was launched no time on its main path")
     kernels = []
     for kid, name, src, rep in KERNELS:
         r = rows[kid]
@@ -1255,15 +1670,19 @@ def main() -> int:
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-        if kid == "K1":   # one call above; the same call by graph replay
+        if kid in ("K1", "K1L"):   # one call above; the same call by graph replay
             kernels[-1]["graph_ms"] = r["graph_ms"]
-    keys = ("img_s", "device_ms_bs8", "p50_ms_bs8", "p50_ms_bs1", "enqueue_ms_bs8",
-            "profile",
-            "feature_rms_err", "feature_rms_err_cudnn_bf16", "agreement",
-            "agreement_cudnn_bf16")
-    log(json.dumps({"serving": {k: srv[k] for k in keys},
+        if replayed.get(kid):
+            kernels[-1]["graph_launches"] = replayed[kid]
+    keys = ("img_s", "device_ms_bs8", "replay_ms_bs8", "eager_ms_bs8", "p50_ms_bs8",
+            "p50_ms_bs1", "host_ms_infer_async", "enqueue_ms_bs8", "profile",
+            "profile_eager", "feature_rms_err", "feature_rms_err_cudnn_bf16",
+            "agreement", "agreement_cudnn_bf16")
+    log(json.dumps({"serving": {k: srv[k] for k in keys + ("ingest",)},
                     "int8_serving": {k: srv8[k] for k in keys + ("calibrate_s",)},
-                    "full_int8": full, "fused": {"K2": rows["K2"], "K3": rows["K3"]},
+                    "full_int8": full, "detect": det, "eval": ev,
+                    "fused": {"K2": rows["K2"], "K3": rows["K3"]},
+                    "k1l_runs": rows["k1l_runs"],
                     "stages": rows["stages"], "k4_convs": rows["k4_convs"],
                     "card": card}))
     log(json.dumps({"kernels": kernels}))

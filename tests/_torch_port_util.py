@@ -10,15 +10,24 @@ import numpy as np
 
 DEPLOY_CFG = "yolo_series_tpu/models/cfg/deploy/yolov7.yaml"
 PORT_DEPLOY_CFG = "yolo_series_tpu_torch/models/cfg/deploy/yolov7.yaml"
+TRAINING_CFG = "yolo_series_tpu/models/cfg/training/yolov7.yaml"
+PORT_TRAINING_CFG = "yolo_series_tpu_torch/models/cfg/training/yolov7.yaml"
 
 
-def deploy_cfg(width=1.0):
+def deploy_cfg(width=1.0, path=DEPLOY_CFG, nc=None):
     import yaml
 
-    with open(DEPLOY_CFG) as f:
+    with open(path) as f:
         d = yaml.safe_load(f)
     d["width_multiple"] = width
+    if nc is not None:
+        d["nc"] = nc
     return d
+
+
+def training_cfg(width=1.0, nc=None):
+    """yolov7's training form (IDetect head) at `width`."""
+    return deploy_cfg(width, TRAINING_CFG, nc)
 
 
 def nms_chain(k, offset=0.0):
@@ -50,11 +59,13 @@ def to_jax_tree(tree, key=None):
     return a.transpose(2, 3, 1, 0) if key in ("w", "wq") and a.ndim == 4 else a
 
 
-def jax_model(width=0.5, seed=0, size=128, candidates=150):
-    """JAX deploy yolov7 at `width`: (plan, params_np, state_np), unfused.
-    The random init is edited by `chip_smoke.liven` (through the port, on
-    `size` px noise frames) so the model detects what is in the image, with
-    about `candidates` anchors per image above conf 0.25."""
+def jax_model(width=0.5, seed=0, size=128, candidates=150, cfg=None):
+    """JAX yolov7 (deploy form unless `cfg` is given) at `width`: (plan,
+    params_np, state_np), unfused. The random init is edited by
+    `chip_smoke.liven` (through the port, on `size` px noise frames) so the
+    model detects what is in the image, with about `candidates` anchors per
+    image above conf 0.25 (IDetect's implicit layers, near identity at
+    init, stay as drawn)."""
     import jax
     import torch
 
@@ -63,9 +74,10 @@ def jax_model(width=0.5, seed=0, size=128, candidates=150):
     from yolo_series_tpu_torch.models.convert import from_jax_params
     from yolo_series_tpu_torch.models.graph import compile_graph
 
-    m = Model.from_yaml(deploy_cfg(width), key=jax.random.PRNGKey(seed))
+    cfg = deploy_cfg(width) if cfg is None else cfg
+    m = Model.from_yaml(cfg, key=jax.random.PRNGKey(seed))
     state = to_numpy(m.state)
-    tplan = compile_graph(deploy_cfg(width))
+    tplan = compile_graph(cfg)
     tp, ts = from_jax_params(tplan, to_numpy(m.params), state)
     x = np.random.default_rng(seed).integers(0, 256, (2, size, size, 3))
     liven(tplan, tp, ts, torch.from_numpy(x / 255.0).float(),

@@ -114,10 +114,142 @@ def test_nms_keep_kernel_edges_equal_plain(cuda, name, k):
 
 
 def test_nms_keep_kernel_rejects_large_k(cuda):
+    """K1's own entry point takes K <= 1024 only; the wrapper sends larger K
+    to K1L (counted there, not as a K1 launch)."""
     boxes = torch.zeros((1, 1025, 4), device=cuda)
-    with pytest.raises(ValueError, match="1024"):
-        nms_keep.nms_keep_mask(boxes, torch.ones((1, 1025), dtype=torch.bool,
-                                                 device=cuda), 0.45)
+    valid = torch.ones((1, 1025), dtype=torch.bool, device=cuda)
+    keep = torch.empty_like(valid)
+    err = nms_keep._entry()(boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), 1, 1025,
+                            0.45, nms_keep._build.stream_ptr())
+    assert err != 0
+    before = (nms_keep.nms_keep_mask.launches, nms_keep.nms_keep_mask_large.launches)
+    nms_keep.nms_keep_mask(boxes, valid, 0.45)
+    assert (nms_keep.nms_keep_mask.launches, nms_keep.nms_keep_mask_large.launches) == \
+        (before[0], before[1] + 1)
+
+
+def _chain_groups(rng, b, k, nc=80):
+    """chip_smoke.chain_boxes' layout (half the boxes in overlapping
+    64-long chains, half in clusters, class offsets), without importing
+    the script."""
+    out = np.zeros((b, k, 4), np.float32)
+    for i in range(b):
+        n = k // 2
+        w = rng.uniform(40, 80)
+        j = np.arange(n)
+        x0 = 20 + (j % 64) * 0.3 * w + 40 * (j // 64)
+        y0 = rng.uniform(20, 500) + 0 * j
+        chain = np.stack([x0, y0, x0 + w, y0 + w], -1)
+        rand = _boxes_with_classes(rng, 1, k - n, nc=nc)[0] - 0.0
+        cls = rng.integers(0, nc)
+        out[i] = np.concatenate([chain + cls * 4096.0, rand])
+    return out
+
+
+def _large_case(name, rng, b, k):
+    if name == "chain":          # one k-deep chain an image
+        return np.stack([nms_chain(k, 4096.0 * i) for i in range(b)]), np.ones((b, k), bool)
+    if name == "chain_groups":
+        return _chain_groups(rng, b, k), rng.uniform(size=(b, k)) < 0.95
+    if name == "all_invalid_rows":
+        valid = rng.uniform(size=(b, k)) < 0.7
+        valid[::2] = False
+        return _boxes_with_classes(rng, b, k, nc=2), valid
+    if name == "threshold_ties":  # pairs at IoU exactly 0.5, and duplicates
+        x = rng.uniform(0, 600, (b, k // 2, 1)).astype(np.float32)
+        y = rng.uniform(0, 600, (b, k // 2, 1)).astype(np.float32)
+        full = np.concatenate([x, y, x + 10, y + 10], -1)
+        half = np.concatenate([x, y, x + 10, y + 5], -1)
+        boxes = np.stack([full, half], 2).reshape(b, -1, 4)
+        boxes = np.concatenate([boxes, boxes[:, : k - boxes.shape[1]]], 1)
+        return boxes, np.ones((b, k), bool)
+    return _boxes_with_classes(rng, b, k, nc=3), rng.uniform(size=(b, k)) < 0.9
+
+
+LARGE_CASES = ([("chain", 1, k) for k in (1025, 2047, 4096)]
+               + [("chain_groups", b, k) for b in (1, 8) for k in (1025, 4096, 8192)]
+               + [("clusters", 8, 2047), ("clusters", 1, 8192),
+                  ("all_invalid_rows", 8, 2047), ("all_invalid_rows", 8, 8192),
+                  ("threshold_ties", 8, 1025), ("threshold_ties", 1, 4096)])
+
+
+@pytest.mark.parametrize("name,b,k", LARGE_CASES,
+                         ids=[f"{n}_B{b}_K{k}" for n, b, k in LARGE_CASES])
+def test_nms_keep_large_kernel_equals_plain(cuda, name, b, k):
+    """K1L at K = 1025, 2047, 4096 and 8192, B = 1 and 8: deep chains (one
+    K-deep, and the 64-long overlapping chains of chip_smoke.py), rows with
+    no valid box, and pairs at exactly the threshold; bit-equal to the
+    plain version, one K1L launch each (the threshold case at thr 0.5)."""
+    rng = np.random.default_rng(k + b)
+    boxes, valid = _large_case(name, rng, b, k)
+    thr = 0.5 if name == "threshold_ties" else 0.45
+    boxes, valid = torch.from_numpy(boxes).to(cuda), torch.from_numpy(valid).to(cuda)
+    before = nms_keep.nms_keep_mask_large.launches
+    got = nms_keep.nms_keep_mask(boxes, valid, thr)
+    torch.cuda.synchronize()
+    assert nms_keep.nms_keep_mask_large.launches == before + 1
+    want = nms_keep.nms_keep_mask_plain(boxes, valid, thr)
+    assert torch.equal(got, want)
+    if name == "chain":
+        assert got[0].tolist() == [i % 2 == 0 for i in range(k)]
+
+
+@pytest.mark.parametrize("k", [1, 63, 64, 65, 256, 1000, 1024])
+def test_nms_keep_k1_and_k1l_agree(cuda, k):
+    """Where both kernels run (K <= 1024), K1 and K1L give the same mask."""
+    rng = np.random.default_rng(k)
+    boxes = torch.from_numpy(_boxes_with_classes(rng, 4, k, nc=3)).to(cuda)
+    valid = torch.from_numpy(rng.uniform(size=(4, k)) < 0.9).to(cuda)
+    a = nms_keep.nms_keep_mask(boxes, valid, 0.45)
+    b = nms_keep.nms_keep_mask_large(boxes, valid, 0.45)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.fixture(scope="module")
+def graph_engine():
+    """A width-0.5 yolov7 deploy engine (batch 2, 256 px, bf16) on the card,
+    with random weights made to detect (chip_smoke.liven)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    import chip_smoke
+    from yolo_series_tpu_torch.infer.serving import ServingEngine
+
+    m = chip_smoke.make_model(torch.device("cuda"), width=0.5, img=256)
+    return ServingEngine(m.plan, m.params, m.state, batch_size=2, img_size=256,
+                         device="cuda")
+
+
+def _frames(seed, n=2, size=256):
+    return np.random.default_rng(seed).integers(0, 256, (n, size, size, 3), np.uint8)
+
+
+def test_graph_engine_equals_eager(cuda, graph_engine):
+    """The captured end2end replays to the eager end2end's detections bit
+    for bit; a replay after new frames gives the new frames' detections."""
+    eng = graph_engine
+    for seed in (0, 1, 0):
+        x = _frames(seed)
+        got = eng.infer(x)
+        with torch.inference_mode():
+            want = eng.to_host(eng.end2end(torch.from_numpy(x).to(cuda)))
+        assert eng.captured and eng.replays >= 1
+        assert int(want["num_dets"].sum()) > 0
+        for key in want:
+            assert np.array_equal(got[key], want[key]), key
+
+
+def test_graph_engine_outputs_survive_the_next_replay(cuda, graph_engine):
+    """infer_async clones the graph's outputs: the first batch's result is
+    unchanged after a second replay with other frames."""
+    eng = graph_engine
+    a, _ = eng.infer_async(_frames(2))
+    a_host = eng.to_host(a)
+    b, _ = eng.infer_async(_frames(3))
+    torch.cuda.synchronize()
+    for key, v in eng.to_host(a).items():
+        assert np.array_equal(v, a_host[key])
+    assert any(not np.array_equal(v, a_host[k]) for k, v in eng.to_host(b).items())
 
 
 def _bf16(rng, shape, scale):
@@ -406,3 +538,25 @@ def test_int8_conv_on_card_equals_cpu(cuda, k, s, c, n):
     want = quant.int8_conv(x, wq, sw, b, s, k // 2, 1)
     got = quant.int8_conv(x.to(cuda), wq.to(cuda), sw.to(cuda), b.to(cuda), s, k // 2, 1)
     assert torch.equal(got.cpu(), want)
+
+
+# last in the file: a failed capture should leave the card usable, but
+# nothing else runs after it in this process if it does not
+def test_graph_capture_failure_raises(cuda, graph_engine):
+    """A capture that fails raises; the engine does not fall back to eager."""
+    from yolo_series_tpu_torch.infer.serving import ServingEngine
+
+    eng = ServingEngine(graph_engine.plan, graph_engine._params, graph_engine._state,
+                        batch_size=1, img_size=256, device="cuda")
+    real = eng.end2end
+    calls = []
+
+    def syncing(x):
+        out = real(x)
+        calls.append(int(out["num_dets"].sum().item()))   # a host sync
+        return out
+
+    eng.end2end = syncing
+    with pytest.raises(Exception):
+        eng.infer(_frames(4, n=1))
+    assert not eng.captured and eng.replays == 0

@@ -9,8 +9,8 @@ import numpy as np
 import pytest
 import torch
 
-from tests._torch_port_util import (PORT_DEPLOY_CFG, deploy_cfg, jax_model,
-                                    to_numpy)
+from tests._torch_port_util import (PORT_DEPLOY_CFG, PORT_TRAINING_CFG, deploy_cfg,
+                                    jax_model, to_numpy, training_cfg)
 from yolo_series_tpu.models import faststem as jfs
 from yolo_series_tpu.models import graph as jgraph
 from yolo_series_tpu.models import model as jmodel
@@ -56,13 +56,46 @@ def test_port_cfg_is_the_jax_cfg():
 
     with open(PORT_DEPLOY_CFG) as f:
         assert yaml.safe_load(f) == deploy_cfg(1.0)
+    with open(PORT_TRAINING_CFG) as f:
+        assert yaml.safe_load(f) == training_cfg(1.0)
 
 
-@pytest.mark.parametrize("module", ["IDetect", "BottleneckCSPA", "ReOrg"])
+@pytest.mark.parametrize("name", ["IDetect", "idetect"])
+def test_compile_training_graph_matches_jax(name):
+    """yolov7's training form: the same plan as the JAX package's, with an
+    IDetect head (the reference's name or the canonical one)."""
+    cfg = training_cfg(1.0)
+    cfg["head"][-1] = [[102, 103, 104], 1, name, ["nc", "anchors"]]
+    jp, tp = jgraph.compile_graph(cfg), tgraph.compile_graph(cfg)
+    assert type(tp.head).__name__ == type(jp.head).__name__ == "IDetect"
+    assert len(tp.layers) == len(jp.layers) == 106 and tp.save == jp.save
+    for a, b in zip(tp.layers, jp.layers):
+        assert (a.index, a.frm, a.cout, a.stride) == (b.index, b.frm, b.cout, b.stride)
+        assert _block_fields(a.block) == _block_fields(b.block), a.index
+
+
+def test_implicit_layers_compile_from_the_dsl():
+    """ImplicitA / ImplicitM rows take their width from their input."""
+    from yolo_series_tpu_torch.models import layers as tlayers
+
+    cfg = deploy_cfg(1.0)
+    cfg["backbone"].insert(1, [-1, 1, "ImplicitA", []])
+    cfg["backbone"].insert(2, [-1, 1, "ImplicitM", []])
+    for row in cfg["backbone"][3:] + cfg["head"]:   # two rows added: shift refs
+        f = row[0]
+        row[0] = ([x + 2 if x > 0 else x for x in f] if isinstance(f, list)
+                  else f + 2 if f > 0 else f)
+    tp = tgraph.compile_graph(cfg)
+    assert tp.layers[1].block == tlayers.ImplicitA(32)
+    assert tp.layers[2].block == tlayers.ImplicitM(32)
+    assert len(tp.layers) == 108
+
+
+@pytest.mark.parametrize("module", ["IAuxDetect", "BottleneckCSPA", "ReOrg"])
 def test_unported_module_raises(module):
     cfg = deploy_cfg(1.0)
-    if module == "IDetect":
-        cfg["head"][-1] = [[102, 103, 104], 1, "IDetect", ["nc", "anchors"]]
+    if module == "IAuxDetect":
+        cfg["head"][-1] = [[102, 103, 104], 1, "IAuxDetect", ["nc", "anchors"]]
     else:
         cfg["backbone"][1] = [-1, 1, module, [64]]
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):

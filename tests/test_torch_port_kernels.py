@@ -456,3 +456,103 @@ def test_keep_mask_threshold_test_without_division(thr):
         x, md = inter.astype(np.float64), mid * d.astype(np.float64)
         got = (x >= md) if mid_up else (x > md)
         np.testing.assert_array_equal(got, (inter / d) > t)
+
+
+# ----------------------------------------------------------------- K1L ---
+
+def _large_k_model(boxes, valid, thr):
+    """A numpy model of the large-K keep-mask (csrc/nms_keep.cu, K1L) for
+    one image. Mask kernel: every row i, 64-bit words from i // 64 on, bit
+    p % 64 of word p // 64 is IoU(i, p) > thr for p > i (valid ignored).
+    Scan: `removed` starts as the invalid boxes and the bits past K; for
+    each 64-box block w up to the last valid box, one thread resolves the
+    block from its rows' diagonal words, then every later word j ORs word j
+    of the block's kept rows."""
+    k = len(boxes)
+    nw = (k + 63) // 64
+    iou = box_iou(torch.from_numpy(boxes), torch.from_numpy(boxes)).numpy()
+    mask = [[0] * nw for _ in range(k)]
+    for i in range(k):
+        for p in np.flatnonzero(iou[i, i + 1:] > thr) + i + 1:
+            mask[i][p // 64] |= 1 << int(p % 64)
+    full = (1 << 64) - 1
+    removed = [full ^ sum(1 << t for t in range(64) if 64 * j + t < k and valid[64 * j + t])
+               for j in range(nw)]
+    nwe = max((j + 1 for j in range(nw) if removed[j] != full), default=0)
+    for w in range(nwe):
+        r = removed[w]
+        for t in range(64):
+            if not (r >> t) & 1:
+                r |= mask[64 * w + t][w]
+        removed[w] = r
+        kept = [t for t in range(64) if not (r >> t) & 1]
+        for j in range(w + 1, nwe):
+            for t in kept:
+                removed[j] |= mask[64 * w + t][j]
+    return np.array([not (removed[p // 64] >> (p % 64)) & 1 for p in range(k)])
+
+
+def _jax_tiled(boxes, valid, thr):
+    """The JAX package's tiled keep-mask (`_nms_tail` above 1024), invalid
+    rows zeroed first as `_nms_tail` zeroes them."""
+    boxes = np.where(valid[..., None], boxes, np.float32(0))
+    return np.stack([np.asarray(jnms.nms_keep_mask(jnp.asarray(b), thr)) & v
+                     for b, v in zip(boxes, valid)])
+
+
+@pytest.mark.parametrize("case,k", [("chain", 1025), ("chain", 1300), ("chain", 65),
+                                    ("clusters", 1089), ("clusters", 130),
+                                    ("invalid", 1100), ("ties", 1030),
+                                    ("chain_boxes", 1025)])
+def test_large_k_keep_mask_model_matches_plain_and_jax_tiled(case, k):
+    """K1L's algorithm (64-bit words, upper-triangular blocks, the block
+    scan, invalid boxes starting removed, the scan cut at the last valid
+    box) equals the plain version and the JAX package's tiled keep-mask on
+    deep chains (with class offsets), clusters, ragged K (not a multiple of
+    64), rows with no valid box and exact duplicates."""
+    rng = np.random.default_rng(k)
+    if case == "chain":
+        boxes = np.stack([nms_chain(k), nms_chain(k, 79 * 4096.0)])
+        valid = np.ones((2, k), bool)
+        valid[1, k // 3:] = False
+    elif case == "chain_boxes":   # chip_smoke.py's K1L input
+        import chip_smoke
+
+        boxes = chip_smoke.chain_boxes(rng, 2, k)
+        valid = np.arange(k)[None] < np.array([[k], [k - 300]])
+    elif case == "ties":
+        base = _clustered(rng, k // 2, nc=2, sigma=8.0)
+        boxes = np.stack([np.concatenate([base, base[::-1]])] * 2)
+        valid = np.ones((2, k), bool)
+    else:
+        boxes = np.stack([_clustered(rng, k, nc=3, sigma=8.0) for _ in range(3)])
+        valid = rng.uniform(size=(3, k)) < 0.8
+        if case == "invalid":
+            valid[0] = False
+            valid[2, : k // 2] = False
+    got = np.stack([_large_k_model(b, v, 0.45) for b, v in zip(boxes, valid)])
+    plain = nms_keep.nms_keep_mask_plain(torch.from_numpy(boxes), torch.from_numpy(valid),
+                                         0.45)
+    np.testing.assert_array_equal(got, plain.numpy())
+    np.testing.assert_array_equal(got, _jax_tiled(boxes, valid, 0.45))
+    if case == "chain":
+        assert got[0].tolist() == [i % 2 == 0 for i in range(k)]
+
+
+def test_keep_mask_routes_by_k_and_device():
+    """On the CPU both wrappers take the plain version at every K and count
+    no launch; the plain version stops its matrices at the batch's last
+    valid box and still matches the whole fixpoint."""
+    rng = np.random.default_rng(1)
+    boxes = torch.from_numpy(np.stack([_clustered(rng, 1200, nc=2) for _ in range(2)]))
+    valid = torch.from_numpy(rng.uniform(size=(2, 1200)) < 0.9)
+    valid[:, 700:] = False
+    before = (nms_keep.nms_keep_mask.launches, nms_keep.nms_keep_mask_large.launches)
+    got = nms_keep.nms_keep_mask(boxes, valid, 0.45)
+    assert torch.equal(got, nms_keep.nms_keep_mask_large(boxes, valid, 0.45))
+    assert before == (nms_keep.nms_keep_mask.launches,
+                      nms_keep.nms_keep_mask_large.launches)
+    assert not got[:, 700:].any()
+    np.testing.assert_array_equal(got.numpy(), _jax_full(boxes.numpy(), valid.numpy(), 0.45))
+    none = nms_keep.nms_keep_mask(boxes, torch.zeros_like(valid), 0.45)
+    assert not none.any()

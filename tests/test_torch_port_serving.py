@@ -229,3 +229,54 @@ def test_dynamic_batcher_close_wakes_stranded(small_engine):
             assert s["result"]["det_boxes"].shape == (20, 4)
     assert not batcher.worker.is_alive()
     assert not any(t.is_alive() for t in batcher.completer_pool)
+
+
+def test_serving_engine_ingest_hw_matches_jax(models, monkeypatch):
+    """ingest_hw: raw (B, h, w, 3) camera frames letterboxed on the device,
+    boxes back in source pixels. Against the JAX engine with the same
+    ingest_hw (fp32, Pallas kernels interpreted, as above): detections
+    match as in test_serving_engine_matches_jax, and every box lies inside
+    the source frame. The port's ingest engine also equals its own
+    letterbox + the plain engine + the rescale."""
+    monkeypatch.setenv("YOLO_TPU_PALLAS_STEM", "1")
+    monkeypatch.setenv("YOLO_TPU_PALLAS_ELAN", "1")
+    monkeypatch.setenv("YOLO_TPU_PALLAS_INTERPRET", "1")
+    from yolo_series_tpu.infer.serving import ServingEngine as JaxEngine
+    from yolo_series_tpu_torch.data.device_aug import make_device_letterbox
+
+    plan, jp, js, tplan, tp, ts = models
+    hw = (96, 200)
+    kw = dict(batch_size=2, img_size=128, max_det=100, max_nms=512)
+    jeng = JaxEngine(plan, jp, js, dtype=jnp.float32, ingest_hw=hw, **kw)
+    teng = ServingEngine(tplan, tp, ts, dtype=torch.float32, device="cpu",
+                         ingest_hw=hw, **kw)
+    assert teng.in_shape == (2, *hw, 3)
+    x = np.random.default_rng(6).integers(0, 255, (2, *hw, 3), np.uint8)
+    want, got = jeng.infer(x), teng.infer(x)
+    for i in range(2):
+        a, b = image_rows(got, i), image_rows(want, i)
+        assert len(b["scores"]) > 5
+        assert match_fraction(a, b) >= 0.9 and match_fraction(b, a) >= 0.9
+        assert (a["boxes"] >= 0).all()
+        assert (a["boxes"][:, [0, 2]] <= hw[1]).all() and (a["boxes"][:, [1, 3]] <= hw[0]).all()
+
+    plain = ServingEngine(tplan, tp, ts, dtype=torch.float32, device="cpu", **kw)
+    lb, (r, _), (dw, dh) = make_device_letterbox(hw, 128)
+    ref = plain.infer(lb(torch.from_numpy(x)).numpy())
+    np.testing.assert_array_equal(got["num_dets"], ref["num_dets"])
+    np.testing.assert_array_equal(got["det_classes"], ref["det_classes"])
+    back = np.clip((ref["det_boxes"] - np.float32([dw, dh, dw, dh])) / np.float32(r), 0,
+                   np.float32([hw[1], hw[0], hw[1], hw[0]]))
+    np.testing.assert_allclose(got["det_boxes"], back, rtol=1e-6, atol=1e-4)
+    with pytest.raises(ValueError, match="takes"):
+        teng.infer(np.zeros((2, 128, 128, 3), np.uint8))
+
+
+def test_engine_counts_forwards_and_stays_eager_on_cpu(small_engine):
+    """On the CPU the engine runs end2end eagerly: no graph, no replay;
+    `batches` counts the forwards that `infer` dispatched."""
+    eng = small_engine[0]
+    before = eng.batches
+    eng.capture()
+    eng.infer(np.stack(_frames(3, 2)))
+    assert eng.batches == before + 1 and eng.replays == 0 and not eng.captured

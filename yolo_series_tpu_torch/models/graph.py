@@ -7,9 +7,11 @@ through each block's `stride_factor`, anchors order-checked and
 normalized, and module names resolved through an explicit registry — no
 eval(). Accepts the canonical lowercase names and the reference's names.
 
-Only the modules of the yolov7 deploy graph are ported (conv, mp, concat,
-upsample, sppcspc, repconv, detect); any other module raises
-NotImplementedError naming the ROADMAP queue that ports it.
+Only the modules of the yolov7 deploy and training graphs are ported (conv,
+mp, concat, upsample, sppcspc, repconv, detect, idetect, and the implicit
+layers implicita / implicitm, which take their width from their input);
+any other module raises NotImplementedError naming the ROADMAP queue that
+ports it.
 """
 
 from __future__ import annotations
@@ -33,17 +35,19 @@ def make_divisible(x, divisor=8):
 _REF_NAMES = {
     "Conv": "conv", "RepConv": "repconv", "SPPCSPC": "sppcspc", "MP": "mp",
     "Concat": "concat", "nn.Upsample": "upsample", "Upsample": "upsample",
-    "Detect": "detect",
+    "Detect": "detect", "IDetect": "idetect", "ImplicitA": "implicita",
+    "ImplicitM": "implicitm",
 }
 # conv-family modules: args start [c2, ...] and get width scaling
 _CONV_FAMILY = {"conv", "repconv", "sppcspc"}
 # subset that takes an inner repeat count inserted at args[2]
 _TAKES_N = {"sppcspc"}
 _BLOCK_CLASSES = {"conv": L.ConvBnAct, "repconv": L.RepConv,
-                  "sppcspc": L.SPPCSPC, "mp": L.MP}
-_HEAD_CLASSES = {"detect": H.Detect}
-_NOT_PORTED = ("is not ported yet: ROADMAP queue 1 (items 2 and 14-16) "
-               "lists the remaining blocks and heads")
+                  "sppcspc": L.SPPCSPC, "mp": L.MP, "implicita": L.ImplicitA,
+                  "implicitm": L.ImplicitM}
+_HEAD_CLASSES = {"detect": H.Detect, "idetect": H.IDetect}
+_NOT_PORTED = ("is not ported yet: ROADMAP queue 1 (items 14-16) lists the "
+               "remaining blocks and heads")
 
 
 @dataclasses.dataclass(frozen=True)

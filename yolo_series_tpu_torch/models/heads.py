@@ -1,10 +1,11 @@
-"""Detect head (counterpart of `yolo_series_tpu/models/heads.py` Detect).
+"""Detect and IDetect heads (counterpart of `yolo_series_tpu/models/heads.py`
+Detect, IDetect).
 
-Semantics mirror reference models/yolo.py:23-94. The decoded output
+Semantics mirror reference models/yolo.py:23-207. The decoded output
 concatenates the levels into one (B, sum(na*ny*nx), no) tensor in the
 reference's anchor-major order; the raw output per level is
-(B, na, ny, nx, no). IDetect (ROADMAP queue 1, item 2), IAuxDetect, IBin
-and IKeypoint (items 14-15) are not ported yet.
+(B, na, ny, nx, no). IAuxDetect, IBin and IKeypoint (ROADMAP queue 1,
+items 14-15) are not ported yet.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from yolo_series_tpu_torch.models.layers import Ctx, PlainConv
+from yolo_series_tpu_torch.models.layers import Ctx, ImplicitA, ImplicitM, PlainConv
 
 
 def _decode_level(p, stride, anchors_px, nc):
@@ -102,3 +103,28 @@ class Detect:
                   .to(mp["b"].device)}
                  for i, mp in enumerate(params["m"])]
         return {**params, "m": new_m}
+
+
+@dataclasses.dataclass(frozen=True)
+class IDetect(Detect):
+    """Detect + YOLOR implicit knowledge (reference yolo.py:97-207): ia
+    (additive, before each conv) and im (multiplicative, after it).
+    `reparam.fuse_head_implicit` folds them into the convs; the params are
+    then a plain Detect tree and apply takes the Detect path (the
+    reference's fuseforward, yolo.py:140)."""
+
+    def init(self, gen):
+        params, state = Detect.init(self, gen)
+        params["ia"] = [ImplicitA(c).init(gen)[0] for c in self.ch]
+        params["im"] = [ImplicitM(self.no * self.na).init(gen)[0] for _ in self.ch]
+        return params, state
+
+    def _raw_level(self, params, xs, i, ctx):
+        x = xs[i]
+        if "ia" in params:
+            x = ImplicitA(self.ch[i]).apply(params["ia"][i], {}, x, ctx)[0]
+        y, _ = self._convs()[i].apply(params["m"][i], {}, x, ctx)
+        if "im" in params:
+            y = ImplicitM(self.no * self.na).apply(params["im"][i], {}, y, ctx)[0]
+        b, _, ny, nx = y.shape
+        return y.permute(0, 2, 3, 1).reshape(b, ny, nx, self.na, self.no)

@@ -8,9 +8,10 @@ transforms stay plain tree edits. Params are dicts of tensors; conv
 weights are OIHW. Activations are NCHW tensors, kept in `channels_last`
 memory by the model, so a permute gives kernels contiguous NHWC.
 
-Only what the yolov7 deploy graph runs is here: ConvBnAct (BN, fused
-{w, b} or int8 {wq, sw, b[, sx]} form), PlainConv (detect-head convs), MP,
-Upsample, Concat, SPPCSPC and RepConv. The rest of the zoo is ROADMAP
+Only what the yolov7 deploy and training graphs run is here: ConvBnAct
+(BN, fused {w, b} or int8 {wq, sw, b[, sx]} form), PlainConv (detect-head
+convs), MP, Upsample, Concat, SPPCSPC, RepConv, and the implicit-knowledge
+layers ImplicitA / ImplicitM of IDetect. The rest of the zoo is ROADMAP
 queue 1, slice 3.
 """
 
@@ -421,3 +422,39 @@ class RepConv(Composite):
         if self.has_identity:
             y = y + batch_norm(params["idbn"], state["idbn"], x.to(y.dtype))
         return fn(y), state
+
+
+@dataclasses.dataclass(frozen=True)
+class ImplicitA(Block):
+    """Learned additive prior over NCHW channels, init N(0, 0.02)
+    (reference common.py:433)."""
+
+    c: int
+
+    @property
+    def cout(self):
+        return self.c
+
+    def init(self, gen):
+        return {"v": 0.02 * torch.randn((self.c,), generator=gen)}, {}
+
+    def apply(self, params, state, x, ctx):
+        return x + params["v"].to(x.dtype)[:, None, None], state
+
+
+@dataclasses.dataclass(frozen=True)
+class ImplicitM(Block):
+    """Learned multiplicative prior over NCHW channels, init N(1, 0.02)
+    (reference common.py:446)."""
+
+    c: int
+
+    @property
+    def cout(self):
+        return self.c
+
+    def init(self, gen):
+        return {"v": 1.0 + 0.02 * torch.randn((self.c,), generator=gen)}, {}
+
+    def apply(self, params, state, x, ctx):
+        return x * params["v"].to(x.dtype)[:, None, None], state

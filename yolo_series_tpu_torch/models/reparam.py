@@ -1,10 +1,10 @@
 """Train -> deploy re-parameterization as param-tree transforms
 (counterpart of `yolo_series_tpu/models/reparam.py`).
 
-Conv+BN fusion (reference torch_utils.py:181-201) and the RepConv
-3-branch collapse (common.py:509-552): (params, state) -> (params',
-state') with the same inference output and the same GraphPlan. Detect
-has no implicit layers to fold; IDetect's are ROADMAP queue 1, item 3.
+Conv+BN fusion (reference torch_utils.py:181-201), the RepConv 3-branch
+collapse (common.py:509-552) and the folding of IDetect's implicit layers
+into its 1x1 convs (yolo.py:178-190): (params, state) -> (params',
+state') with the same inference output and the same GraphPlan.
 """
 
 from __future__ import annotations
@@ -52,6 +52,19 @@ def fuse_repconv(block: L.RepConv, params, state):
     return {"w": w, "b": b}, {}
 
 
+def fuse_head_implicit(head, params):
+    """Fold IDetect's ia / im into its 1x1 convs (yolo.py:178-190): b += w
+    @ ia, then w and b scale by im. A head without them is returned as is."""
+    if "ia" not in params:
+        return params
+    ms = []
+    for mp, ia, im in zip(params["m"], params["ia"], params["im"]):
+        w, b = mp["w"], mp["b"]                  # w: (O, C, 1, 1)
+        b = b + torch.einsum("c,oc->o", ia["v"], w[:, :, 0, 0])
+        ms.append({"w": w * im["v"][:, None, None, None], "b": b * im["v"]})
+    return {k: v for k, v in params.items() if k not in ("ia", "im")} | {"m": ms}
+
+
 def fuse_block(block, params, state) -> Tuple[Any, Any]:
     if isinstance(block, L.RepConv):
         return fuse_repconv(block, params, state)
@@ -75,7 +88,7 @@ def fuse_model(plan: GraphPlan, params, state) -> Tuple[Any, Any]:
     new_p, new_s = [], []
     for idx, spec in enumerate(plan.layers):
         if spec.is_head:
-            new_p.append(lp[idx])
+            new_p.append(fuse_head_implicit(spec.block, lp[idx]))
             new_s.append(ls[idx])
         elif spec.n_seq > 1:
             ps, ss = zip(*[fuse_block(spec.block, lp[idx][r], ls[idx][r])

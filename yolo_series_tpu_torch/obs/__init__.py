@@ -1,0 +1,2 @@
+"""Observability helpers of the port (counterpart of `yolo_series_tpu/obs`):
+the box drawing that detect needs, so far."""

@@ -1,17 +1,23 @@
-"""Fused head + candidate selection + greedy NMS for serving (counterpart of
-`yolo_series_tpu/ops/nms.py`: `NMSOutput`, `_nms_tail`, `fused_head_nms`).
+"""Batched NMS on decoded predictions, and the fused head + NMS of serving
+(counterpart of `yolo_series_tpu/ops/nms.py`: `NMSOutput`, `batched_nms`,
+`_single_image_nms`, `_nms_tail`, `nms_output_to_dets`, `fused_head_nms`).
 
-Per-class NMS uses the class-offset trick (reference general.py:702-703):
-boxes are shifted by `class_id * max_wh` so one suppression pass handles
-every class. The keep-mask comes from `ops/nms_keep.nms_keep_mask` (a CUDA
-kernel on the card). The output is the EfficientNMS contract: num_dets,
-boxes, scores, classes, with static max_det rows. `batched_nms` and the
-tiled keep-mask of the eval path are ROADMAP queue 1, item 4.
+Candidate selection is a stable descending sort over the (anchor) or
+(anchor x class) scores, cut to `max_nms`: at ties the lower index comes
+first, as `jax.lax.top_k` orders them. Per-class NMS uses the class-offset
+trick (reference general.py:702-703): boxes are shifted by
+`class_id * max_wh` so one suppression pass handles every class. The
+keep-mask comes from `ops/nms_keep.nms_keep_mask` for every K: on the card
+the kernel for K <= 1024 (serving) or the large-K kernel (eval and detect,
+K = 8192 and 4096), on the CPU the plain version. The output is the
+EfficientNMS contract: num_dets, boxes, scores, classes, with static
+max_det rows. The images of a batch are a batch dimension here, where the
+JAX package vmaps one image's function.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -60,19 +66,102 @@ def _nms_tail(cand_boxes, top_scores, cand_cls, iou_thres, agnostic, max_det,
                      out_cls[:, :max_det])
 
 
+def _top_k(scores: torch.Tensor, k: int):
+    """(values, indices) of the k largest of each row, the lower index first
+    at ties (`jax.lax.top_k`'s order; torch.topk promises none)."""
+    values, order = torch.sort(scores, dim=1, descending=True, stable=True)
+    return values[:, :k], order[:, :k]
+
+
+def _single_image_nms(pred, conf_thres, iou_thres, multi_label, agnostic,
+                      max_det, max_nms, max_wh, nc, class_mask=None,
+                      score_dtype=torch.float32,
+                      keep_fn: Callable = nms_keep_mask) -> NMSOutput:
+    """pred: (B, A, 5 + nc) decoded predictions (xywh, obj, classes) of a
+    batch of images; `_single_image_nms` of the JAX package on each row.
+    score_dtype=bfloat16 computes the (A, nc) scores in bf16, as there;
+    box coordinates stay fp32."""
+    b, a = pred.shape[:2]
+    obj = pred[..., 4].to(score_dtype)
+    cls_scores = pred[..., 5:5 + nc].to(score_dtype) * obj[..., None]
+    neg_inf = torch.full((), float("-inf"), device=pred.device)
+    if multi_label:
+        # every (anchor, class) pair is a candidate (reference general.py:684)
+        flat = cls_scores.reshape(b, a * nc).float()
+        if class_mask is not None:
+            flat = torch.where(class_mask.repeat(a)[None], flat, neg_inf)
+        flat = torch.where(flat > conf_thres, flat, neg_inf)
+        top_scores, top_flat = _top_k(flat, min(max_nms, flat.shape[1]))
+        anchor_idx = top_flat // nc
+        cand_cls = (top_flat % nc).float()
+    else:
+        # best class per anchor (reference general.py:687-688)
+        if class_mask is not None:
+            cls_scores = torch.where(class_mask, cls_scores,
+                                     neg_inf.to(cls_scores.dtype))
+        best = torch.argmax(cls_scores, dim=-1)
+        score = cls_scores.max(dim=-1).values.float()
+        score = torch.where(score > conf_thres, score, neg_inf)
+        top_scores, anchor_idx = _top_k(score, min(max_nms, a))
+        cand_cls = torch.gather(best, 1, anchor_idx).float()
+    xywh = torch.gather(pred[..., 0:4].float(), 1,
+                        anchor_idx[..., None].expand(-1, -1, 4))
+    return _nms_tail(xywh2xyxy(xywh), top_scores.float(), cand_cls, iou_thres,
+                     agnostic, max_det, max_wh, keep_fn)
+
+
+def batched_nms(pred: torch.Tensor, conf_thres: float = 0.25,
+                iou_thres: float = 0.45, multi_label: bool = False,
+                agnostic: bool = False, max_det: int = 300, max_nms: int = 4096,
+                max_wh: float = 4096.0, classes: Optional[Sequence[int]] = None,
+                score_dtype=torch.float32,
+                keep_fn: Callable = nms_keep_mask) -> NMSOutput:
+    """Batched end-to-end NMS on decoded predictions: pred (B, A, 5 + nc)
+    in xywh + obj + cls layout (reference utils/general.py:628
+    `non_max_suppression`, with static shapes). `classes` keeps only those
+    class ids (general.py:691-693). The JAX function's `tile` picks its
+    tiled keep-mask's tile and has no counterpart here."""
+    nc = pred.shape[-1] - 5
+    class_mask = None
+    if classes is not None:
+        class_mask = torch.zeros((nc,), dtype=torch.bool, device=pred.device)
+        class_mask[torch.as_tensor(list(classes), dtype=torch.long,
+                                   device=pred.device)] = True
+    return _single_image_nms(pred.float(), conf_thres, iou_thres, multi_label,
+                             agnostic, max_det, max_nms, max_wh, nc, class_mask,
+                             score_dtype, keep_fn)
+
+
+def nms_output_to_dets(out: NMSOutput) -> List[np.ndarray]:
+    """NMSOutput -> list of (n_i, 6) numpy arrays [x1, y1, x2, y2, conf,
+    cls] (reference detect.py:152, test.py:126)."""
+    num = out.num_dets.cpu().numpy()
+    boxes = out.boxes.cpu().numpy()
+    scores = out.scores.cpu().numpy()
+    classes = out.classes.cpu().numpy()
+    return [np.concatenate([boxes[i, :n], scores[i, :n, None],
+                            classes[i, :n, None].astype(np.float32)], axis=1)
+            for i, n in enumerate(num.astype(int))]
+
+
 def fused_head_nms(head, head_params, feats, *, conf_thres=0.25,
                    iou_thres=0.45, max_det=300, max_nms=256, max_wh=4096.0,
                    compute_dtype=torch.bfloat16,
-                   keep_fn: Callable = nms_keep_mask) -> NMSOutput:
+                   keep_fn: Callable = nms_keep_mask,
+                   anchors: Optional[torch.Tensor] = None) -> NMSOutput:
     """Serving fast path: head convs + candidate top-k + decode of the
     selected rows + NMS, without materializing the (B, A, no) decoded
     tensor. multi_label=False semantics (reference general.py:687-688).
 
     head: Detect; head_params: {"m": [{w, b}]} fused convs; feats: per-level
-    (B, ny, nx, c) NHWC head inputs.
+    (B, ny, nx, c) NHWC head inputs. anchors: `head.anchors_grid()` already
+    on the device, so that no host-to-device copy runs inside a CUDA-graph
+    capture (made here when None).
     """
     nc, na, nl, no = head.nc, head.na, head.nl, head.no
-    apx = head.anchors_grid()  # (nl, na, 2) pixel anchors
+    if "ia" in head_params:
+        raise ValueError("fused_head_nms wants a fused head: fold IDetect's "
+                         "implicit layers first (reparam.fuse_model)")
     if len(feats) < nl:
         raise ValueError(f"{len(feats)} feature levels for a {nl}-level head")
     convs = head._convs()
@@ -87,6 +176,8 @@ def fused_head_nms(head, head_params, feats, *, conf_thres=0.25,
         dims.append((ny, nx))
     offs = np.cumsum([0] + [r.shape[1] for r in raw_levels])
     dev = raw_levels[0].device
+    if anchors is None:
+        anchors = torch.as_tensor(head.anchors_grid(), dtype=torch.float32, device=dev)
 
     scores = []
     for r in raw_levels:
@@ -98,10 +189,7 @@ def fused_head_nms(head, head_params, feats, *, conf_thres=0.25,
     score = torch.where(score > conf_thres, score,
                         torch.full_like(score, float("-inf")))
     k = min(max_nms, score.shape[1])
-    # stable descending sort: ties keep the lower index first, as
-    # jax.lax.top_k does (torch.topk promises no order at ties)
-    sorted_scores, order = torch.sort(score, dim=1, descending=True, stable=True)
-    top_scores, flat_idx = sorted_scores[:, :k], order[:, :k]
+    top_scores, flat_idx = _top_k(score, k)
 
     rows = torch.zeros((bsz, k, no), dtype=torch.float32, device=dev)
     grid = torch.zeros((bsz, k, 2), dtype=torch.float32, device=dev)
@@ -117,7 +205,7 @@ def fused_head_nms(head, head_params, feats, *, conf_thres=0.25,
         cell = idx_l // na
         a_l = idx_l % na
         g_l = torch.stack([(cell % nx).float(), (cell // nx).float()], -1)
-        anc_l = torch.as_tensor(apx[li], dtype=torch.float32, device=dev)[a_l]
+        anc_l = anchors[li][a_l]
         rows = torch.where(in_level[..., None], r_l, rows)
         grid = torch.where(in_level[..., None], g_l, grid)
         anc = torch.where(in_level[..., None], anc_l, anc)
