@@ -152,6 +152,10 @@ CONV_REL_TOL = 2e-2
 # the kernel's keep-mask must give the same detections as the plain one.
 FEAT_RATIO = 1.5
 MATCH_IOU, MATCH_SCORE, MATCH_MARGIN = 0.5, 0.1, 0.05
+# the ingest engine's boxes scaled back to the frame on the card against the
+# host's `scale_coords_np` on the same boxes: the same fp32 operations, so
+# they differ by rounding at most (px)
+RESCALE_TOL = 1e-3
 # The mixed int8 engine against the same fp32 reference: a sanity limit,
 # not a quality claim. Per-tensor int8 inputs calibrated at the 99.99th
 # percentile (~4 sigma / 127 a step) add ~1% RMS noise at each of the 41
@@ -316,6 +320,23 @@ def check_k1(dev, rows):
     rows["K1"] = result
 
 
+@contextlib.contextmanager
+def keep_mask(fn):
+    """Inside: `ops/nms.py` takes `fn` for its keep-mask, on the card too
+    (`plain_nms()`: the reference runs of the bit-equality checks; they
+    count no launch)."""
+    kernel = nms_keep.nms_keep_mask
+    nms_keep.nms_keep_mask = fn
+    try:
+        yield
+    finally:
+        nms_keep.nms_keep_mask = kernel
+
+
+def plain_nms():
+    return keep_mask(nms_keep.nms_keep_mask_plain)
+
+
 def eval_candidates(m, images, conf_thres=0.001, iou_thres=0.65, max_nms=8192):
     """The keep-mask inputs (score-sorted class-offset boxes, valid) of
     `evaluate`'s NMS on `images`: the fp32 forward of the fused model, then
@@ -326,11 +347,11 @@ def eval_candidates(m, images, conf_thres=0.001, iou_thres=0.65, max_nms=8192):
         got.append((boxes.clone(), valid.clone()))
         return torch.zeros_like(valid)
 
-    with torch.inference_mode():
+    with torch.inference_mode(), keep_mask(grab):
         x = torch.from_numpy(images).to(m.dev).float() / 255.0
         out, _ = apply_model(m.plan, m.params, m.state, x, dtype=torch.float32)
         batched_nms(out["pred"], conf_thres=conf_thres, iou_thres=iou_thres,
-                    multi_label=True, max_nms=max_nms, keep_fn=grab)
+                    multi_label=True, max_nms=max_nms)
     return got[0]
 
 
@@ -948,9 +969,10 @@ def make_reference(m):
         p = ref_params[dtype]
         feats, _ = apply_model(m.plan, p, m.state, normalized(images, dtype), dtype=dtype,
                                return_head_inputs=True)
-        out = fused_head_nms(m.plan.head, p["layers"][-1], feats, conf_thres=0.25,
-                             iou_thres=0.45, max_det=100, max_nms=1024,
-                             compute_dtype=dtype, keep_fn=nms_keep.nms_keep_mask_plain)
+        with plain_nms():
+            out = fused_head_nms(m.plan.head, p["layers"][-1], feats, conf_thres=0.25,
+                                 iou_thres=0.45, max_det=100, max_nms=1024,
+                                 compute_dtype=dtype)
         return feats, {"num_dets": out.num_dets[:, None].cpu().numpy(),
                        "det_boxes": out.boxes.cpu().numpy(),
                        "det_scores": out.scores.cpu().numpy(),
@@ -1003,11 +1025,12 @@ def check_path_counts(what, counts, engines, per_forward):
     """The counted main path of graph engines: each engine ran `end2end`
     eagerly once (its warm-up) and once under capture, and every forward
     after that was a replay. So each launch counter holds 2 x engines x its
-    per-forward count, and replays == forwards. Returns the launches the
-    replays made on the card (per-forward count x replays). On the CPU (a
-    rehearsal of this script) nothing launches and nothing is checked."""
+    per-forward count, and replays == forwards. A replay does not pass
+    through the wrappers: what the replays launch is read from a trace
+    (`speed`). On the CPU (a rehearsal of this script) nothing launches and
+    nothing is checked."""
     if engines[0].device.type != "cuda":
-        return {kid: 0 for kid in COUNTED}
+        return
     calls = 2 * len(engines)
     want = {kid: calls * per_forward.get(kid, 0) for kid in COUNTED}
     forwards = sum(e.batches for e in engines)
@@ -1018,9 +1041,6 @@ def check_path_counts(what, counts, engines, per_forward):
         raise AssertionError(f"{what}: launch counts {counts}, want {want}")
     if replays != forwards or forwards == 0:
         raise AssertionError(f"{what}: {replays} replays for {forwards} forwards")
-    replayed = {kid: per_forward.get(kid, 0) * replays for kid in COUNTED}
-    log(f"{what}: launches the replays made on the card: {replayed}")
-    return replayed
 
 
 def graph_equals_eager(what, engine, outs, batches):
@@ -1057,12 +1077,14 @@ def agreements(what, reference, outs, partial, lone_res, results, batches, lone,
     return float(np.mean(agree_eng)), float(np.mean(agree_bf16))
 
 
-def speed(engine, engine1, batches, lone, what):
+def speed(engine, engine1, batches, lone, what, traced):
     """img/s from `infer_async` (the frames' upload, the graph replay and
     the outputs' clones) between two events, the replay's device time
     alone, host-to-host `infer` p50 at the engine's batch and at batch 1,
     the host's time per `infer_async` and per eager `end2end` (no
-    synchronise inside the window), and profiles of both."""
+    synchronise inside the window), and profiles of both. The graph's
+    profile must count `traced` (kernel -> launches a forward) of the
+    port's kernels in each replay, where the trace records device time."""
     batch = engine.batch_size
     xd = torch.from_numpy(batches[0]).to(engine.device)
     fwd_ms = cuda_ms(lambda: engine.infer_async(batches[0]), iters=20)
@@ -1105,6 +1127,10 @@ def speed(engine, engine1, batches, lone, what):
         f"end2end {res['enqueue_ms_bs8']:.3f} ms (medians of 20)")
     res.update(profile_forwards(lambda: engine.infer_async(batches[0]),
                                 f"{what} (graph)"))
+    got = res["profile"] and res["profile"]["launches"]
+    want = {k: float(traced.get(k, 0)) for k in TRACED}
+    if got is not None and got != want:
+        raise AssertionError(f"{what}: a replay launched {got} in the trace, want {want}")
     res["profile_eager"] = profile_forwards(lambda: engine.end2end(xd),
                                             f"{what} (eager)")["profile"]
     return res
@@ -1141,7 +1167,7 @@ def serving(dev, m, batch=BATCH, requests=12):
     outs, partial, lone_res, results = drive(engine, engine1, batches, lone, frames)
     counts = read_counts()
     per_forward = {"K1": 1, "K2": 1, "K3": 8}
-    replayed = check_path_counts("serving", counts, (engine, engine1), per_forward)
+    check_path_counts("serving", counts, (engine, engine1), per_forward)
     # device launches of the conv + SiLU kernel: 3 per stem, 6 per span
     conv_launches = conv_silu.launch.launches
     log(f"serving: {conv_launches} conv_silu launches at the warm-up and capture calls "
@@ -1163,8 +1189,8 @@ def serving(dev, m, batch=BATCH, requests=12):
                       compute_dtype=torch.bfloat16)
         hp = engine._params["layers"][-1]
         with_kernel = fused_head_nms(engine.plan.head, hp, feats, **nms_kw)
-        with_plain = fused_head_nms(engine.plan.head, hp, feats, **nms_kw,
-                                    keep_fn=nms_keep.nms_keep_mask_plain)
+        with plain_nms():
+            with_plain = fused_head_nms(engine.plan.head, hp, feats, **nms_kw)
     for a, b, what in zip(with_kernel, with_plain, with_plain._fields):
         if not torch.equal(a, b):
             raise AssertionError(f"NMS tail: {what} differ between the keep-mask "
@@ -1185,24 +1211,29 @@ def serving(dev, m, batch=BATCH, requests=12):
                              f"cuDNN bf16's {agree_bf16:.3f}")
 
     # ---- speed ----
-    res = {"launches": counts, "replayed_launches": replayed,
-           "forwards": engine.batches + engine1.batches, "agreement": agree_eng,
+    res = {"launches": counts, "replays": engine.replays + engine1.replays,
+           "agreement": agree_eng,
            "agreement_cudnn_bf16": agree_bf16, "feature_rms_err": err_eng,
            "feature_rms_err_cudnn_bf16": err_bf16}
     if dev.type == "cuda":
-        res.update(speed(engine, engine1, batches, lone, "serving"))
-    res["ingest"] = ingest(dev, m, engine)
+        res.update(speed(engine, engine1, batches, lone, "serving",
+                         {"nms_keep_kernel": 1, "conv_silu_kernel": 3 + 6 * 8}))
+    res["ingest"] = ingest(dev, m, engine, reference)
     return res
 
 
-def ingest(dev, m, engine, hw=(720, 1280)):
-    """An engine that takes raw (B, 720, 1280, 3) frames (`ingest_hw`): its
+def ingest(dev, m, engine, reference):
+    """An engine that takes raw frames of twice the letterbox's scale
+    ((B, 720, 1280, 3) at 640 px; `ingest_hw`): its
     device letterbox within 1 of the host letterbox on every pixel (the
     stated tolerance: bilinear sums in another order round the other way
     near .5), its detections bit-equal to the plain engine's on the same
     letterboxed pixels scaled back to the frame with the same operations,
-    and their agreement with the plain engine on the host's letterbox."""
-    batch = engine.batch_size
+    and their agreement with the plain engine on the host's letterbox at
+    least cuDNN bf16's agreement with fp32 on those frames less
+    MATCH_MARGIN: a one-level change of a few pixels should move the
+    detections no more than bf16 rounding does."""
+    batch, hw = engine.batch_size, (m.img * 9 // 8, m.img * 2)
     eng = ServingEngine(m.plan, m.params, m.state, batch_size=batch, img_size=m.img,
                         dtype=torch.bfloat16, ingest_hw=hw, device=dev)
     # noise at the letterboxed scale, upscaled x2 and jittered by a few
@@ -1238,16 +1269,31 @@ def ingest(dev, m, engine, hw=(720, 1280)):
         if not np.array_equal(got[key], want):
             raise AssertionError(f"ingest: {key} differ from the plain engine on the "
                                  "same letterboxed pixels")
-    host = engine.infer(host_lb)
+    # the rescale against the host's (`scale_coords_np`, as detect runs it)
     ratio_pad = ((r, r), (dw, dh))
-    host["det_boxes"] = np.stack([scale_coords_np((m.img, m.img), bx, hw, ratio_pad)
-                                  for bx in host["det_boxes"]])
-    agree = agreement("ingest vs host letterbox", got, host)
+    box_err = max(float(np.abs(scale_coords_np((m.img, m.img), bx[:n], hw, ratio_pad)
+                               - gb[:n]).max())
+                  for bx, gb, n in zip(ref["det_boxes"], got["det_boxes"],
+                                       got["num_dets"].ravel()))
+    if not box_err <= RESCALE_TOL:
+        raise AssertionError(f"ingest: boxes {box_err} px from the host's rescale")
+    # the letterbox's effect, in letterboxed pixels (boxes clipped to the
+    # frame from the padding are degenerate and match nothing)
+    agree = agreement("ingest vs host letterbox", ref, engine.infer(host_lb))
+    _, want32 = reference(host_lb, torch.float32)
+    _, cudnn = reference(host_lb, torch.bfloat16)
+    agree_min = agreement("ingest cuDNN bf16", cudnn, want32) - MATCH_MARGIN
     log(f"ingest {hw}: detections bit-equal to the plain engine on the device-"
-        f"letterboxed pixels, scaled back ({int(got['num_dets'].sum())} detections); "
-        f"agreement {agree:.3f} with the plain engine on the host's letterbox")
+        f"letterboxed pixels, scaled back ({int(got['num_dets'].sum())} detections), "
+        f"{box_err:.2e} px from the host's rescale; agreement {agree:.3f} with the "
+        f"plain engine on the host's letterbox (limit: cuDNN bf16's with fp32 on it "
+        f"less {MATCH_MARGIN}, {agree_min:.3f})")
+    if not agree >= agree_min:
+        raise AssertionError(f"ingest: agreement {agree:.3f} with the host letterbox's "
+                             f"detections, limit {agree_min:.3f}")
     return {"launches": counts, "max_pixel_diff": int(diff.max()),
-            "pixel_diff_share": float((diff > 0).mean()), "agreement_host_letterbox": agree}
+            "pixel_diff_share": float((diff > 0).mean()), "rescale_err_px": box_err,
+            "agreement_host_letterbox": agree, "agreement_min": agree_min}
 
 
 @contextlib.contextmanager
@@ -1335,7 +1381,7 @@ def int8_serving(dev, m, batch=BATCH, requests=12):
     outs, partial, lone_res, results = drive(engine, engine1, batches, lone, frames)
     counts = read_counts()
     per_forward = {"K1": 1, "K2": 1, "K3": n_elan, "K4": n_k4}
-    replayed = check_path_counts("int8 serving", counts, (engine, engine1), per_forward)
+    check_path_counts("int8 serving", counts, (engine, engine1), per_forward)
     want_conv = (3 + 6 * n_elan) * 4
     if dev.type == "cuda" and conv_silu.launch.launches != want_conv:
         raise AssertionError(f"int8: {conv_silu.launch.launches} conv_silu launches, "
@@ -1357,12 +1403,14 @@ def int8_serving(dev, m, batch=BATCH, requests=12):
     log(f"int8 serving: detections agree {agree_int8:.3f} with the fp32 reference "
         f"(cuDNN bf16 {agree_bf16:.3f})")
 
-    res = {"launches": counts, "replayed_launches": replayed,
-           "forwards": engine.batches + engine1.batches, "agreement": agree_int8,
+    res = {"launches": counts, "replays": engine.replays + engine1.replays,
+           "agreement": agree_int8,
            "agreement_cudnn_bf16": agree_bf16, "feature_rms_err": err_int8,
            "feature_rms_err_cudnn_bf16": err_bf16, "calibrate_s": cal_s}
     if dev.type == "cuda":
-        res.update(speed(engine, engine1, batches, lone, "int8 serving"))
+        res.update(speed(engine, engine1, batches, lone, "int8 serving",
+                         {"nms_keep_kernel": 1, "conv_silu_kernel": 3 + 6 * n_elan,
+                          "int8_mm_kernel": n_k4}))
     return res
 
 
@@ -1453,15 +1501,15 @@ def detect(dev, width=1.0):
     want = {kid: 0 for kid in COUNTED} | {"K1L": 1, "K2": 1, "K3": 8}
     if dev.type == "cuda" and counts != want:
         raise AssertionError(f"detect: launch counts {counts}, want {want}")
-    plain = Detector(model.plan, params, state, img_size=IMG, dtype=torch.bfloat16,
-                     device=dev, keep_fn=nms_keep.nms_keep_mask_plain)(images)
+    with plain_nms():
+        plain = det(images)
+        refs = {dt: Detector(model.plan, params, state, img_size=IMG, dtype=dt, device=dev,
+                             fast_stem=False)(images)
+                for dt in (torch.float32, torch.bfloat16)}
     for i, (a, b) in enumerate(zip(got, plain)):
         if not np.array_equal(a, b):
             raise AssertionError(f"detect image {i}: detections differ between K1L and "
                                  "the plain keep-mask")
-    refs = {dt: Detector(model.plan, params, state, img_size=IMG, dtype=dt, device=dev,
-                         fast_stem=False, keep_fn=nms_keep.nms_keep_mask_plain)(images)
-            for dt in (torch.float32, torch.bfloat16)}
     want32 = rows_out(refs[torch.float32])
     agree = agreement("detect", rows_out(got), want32)
     agree_bf16 = agreement("detect cuDNN bf16", rows_out(refs[torch.bfloat16]), want32)
@@ -1488,11 +1536,10 @@ def evaluation(dev, m, batch=BATCH, n_images=16):
     for bi, (h, w) in enumerate(((IMG, IMG), (IMG * 3 // 5 // 32 * 32, IMG))):
         for _ in range(n_images // batch // 2):
             imgs = rng.integers(0, 256, (batch, h, w, 3), np.uint8)
-            with torch.inference_mode():
+            with torch.inference_mode(), plain_nms():
                 x = torch.from_numpy(imgs).to(dev).float() / 255.0
                 out, _ = apply_model(m.plan, m.params, m.state, x, dtype=torch.float32)
-                dets = batched_nms(out["pred"], max_det=20,
-                                   keep_fn=nms_keep.nms_keep_mask_plain)
+                dets = batched_nms(out["pred"], max_det=20)
             labels = np.zeros((batch, 21, 5), np.float32)
             mask = np.zeros((batch, 21), bool)
             for si in range(batch):
@@ -1517,8 +1564,8 @@ def evaluation(dev, m, batch=BATCH, n_images=16):
     want = {kid: 0 for kid in COUNTED} | {"K1L": len(batches)}
     if dev.type == "cuda" and counts != want:
         raise AssertionError(f"eval: launch counts {counts}, want {want}")
-    plain = evaluate(m.plan, m.params, m.state, batches, device=dev,
-                     keep_fn=nms_keep.nms_keep_mask_plain)
+    with plain_nms():
+        plain = evaluate(m.plan, m.params, m.state, batches, device=dev)
     log(f"eval: map50 {got['map50']:.6f}, map {got['map']:.6f} (plain keep-mask "
         f"{plain['map50']:.6f}, {plain['map']:.6f}); per image: inference "
         f"{got['speed_ms']['inference']:.3f} ms, NMS {got['speed_ms']['nms']:.3f} ms "
@@ -1537,9 +1584,16 @@ def evaluation(dev, m, batch=BATCH, n_images=16):
 CUDNN_NAMES = ("conv", "xmma", "cudnn", "cutlass", "gemm")
 
 
+# the device kernels of the port's wrappers, as the trace names them
+TRACED = ("nms_keep_kernel", "nms_mask_kernel", "nms_scan_kernel", "conv_silu_kernel",
+          "int8_mm_kernel")
+
+
 def profile_forwards(fn, what="profile", n=5):
     """Device time by kernel over n back-to-back forwards (torch.profiler,
-    CUPTI), and the device's busy share of their wall time."""
+    CUPTI), the device's busy share of their wall time, and the launches a
+    forward of each of the port's kernels (TRACED) as the trace counts
+    them."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1553,6 +1607,7 @@ def profile_forwards(fn, what="profile", n=5):
     groups = {"conv_silu (K2, K3)": 0.0, "nms (K1, K1L)": 0.0, "int8_mm (K4)": 0.0,
               "cuDNN conv": 0.0, "other": 0.0}
     top = []
+    traced = {k: 0 for k in TRACED}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -1567,6 +1622,9 @@ def profile_forwards(fn, what="profile", n=5):
              else "other")
         groups[g] += us / 1e3 / n
         top.append((us / 1e3 / n, name[:70]))
+        for k in TRACED:
+            if k in name:
+                traced[k] += e.count
     busy = sum(groups.values())
     if busy == 0.0:
         log(f"{what} profile: no device time recorded (not measured)")
@@ -1575,10 +1633,13 @@ def profile_forwards(fn, what="profile", n=5):
     log(f"{what} profile: {n} forwards, {wall_ms / n:.3f} ms wall each, device "
         f"busy {busy:.3f} ms ({busy / (wall_ms / n):.1%}); by group (ms/forward): "
         + ", ".join(f"{k} {v:.3f}" for k, v in groups.items()))
+    traced = {k: c / n for k, c in traced.items()}
     log(f"{what} profile: top kernels (ms/forward): "
         + "; ".join(f"{name} {ms:.3f}" for ms, name in top[:8]))
+    log(f"{what} profile: launches a forward in the trace: {traced}")
     return {"profile": {"wall_ms": wall_ms / n, "busy_ms": busy,
-                        "busy_share": busy / (wall_ms / n), "groups_ms": groups}}
+                        "busy_share": busy / (wall_ms / n), "groups_ms": groups,
+                        "launches": traced}}
 
 
 def _cfg(width, path=CFG):
@@ -1652,13 +1713,12 @@ def main() -> int:
     ev = evaluation(dev, m)
 
     # host-side counts of each kernel's main path: K1-K3 as the bf16
-    # engines launched them (warm-up and capture; `graph_launches`: what
-    # their replays launched on the card), K4 (and K4b: none) as the int8
+    # engines launched them (warm-up and capture; what the replays launch
+    # is in the graph profiles' traces), K4 (and K4b: none) as the int8
     # engines did, K1L as detect and eval did
     launches = {**srv["launches"], "K4": srv8["launches"]["K4"],
                 "K4b": srv8["launches"]["K4b"],
                 "K1L": det["launches"]["K1L"] + ev["launches"]["K1L"]}
-    replayed = {**srv["replayed_launches"], "K4": srv8["replayed_launches"]["K4"]}
     for kid in COUNTED:
         if kid != "K4b" and launches[kid] == 0:
             raise AssertionError(f"{kid} was launched no time on its main path")
@@ -1672,9 +1732,7 @@ def main() -> int:
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
         if kid in ("K1", "K1L"):   # one call above; the same call by graph replay
             kernels[-1]["graph_ms"] = r["graph_ms"]
-        if replayed.get(kid):
-            kernels[-1]["graph_launches"] = replayed[kid]
-    keys = ("img_s", "device_ms_bs8", "replay_ms_bs8", "eager_ms_bs8", "p50_ms_bs8",
+    keys = ("replays", "img_s", "device_ms_bs8", "replay_ms_bs8", "eager_ms_bs8", "p50_ms_bs8",
             "p50_ms_bs1", "host_ms_infer_async", "enqueue_ms_bs8", "profile",
             "profile_eager", "feature_rms_err", "feature_rms_err_cudnn_bf16",
             "agreement", "agreement_cudnn_bf16")

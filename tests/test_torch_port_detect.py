@@ -260,12 +260,11 @@ def test_cli_detect_on_an_image_folder(ckpt, tmp_path):
     for i, im in enumerate(imgs):
         cv2.imwrite(str(src / f"img{i}.png"), im)
     save_dir = cli.main(["--weights", ckpt, "--source", str(src), "--img-size",
-                         str(SIZE), "--device", "cpu", "--dtype", "fp32",
-                         "--save-txt", "--save-conf", "--project", str(tmp_path / "runs"),
+                         str(SIZE), "--device", "cpu", "--save-txt", "--save-conf", "--project", str(tmp_path / "runs"),
                          "--name", "exp"])
     assert sorted(p.name for p in Path(save_dir).glob("*.png")) == \
         [f"img{i}.png" for i in range(3)]
-    det = Detector.from_checkpoint(ckpt, img_size=SIZE, dtype=torch.float32, device="cpu")
+    det = Detector.from_checkpoint(ckpt, img_size=SIZE, device="cpu")   # bf16, as the CLI
     for i, im in enumerate(imgs):
         rows = det(im)
         txt = (Path(save_dir) / "labels" / f"img{i}.txt").read_text().split("\n")

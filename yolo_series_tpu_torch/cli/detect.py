@@ -22,11 +22,8 @@ from pathlib import Path
 
 import cv2
 import numpy as np
-import torch
 
 from yolo_series_tpu_torch.utils.general import increment_path
-
-DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 
 
 def detect(opt):
@@ -41,7 +38,7 @@ def detect(opt):
         weights, cfg=opt.cfg, img_size=opt.img_size,
         conf_thres=opt.conf_thres, iou_thres=opt.iou_thres,
         classes=opt.classes, agnostic=opt.agnostic_nms, fuse=not opt.no_fuse,
-        augment=opt.augment, dtype=DTYPES[opt.dtype], device=opt.device)
+        augment=opt.augment, device=opt.device)
     names = det.plan.names
 
     webcam = opt.source.isnumeric() or opt.source.endswith(".txt") or \
@@ -158,8 +155,6 @@ def make_parser():
                         "yet: refused)")
     p.add_argument("--device", default=None,
                    help="'cpu' for the CPU; the card when not given")
-    p.add_argument("--dtype", choices=sorted(DTYPES), default="bf16",
-                   help="working dtype of the forward")
     return p
 
 

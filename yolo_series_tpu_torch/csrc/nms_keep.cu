@@ -296,8 +296,9 @@ nms_keep_kernel(const float4* __restrict__ boxes,
 //     in parallel. The next block's diagonal words load during that OR.
 //
 // Bound on this card: the IoUs are K^2 / 2 an image at 13 fp32 operations
-// (3.5 GFLOP at B = 8, K = 8192: ~0.05 ms at 67 TFLOP/s) and the mask is
-// written once and read once by the scan (2 x 64 MB there: ~0.04 ms). The
+// (3.5 GFLOP at B = 8, K = 8192: ~0.05 ms at 67 TFLOP/s); the workspace is
+// 67 MB there, of which the upper-triangular blocks (34 MB) are written
+// once and read once by the scan (~0.02 ms at 3.35 TB/s). The
 // scan is a chain of K / 64 dependent blocks, each two CTA barriers, a
 // 64-step serial resolve and a round of loads: latency, not bytes.
 

@@ -19,7 +19,7 @@ from __future__ import annotations
 import json
 import time
 from pathlib import Path
-from typing import Callable, List, Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -29,7 +29,6 @@ from yolo_series_tpu_torch.eval.metrics import (ConfusionMatrix, ap_per_class,
                                                 fitness, match_predictions)
 from yolo_series_tpu_torch.models.model import apply_model, tree_map
 from yolo_series_tpu_torch.ops.nms import batched_nms, nms_output_to_dets
-from yolo_series_tpu_torch.ops.nms_keep import nms_keep_mask
 
 
 def scale_coords_np(img1_shape, coords, img0_shape, ratio_pad=None):
@@ -92,16 +91,14 @@ def evaluate(plan, params, state, loader, *,
              v5_metric: bool = False, verbose: bool = False,
              augment: bool = False, save_txt_dir: Optional[str] = None,
              save_conf: bool = False, save_hybrid: bool = False,
-             plots_dir: Optional[str] = None, device=None,
-             keep_fn: Callable = nms_keep_mask):
+             plots_dir: Optional[str] = None, device=None):
     """Run mAP evaluation over a loader of letterboxed batches.
 
     save_txt_dir writes per-image auto-label txts (normalized xywh in
     native image space, reference test.py:147-153); save_hybrid feeds the
     ground-truth boxes into NMS as conf-1.0 candidates for hybrid
     auto-labelling (test.py:124, general.py:656-662). device: the card
-    unless "cpu" is asked for; keep_fn: the NMS keep-mask (the on-card
-    reference run passes the plain version).
+    unless "cpu" is asked for.
 
     Returns a dict with mp, mr, map50, map, per-class ap, speed, fitness.
     """
@@ -151,8 +148,7 @@ def evaluate(plan, params, state, loader, *,
                                   1.0, axis=-1)
                 pred = torch.cat([pred, torch.from_numpy(extra).to(dev, pred.dtype)], 1)
             nms = batched_nms(pred, conf_thres=conf_thres, iou_thres=iou_thres,
-                              multi_label=True, max_det=max_det, max_nms=max_nms,
-                              keep_fn=keep_fn)
+                              multi_label=True, max_det=max_det, max_nms=max_nms)
             dets = nms_output_to_dets(nms)   # to the host: waits for the card
         t2 = time.perf_counter()
         t_inf += t1 - t0

@@ -17,7 +17,7 @@ ELAN spans, so that detect runs the stem and span kernels as serving does
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -30,7 +30,6 @@ from yolo_series_tpu_torch.models.faststem import make_fast_stem
 from yolo_series_tpu_torch.models.model import apply_model
 from yolo_series_tpu_torch.models.reparam import fuse_model
 from yolo_series_tpu_torch.ops.nms import batched_nms, nms_output_to_dets
-from yolo_series_tpu_torch.ops.nms_keep import nms_keep_mask
 
 
 class Detector:
@@ -41,10 +40,7 @@ class Detector:
                  conf_thres=0.25, iou_thres=0.45, max_det=300,
                  classes: Optional[Sequence[int]] = None,
                  agnostic=False, dtype=torch.bfloat16, augment=False,
-                 extra_models=(), fast_stem=True, max_nms=4096, device=None,
-                 keep_fn: Callable = nms_keep_mask):
-        """keep_fn: the NMS keep-mask (an on-card reference run passes the
-        plain version)."""
+                 extra_models=(), fast_stem=True, max_nms=4096, device=None):
         if augment:
             raise NotImplementedError("TTA is not ported yet (ROADMAP queue 1, "
                                       "item 17)")
@@ -67,7 +63,6 @@ class Detector:
         self.classes = tuple(classes) if classes is not None else None
         self.agnostic = agnostic
         self.dtype = dtype
-        self.keep_fn = keep_fn
 
     @classmethod
     def from_checkpoint(cls, weights, cfg: Optional[str] = None,
@@ -117,8 +112,7 @@ class Detector:
             out = batched_nms(pred, conf_thres=self.conf_thres,
                               iou_thres=self.iou_thres, multi_label=False,
                               agnostic=self.agnostic, max_det=self.max_det,
-                              max_nms=self.max_nms, classes=self.classes,
-                              keep_fn=self.keep_fn)
+                              max_nms=self.max_nms, classes=self.classes)
         dets = nms_output_to_dets(out)
         h_in = w_in = self.img_size
         results = []

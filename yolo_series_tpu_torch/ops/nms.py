@@ -17,14 +17,14 @@ JAX package vmaps one image's function.
 
 from __future__ import annotations
 
-from typing import Callable, List, NamedTuple, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
 from yolo_series_tpu_torch.models.layers import Ctx
 from yolo_series_tpu_torch.ops.boxes import xywh2xyxy
-from yolo_series_tpu_torch.ops.nms_keep import nms_keep_mask
+from yolo_series_tpu_torch.ops import nms_keep
 
 
 class NMSOutput(NamedTuple):
@@ -37,17 +37,17 @@ class NMSOutput(NamedTuple):
 
 
 def _nms_tail(cand_boxes, top_scores, cand_cls, iou_thres, agnostic, max_det,
-              max_wh, keep_fn: Callable = nms_keep_mask) -> NMSOutput:
+              max_wh) -> NMSOutput:
     """Greedy suppression + packed output from score-sorted candidates,
     batched: cand_boxes (B, K, 4) xyxy fp32, top_scores (B, K) fp32 (-inf =
-    invalid), cand_cls (B, K) fp32. keep_fn is the keep-mask; the on-card
-    reference of chip_smoke.py passes the plain version."""
+    invalid), cand_cls (B, K) fp32. The keep-mask is looked up in
+    `ops/nms_keep` at each call."""
     valid = torch.isfinite(top_scores)
     shifted = (cand_boxes if agnostic
                else cand_boxes + (cand_cls * max_wh)[..., None])
     nms_boxes = torch.where(valid[..., None], shifted,
                             torch.zeros((), device=shifted.device))
-    keep = keep_fn(nms_boxes, valid, iou_thres) & valid
+    keep = nms_keep.nms_keep_mask(nms_boxes, valid, iou_thres) & valid
 
     b = keep.shape[0]
     pos = torch.cumsum(keep.int(), dim=1) - 1
@@ -75,8 +75,7 @@ def _top_k(scores: torch.Tensor, k: int):
 
 def _single_image_nms(pred, conf_thres, iou_thres, multi_label, agnostic,
                       max_det, max_nms, max_wh, nc, class_mask=None,
-                      score_dtype=torch.float32,
-                      keep_fn: Callable = nms_keep_mask) -> NMSOutput:
+                      score_dtype=torch.float32) -> NMSOutput:
     """pred: (B, A, 5 + nc) decoded predictions (xywh, obj, classes) of a
     batch of images; `_single_image_nms` of the JAX package on each row.
     score_dtype=bfloat16 computes the (A, nc) scores in bf16, as there;
@@ -107,15 +106,14 @@ def _single_image_nms(pred, conf_thres, iou_thres, multi_label, agnostic,
     xywh = torch.gather(pred[..., 0:4].float(), 1,
                         anchor_idx[..., None].expand(-1, -1, 4))
     return _nms_tail(xywh2xyxy(xywh), top_scores.float(), cand_cls, iou_thres,
-                     agnostic, max_det, max_wh, keep_fn)
+                     agnostic, max_det, max_wh)
 
 
 def batched_nms(pred: torch.Tensor, conf_thres: float = 0.25,
                 iou_thres: float = 0.45, multi_label: bool = False,
                 agnostic: bool = False, max_det: int = 300, max_nms: int = 4096,
                 max_wh: float = 4096.0, classes: Optional[Sequence[int]] = None,
-                score_dtype=torch.float32,
-                keep_fn: Callable = nms_keep_mask) -> NMSOutput:
+                score_dtype=torch.float32) -> NMSOutput:
     """Batched end-to-end NMS on decoded predictions: pred (B, A, 5 + nc)
     in xywh + obj + cls layout (reference utils/general.py:628
     `non_max_suppression`, with static shapes). `classes` keeps only those
@@ -129,7 +127,7 @@ def batched_nms(pred: torch.Tensor, conf_thres: float = 0.25,
                                    device=pred.device)] = True
     return _single_image_nms(pred.float(), conf_thres, iou_thres, multi_label,
                              agnostic, max_det, max_nms, max_wh, nc, class_mask,
-                             score_dtype, keep_fn)
+                             score_dtype)
 
 
 def nms_output_to_dets(out: NMSOutput) -> List[np.ndarray]:
@@ -147,7 +145,6 @@ def nms_output_to_dets(out: NMSOutput) -> List[np.ndarray]:
 def fused_head_nms(head, head_params, feats, *, conf_thres=0.25,
                    iou_thres=0.45, max_det=300, max_nms=256, max_wh=4096.0,
                    compute_dtype=torch.bfloat16,
-                   keep_fn: Callable = nms_keep_mask,
                    anchors: Optional[torch.Tensor] = None) -> NMSOutput:
     """Serving fast path: head convs + candidate top-k + decode of the
     selected rows + NMS, without materializing the (B, A, no) decoded
@@ -219,4 +216,4 @@ def fused_head_nms(head, head_params, feats, *, conf_thres=0.25,
     cand_boxes = xywh2xyxy(torch.cat([xy, wh], dim=-1))
     cand_cls = torch.argmax(rows[..., 5:5 + nc], dim=-1).float()
     return _nms_tail(cand_boxes, top_scores, cand_cls, iou_thres, False,
-                     max_det, max_wh, keep_fn)
+                     max_det, max_wh)

@@ -93,8 +93,9 @@ def _check(boxes: torch.Tensor, valid: torch.Tensor) -> bool:
 def nms_keep_mask_large(boxes: torch.Tensor, valid: torch.Tensor,
                         iou_threshold: float) -> torch.Tensor:
     """The keep mask for any K up to MAX_K_LARGE with K1L (two launches:
-    the (B, K, ceil(K / 64)) uint64 suppression mask, allocated here, then
-    the scan). The CPU takes the plain version."""
+    the (B, K, ceil(K / 64)) uint64 suppression mask, allocated here (67 MB
+    at B = 8, K = 8192; the mask kernel writes its upper-triangular blocks,
+    34 MB), then the scan). The CPU takes the plain version."""
     if _check(boxes, valid):
         return nms_keep_mask_plain(boxes, valid, iou_threshold)
     b, k, _ = boxes.shape
