@@ -17,7 +17,8 @@ non-zero on failure before the last line is printed:
     shapes the main paths give it (batch 8, 640 px): K1 the NMS
     keep-mask (must be equal), K1L the large-K keep-mask at K = 1025, 4096
     and 8192 on deep suppression chains and on the real eval candidates
-    of the model (conf 0.001, multi-label; must be equal), K2 the fused
+    of the model (conf 0.001, multi-label; must be equal; one call's peak
+    allocation must be the packed workspace and the keep mask), K2 the fused
     stem tail and K3 the eight
     fused ELAN spans (within a stated tolerance; beside the fused bound,
     the staged floor: the sum of each launch's own bound), each with its
@@ -68,8 +69,11 @@ non-zero on failure before the last line is printed:
     keep-mask, and agree with an fp32 cuDNN Detector as phase 4's do.
  6. Eval: `eval/evaluator.evaluate` in fp32 over 16 synthetic images in two
     rect batch shapes with labels from the model's own detections: K1L
-    (8192 candidates) launches, and map50 / map equal those of the same
-    run with the plain keep-mask; per-image inference and NMS ms.
+    (8192 candidates) launches, and map50 / map / mp / mr equal those of
+    the same run with the plain keep-mask and those of a run with the
+    global TF32 flags on (torch's default; `evaluate` pins full fp32);
+    per-image inference and NMS ms, one batch's fp32 forward with TF32 on
+    and off, and its NMS split into the stable sort, K1L and the packing.
  7. One JSON line of per-kernel numbers, the card's name and power limit,
     and the last line `{"ok": true, "device": {...}}`.
 """
@@ -101,6 +105,7 @@ if Path(yolo_series_tpu_torch.__file__).resolve().parent != ROOT / "yolo_series_
     raise ImportError(f"yolo_series_tpu_torch is not the one beside {__file__}")
 
 from yolo_series_tpu_torch.data.augment import letterbox
+from yolo_series_tpu_torch.device import full_fp32
 from yolo_series_tpu_torch.eval.evaluator import evaluate, scale_coords_np
 from yolo_series_tpu_torch.infer import quant
 from yolo_series_tpu_torch.infer.detector import Detector
@@ -378,6 +383,21 @@ def kernel_ms(fn, names, n=3):
     return out
 
 
+def peak_bytes(fn):
+    """Bytes torch's allocator holds at the peak of one fn() call, above
+    what it held before (None on the CPU)."""
+    if not torch.cuda.is_available():
+        return None
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - before
+
+
 def library_nms_ms(boxes, valid, thr):
     """One call of torchvision's NMS per image on the same score-ordered
     boxes, where torchvision is installed (it is not a dependency of the
@@ -434,20 +454,27 @@ def check_k1l(dev, rows, m):
         split = kernel_ms(call, ("nms_mask_kernel", "nms_scan_kernel"))
         pairs = keep_mask_pairs(boxes, valid, want, thr)
         b_ms, b_by = bound_ms(13 * pairs, PEAK_FP32, nbytes(boxes, valid) + want.numel())
-        nw = (k + 63) // 64
-        words = BATCH * sum(nw - i // 64 for i in range(k))   # upper blocks' rows
+        ws = nms_keep.large_workspace_bytes(BATCH, k)   # the packed tiles
         floor_ms = max(13 * BATCH * k * (k - 1) / 2 / PEAK_FP32 * 1e3,
-                       2 * 8 * words / PEAK_BYTES * 1e3)
+                       2 * ws / PEAK_BYTES * 1e3)
+        peak = peak_bytes(call)
+        # the allocator rounds a block up to 512 bytes and may leave up to
+        # 1 MiB of a fresh segment unsplit
+        if peak is not None and not ws + want.numel() <= peak <= ws + want.numel() + (1 << 20):
+            raise AssertionError(f"K1L {name}: one call allocates {peak} bytes, the packed "
+                                 f"workspace and the keep mask are {ws + want.numel()}")
         log(f"K1L nms_keep_mask_large B={BATCH} {name}: equal to plain (kept "
             f"{int(want.sum())} of {int(valid.sum())} valid); one call {ms:.4f} ms "
             f"(graph replay {g_ms:.4f}), plain {plain_ms:.3f} ms, bound {b_ms:.6f} ms "
             f"({b_by}, {pairs} IoUs), design floor {floor_ms:.4f} ms (all "
-            f"{BATCH * k * (k - 1) // 2} IoUs, mask {8 * words / 1e6:.1f} MB written "
-            f"and read); profile: mask kernel {split['nms_mask_kernel']} ms, scan "
+            f"{BATCH * k * (k - 1) // 2} IoUs, packed mask {ws / 1e6:.1f} MB written "
+            f"and read); peak allocation of one call {peak} bytes (workspace {ws}, keep "
+            f"{want.numel()}); profile: mask kernel {split['nms_mask_kernel']} ms, scan "
             f"kernel {split['nms_scan_kernel']} ms")
         runs.append(dict(case=name, k=k, ms=ms, graph_ms=g_ms, plain_ms=plain_ms,
                          mask_ms=split["nms_mask_kernel"], scan_ms=split["nms_scan_kernel"],
                          bound_ms=b_ms, bound_by=b_by, design_floor_ms=floor_ms,
+                         workspace_bytes=ws, peak_bytes=peak,
                          ious=pairs, kept=int(want.sum()), valid=int(valid.sum())))
         del got, want
     ev = runs[-1]
@@ -457,7 +484,8 @@ def check_k1l(dev, rows, m):
         f"{'not installed' if lib_ms is None else f'{lib_ms:.4f} ms'}")
     rows["K1L"] = dict(max_abs_err=0.0, ms=ev["ms"], plain_ms=ev["plain_ms"],
                        bound_ms=ev["bound_ms"], bound_by=ev["bound_by"], library_ms=lib_ms,
-                       graph_ms=ev["graph_ms"], design_floor_ms=ev["design_floor_ms"])
+                       graph_ms=ev["graph_ms"], design_floor_ms=ev["design_floor_ms"],
+                       workspace_bytes=ev["workspace_bytes"], peak_bytes=ev["peak_bytes"])
     rows["k1l_runs"] = runs
 
 
@@ -1524,20 +1552,21 @@ def detect(dev, width=1.0):
             "detections": sum(len(d) for d in got), "ms": ms}
 
 
-def evaluation(dev, m, batch=BATCH, n_images=16):
-    """Phase 6: `evaluate` in fp32 over 16 synthetic images, rect batches
-    of 8 at 640 x 640 and 384 x 640 (at IMG = 640), labels from the model's own detections
-    (conf 0.25 through the fp32 cuDNN path) jittered by a few pixels, plus
-    one the model does not find an image. Counted: K1L once a batch
-    (8192 candidates); map50 / map equal those of the same run with the
-    plain keep-mask."""
+def eval_batches(m, batch=BATCH, n_images=16):
+    """`n_images` uniform-noise images in rect batches of `batch`, half at
+    img x img and half at 3/5 of the height (m.img = 640: 640 x 640 and
+    384 x 640), in the loader's batch dicts, labelled with the model's own
+    detections (conf 0.25 through the fp32 cuDNN path with the plain
+    keep-mask) jittered by a few pixels, plus one box the model does not
+    find an image (so map50 is neither 0 nor 1)."""
     rng = np.random.default_rng(13)
+    img = m.img
     batches = []
-    for bi, (h, w) in enumerate(((IMG, IMG), (IMG * 3 // 5 // 32 * 32, IMG))):
+    for bi, (h, w) in enumerate(((img, img), (img * 3 // 5 // 32 * 32, img))):
         for _ in range(n_images // batch // 2):
             imgs = rng.integers(0, 256, (batch, h, w, 3), np.uint8)
-            with torch.inference_mode(), plain_nms():
-                x = torch.from_numpy(imgs).to(dev).float() / 255.0
+            with torch.inference_mode(), plain_nms(), full_fp32():
+                x = torch.from_numpy(imgs).to(m.dev).float() / 255.0
                 out, _ = apply_model(m.plan, m.params, m.state, x, dtype=torch.float32)
                 dets = batched_nms(out["pred"], max_det=20)
             labels = np.zeros((batch, 21, 5), np.float32)
@@ -1554,8 +1583,64 @@ def evaluation(dev, m, batch=BATCH, n_images=16):
             batches.append({"images": imgs, "labels": labels, "label_mask": mask,
                             "shapes": [None] * batch,
                             "paths": [f"{bi}_{len(batches)}_{si}.jpg" for si in range(batch)]})
+    return batches
+
+
+@contextlib.contextmanager
+def global_tf32(on: bool):
+    """Inside: torch's global TF32 flags for cuDNN and the matmuls set to
+    `on` (True is torch's default for cuDNN); restored after."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = on
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+# kernel-name groups of eval's NMS on the card: the stable sorts of the
+# candidates, K1L, and everything else (scores, gathers, the packing)
+NMS_GROUPS = (("sort", ("sort", "Sort", "radix", "Radix")),
+              ("K1L", ("nms_mask_kernel", "nms_scan_kernel")))
+
+
+def nms_split_ms(pred, n=3, **kw):
+    """Device ms of one `batched_nms(pred, **kw)` call by kernel group
+    (NMS_GROUPS, the rest as "packing"), torch.profiler over n calls; None
+    on the CPU (not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        return None
+    call = lambda: batched_nms(pred, **kw)  # noqa: E731
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+    out = {name: 0.0 for name, _ in NMS_GROUPS} | {"packing": 0.0}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+        if e.device_type != torch.autograd.DeviceType.CUDA or not us:
+            continue
+        group = next((name for name, keys in NMS_GROUPS if any(k in e.key for k in keys)),
+                     "packing")
+        out[group] += us / 1e3 / n
+    return out
+
+
+def evaluation(dev, m, batch=BATCH, n_images=16):
+    """Phase 6: `evaluate` in fp32 over `eval_batches` (16 images, rect
+    batches of 8). Counted: K1L once a batch (8192 candidates); map50 /
+    map / mp / mr equal those of the same run with the plain keep-mask, and
+    those of a run with the global TF32 flags at torch's defaults (on):
+    `evaluate` pins full fp32 itself. Logged beside: one batch's fp32
+    forward timed with TF32 on and off (what the pin costs), and the NMS ms
+    of one batch split into the stable sort, K1L and the packing."""
+    batches = eval_batches(m, batch, n_images)
     log(f"eval: {n_images} images in {len(batches)} batches of {batch} "
-        f"({[b['images'].shape[1:3] for b in batches]}), fp32, cuDNN TF32 "
+        f"({[b['images'].shape[1:3] for b in batches]}), fp32, global cuDNN TF32 "
         f"{torch.backends.cudnn.allow_tf32}, matmul TF32 "
         f"{torch.backends.cuda.matmul.allow_tf32}")
     zero_counts()
@@ -1566,18 +1651,44 @@ def evaluation(dev, m, batch=BATCH, n_images=16):
         raise AssertionError(f"eval: launch counts {counts}, want {want}")
     with plain_nms():
         plain = evaluate(m.plan, m.params, m.state, batches, device=dev)
+    with global_tf32(True):
+        tf32 = evaluate(m.plan, m.params, m.state, batches, device=dev)
     log(f"eval: map50 {got['map50']:.6f}, map {got['map']:.6f} (plain keep-mask "
-        f"{plain['map50']:.6f}, {plain['map']:.6f}); per image: inference "
-        f"{got['speed_ms']['inference']:.3f} ms, NMS {got['speed_ms']['nms']:.3f} ms "
-        f"(plain keep-mask NMS {plain['speed_ms']['nms']:.3f} ms); launches {counts}")
+        f"{plain['map50']:.6f}, {plain['map']:.6f}; global TF32 on {tf32['map50']:.6f}, "
+        f"{tf32['map']:.6f}); per image: inference {got['speed_ms']['inference']:.3f} ms, "
+        f"NMS {got['speed_ms']['nms']:.3f} ms (plain keep-mask NMS "
+        f"{plain['speed_ms']['nms']:.3f} ms); launches {counts}")
     for key in ("map50", "map", "mp", "mr"):
         if got[key] != plain[key]:
             raise AssertionError(f"eval: {key} {got[key]} with K1L, {plain[key]} with the "
                                  "plain keep-mask")
+        if got[key] != tf32[key]:
+            raise AssertionError(f"eval: {key} {got[key]} with the global TF32 off, "
+                                 f"{tf32[key]} with it on: the fp32 pin does not hold")
     if not 0.0 < got["map50"] < 1.0:
         raise AssertionError(f"eval: map50 {got['map50']} is not a meaningful check")
+
+    # the pin's cost, and where one batch's NMS goes
+    with torch.inference_mode():
+        x = torch.from_numpy(batches[0]["images"]).to(dev).float() / 255.0
+        forward = lambda: apply_model(m.plan, m.params, m.state, x,  # noqa: E731
+                                      dtype=torch.float32)
+        fwd_ms = {}
+        if dev.type == "cuda":
+            for on in (True, False):
+                with global_tf32(on):
+                    fwd_ms["tf32_on" if on else "tf32_off"] = cuda_ms(forward, iters=10)
+        pred = forward()[0]["pred"]
+        split = nms_split_ms(pred, conf_thres=0.001, iou_thres=0.65, multi_label=True,
+                             max_nms=EVAL_NMS)
+    per_image = None if split is None else {k: v / batch for k, v in split.items()}
+    log(f"eval: fp32 forward of one batch of {batch}: TF32 on {fwd_ms.get('tf32_on')} ms, "
+        f"off (the pin) {fwd_ms.get('tf32_off')} ms; NMS device ms an image by group "
+        f"{per_image}")
     return {"launches": counts, "map50": got["map50"], "map": got["map"],
-            "speed_ms": got["speed_ms"], "plain_nms_ms": plain["speed_ms"]["nms"]}
+            "speed_ms": got["speed_ms"], "plain_nms_ms": plain["speed_ms"]["nms"],
+            "tf32_on_map50": tf32["map50"], "forward_ms_bs8": fwd_ms,
+            "nms_ms_an_image": per_image}
 
 
 # substrings of the names of cuDNN's convolution kernels
@@ -1732,6 +1843,9 @@ def main() -> int:
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
         if kid in ("K1", "K1L"):   # one call above; the same call by graph replay
             kernels[-1]["graph_ms"] = r["graph_ms"]
+        if kid == "K1L":
+            kernels[-1].update(workspace_bytes=r["workspace_bytes"],
+                               peak_bytes=r["peak_bytes"])
     keys = ("replays", "img_s", "device_ms_bs8", "replay_ms_bs8", "eager_ms_bs8", "p50_ms_bs8",
             "p50_ms_bs1", "host_ms_infer_async", "enqueue_ms_bs8", "profile",
             "profile_eager", "feature_rms_err", "feature_rms_err_cudnn_bf16",

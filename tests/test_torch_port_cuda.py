@@ -155,6 +155,13 @@ def _large_case(name, rng, b, k):
         valid = rng.uniform(size=(b, k)) < 0.7
         valid[::2] = False
         return _boxes_with_classes(rng, b, k, nc=2), valid
+    if name == "tile_holes":     # whole 64-row tiles with no valid box; ends mid-tile
+        valid = rng.uniform(size=(b, k)) < 0.9
+        valid[:, 64 * 3:64 * 6] = False
+        valid[::2, 64 * 20:64 * 21] = False
+        valid[1::2, :64] = False
+        valid[:, k - 64 * 5 - 17:] = False
+        return _boxes_with_classes(rng, b, k, nc=3), valid
     if name == "threshold_ties":  # pairs at IoU exactly 0.5, and duplicates
         x = rng.uniform(0, 600, (b, k // 2, 1)).astype(np.float32)
         y = rng.uniform(0, 600, (b, k // 2, 1)).astype(np.float32)
@@ -170,16 +177,21 @@ LARGE_CASES = ([("chain", 1, k) for k in (1025, 2047, 4096)]
                + [("chain_groups", b, k) for b in (1, 8) for k in (1025, 4096, 8192)]
                + [("clusters", 8, 2047), ("clusters", 1, 8192),
                   ("all_invalid_rows", 8, 2047), ("all_invalid_rows", 8, 8192),
-                  ("threshold_ties", 8, 1025), ("threshold_ties", 1, 4096)])
+                  ("threshold_ties", 8, 1025), ("threshold_ties", 1, 4096),
+                  ("chain_groups", 32, 8192), ("chain_groups", 1, 32768),
+                  ("tile_holes", 8, 4096), ("tile_holes", 8, 8192)])
 
 
 @pytest.mark.parametrize("name,b,k", LARGE_CASES,
                          ids=[f"{n}_B{b}_K{k}" for n, b, k in LARGE_CASES])
 def test_nms_keep_large_kernel_equals_plain(cuda, name, b, k):
-    """K1L at K = 1025, 2047, 4096 and 8192, B = 1 and 8: deep chains (one
-    K-deep, and the 64-long overlapping chains of chip_smoke.py), rows with
-    no valid box, and pairs at exactly the threshold; bit-equal to the
-    plain version, one K1L launch each (the threshold case at thr 0.5)."""
+    """K1L at K = 1025, 2047, 4096, 8192 and 32768 (its largest, where the
+    scan's ring needs opt-in shared memory), B = 1, 8 and 32 (more clusters
+    than the card holds at once): deep chains (one K-deep, and the 64-long
+    overlapping chains of chip_smoke.py), rows with no valid box, whole
+    64-row tiles with no valid box (the tiles the mask kernel skips), and
+    pairs at exactly the threshold; bit-equal to the plain version, one K1L
+    launch each (the threshold case at thr 0.5)."""
     rng = np.random.default_rng(k + b)
     boxes, valid = _large_case(name, rng, b, k)
     thr = 0.5 if name == "threshold_ties" else 0.45
@@ -188,7 +200,10 @@ def test_nms_keep_large_kernel_equals_plain(cuda, name, b, k):
     got = nms_keep.nms_keep_mask(boxes, valid, thr)
     torch.cuda.synchronize()
     assert nms_keep.nms_keep_mask_large.launches == before + 1
-    want = nms_keep.nms_keep_mask_plain(boxes, valid, thr)
+    # the plain version 8 images at a time: its (B, K, K) matrices of 32
+    # images at K = 8192 do not fit the card
+    want = torch.cat([nms_keep.nms_keep_mask_plain(boxes[i:i + 8], valid[i:i + 8], thr)
+                      for i in range(0, b, 8)])
     assert torch.equal(got, want)
     if name == "chain":
         assert got[0].tolist() == [i % 2 == 0 for i in range(k)]
@@ -204,6 +219,91 @@ def test_nms_keep_k1_and_k1l_agree(cuda, k):
     b = nms_keep.nms_keep_mask_large(boxes, valid, 0.45)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
+
+
+def test_nms_keep_large_rejects_k_above_its_limit(cuda):
+    """K1L takes K <= MAX_K_LARGE: the wrapper raises above it before it
+    allocates, and the C entry point refuses it."""
+    k = nms_keep.MAX_K_LARGE + 1
+    boxes = torch.zeros((1, k, 4), device=cuda)
+    valid = torch.ones((1, k), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="largest K1L takes"):
+        nms_keep.nms_keep_mask_large(boxes, valid, 0.45)
+    keep = torch.empty_like(valid)
+    err = nms_keep._entry_large()(boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(),
+                                  boxes.data_ptr(), 1, k, 0.45, nms_keep._build.stream_ptr())
+    assert err != 0
+
+
+def test_nms_keep_large_graph_replay_equals_eager(cuda):
+    """K1L captured in a CUDA graph (its workspace allocated by torch inside
+    the capture) replays to the eager call's mask, and to the new inputs'
+    mask after they are copied into the captured buffers."""
+    rng = np.random.default_rng(5)
+    boxes = torch.from_numpy(_chain_groups(rng, 8, 4096)).to(cuda)
+    valid = torch.from_numpy(rng.uniform(size=(8, 4096)) < 0.95).to(cuda)
+    eager = nms_keep.nms_keep_mask_large(boxes, valid, 0.45)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        nms_keep.nms_keep_mask_large(boxes, valid, 0.45)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = nms_keep.nms_keep_mask_large(boxes, valid, 0.45)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    boxes.copy_(torch.from_numpy(_boxes_with_classes(rng, 8, 4096, nc=3)))
+    valid.copy_(torch.from_numpy(rng.uniform(size=(8, 4096)) < 0.8))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, nms_keep.nms_keep_mask_plain(boxes, valid, 0.45))
+    assert not torch.equal(out, eager)
+
+
+@pytest.mark.parametrize("b,k", [(8, 8192), (8, 4096), (2, 1025)])
+def test_nms_keep_large_peak_memory_is_the_packed_workspace(cuda, b, k):
+    """One K1L call allocates its packed workspace (33.8 MB at B = 8, K =
+    8192, against the 67.1 MB of a (B, K, K / 64) layout) and the keep
+    mask, nothing else. The caching allocator rounds each block up to 512
+    bytes and may leave a remainder of up to 1 MiB of a fresh segment
+    unsplit, so the peak is that sum, at most 1 MiB over."""
+    rng = np.random.default_rng(k)
+    boxes = torch.from_numpy(_chain_groups(rng, b, k)).to(cuda)
+    valid = torch.ones((b, k), dtype=torch.bool, device=cuda)
+    nms_keep.nms_keep_mask_large(boxes, valid, 0.45)   # built, opted in
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    keep = nms_keep.nms_keep_mask_large(boxes, valid, 0.45)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    rounded = nms_keep.large_workspace_bytes(b, k) + -(-b * k // 512) * 512
+    assert rounded <= peak <= rounded + (1 << 20), (peak, rounded)
+    if (b, k) == (8, 8192):
+        assert nms_keep.large_workspace_bytes(b, k) == 33_816_576
+    assert keep.shape == (b, k)
+
+
+def test_evaluate_fp32_ignores_global_tf32(cuda):
+    """`evaluate` in fp32 gives the same map50, map, mp and mr with the
+    global TF32 flags on (torch's default for cuDNN) and off: it pins full
+    fp32 itself."""
+    import chip_smoke
+    from yolo_series_tpu_torch.eval.evaluator import evaluate
+
+    m = chip_smoke.make_model(cuda, width=0.5, img=256)
+    batches = chip_smoke.eval_batches(m, batch=2, n_images=4)
+    got = {}
+    for tf32 in (True, False):
+        with chip_smoke.global_tf32(tf32):
+            got[tf32] = evaluate(m.plan, m.params, m.state, batches, device=cuda)
+            assert torch.backends.cudnn.allow_tf32 == tf32
+    for key in ("map50", "map", "mp", "mr"):
+        assert got[True][key] == got[False][key], key
+    assert 0.0 < got[False]["map50"] < 1.0
 
 
 @pytest.fixture(scope="module")

@@ -252,3 +252,44 @@ def test_evaluate_refuses_what_is_not_ported(eval_setup):
         tev.evaluate(tplan, tp, ts, batches, augment=True, device="cpu")
     with pytest.raises(NotImplementedError, match="item 19"):
         tev.evaluate(tplan, tp, ts, batches, plots_dir="x", device="cpu")
+
+
+@pytest.mark.parametrize("start", [True, False], ids=["tf32_on", "tf32_off"])
+def test_fp32_entry_points_pin_full_fp32(eval_setup, monkeypatch, start):
+    """`evaluate(compute_dtype=torch.float32)` and an fp32 `Detector` run
+    their forward with cuDNN's and the matmuls' TF32 off, whatever the
+    caller's global flags, and leave both flags as they found them; in
+    bf16 neither touches them."""
+    from yolo_series_tpu_torch.infer import detector as tdet
+
+    *_, tplan, tp, ts, batches = eval_setup
+    seen = []
+
+    def flags():
+        return torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+
+    def record(module):
+        real = module.apply_model
+
+        def recording(*args, **kwargs):
+            seen.append((kwargs["dtype"], *flags()))
+            return real(*args, **kwargs)
+
+        monkeypatch.setattr(module, "apply_model", recording)
+
+    record(tev)
+    record(tdet)
+    image = np.random.default_rng(3).integers(0, 256, (100, 150, 3), np.uint8)
+    saved = flags()
+    try:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = start
+        for dtype in (torch.float32, torch.bfloat16):
+            seen.clear()
+            tev.evaluate(tplan, tp, ts, batches[:1], compute_dtype=dtype, device="cpu")
+            assert flags() == (start, start)
+            tdet.Detector(tplan, tp, ts, img_size=128, dtype=dtype, device="cpu")(image)
+            assert flags() == (start, start)
+            inside = (False, False) if dtype == torch.float32 else (start, start)
+            assert seen == [(dtype, *inside)] * 2
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved

@@ -460,35 +460,92 @@ def test_keep_mask_threshold_test_without_division(thr):
 
 # ----------------------------------------------------------------- K1L ---
 
-def _large_k_model(boxes, valid, thr):
+def _large_k_model(boxes, valid, thr, cluster=8, warps=8, seed=0):
     """A numpy model of the large-K keep-mask (csrc/nms_keep.cu, K1L) for
-    one image. Mask kernel: every row i, 64-bit words from i // 64 on, bit
-    p % 64 of word p // 64 is IoU(i, p) > thr for p > i (valid ignored).
-    Scan: `removed` starts as the invalid boxes and the bits past K; for
-    each 64-box block w up to the last valid box, one thread resolves the
-    block from its rows' diagonal words, then every later word j ORs word j
-    of the block's kept rows."""
+    one image.
+
+    Mask kernel: the upper-triangular 64 x 64 tiles (rb, cb), cb >= rb, in
+    the packed order of `nms_keep.large_tile_index`; word t of a tile is row
+    64 rb + t, bit c is IoU(i, p) > thr for p = 64 cb + c > i with row and
+    column valid. A tile with no valid row or no valid column is skipped:
+    reading it fails the model.
+
+    Scan: word j of `removed` (the invalid boxes and the bits past K to
+    start) belongs to warp (j // cluster) % warps of CTA j % cluster. Each
+    warp runs as its own coroutine, interleaved at random, and waits where
+    the kernel waits on a block's barrier. The owner of w + 1, on kept_w, ORs tile
+    (w, w + 1)'s kept rows, resolves block w + 1 (one step a kept box) and
+    publishes it; then every later word it owns ORs tile (w, j). Asserted as
+    it runs: every block < w has been ORed into word w before w resolves."""
     k = len(boxes)
-    nw = (k + 63) // 64
-    iou = box_iou(torch.from_numpy(boxes), torch.from_numpy(boxes)).numpy()
-    mask = [[0] * nw for _ in range(k)]
-    for i in range(k):
-        for p in np.flatnonzero(iou[i, i + 1:] > thr) + i + 1:
-            mask[i][p // 64] |= 1 << int(p % 64)
+    nw = -(-k // 64)
     full = (1 << 64) - 1
-    removed = [full ^ sum(1 << t for t in range(64) if 64 * j + t < k and valid[64 * j + t])
-               for j in range(nw)]
-    nwe = max((j + 1 for j in range(nw) if removed[j] != full), default=0)
-    for w in range(nwe):
-        r = removed[w]
-        for t in range(64):
-            if not (r >> t) & 1:
-                r |= mask[64 * w + t][w]
+    vpad = np.zeros(64 * nw, bool)
+    vpad[:k] = valid
+    vword = [int.from_bytes(np.packbits(vpad[64 * j:64 * j + 64], bitorder="little").tobytes(),
+                            "little") for j in range(nw)]
+    iou = np.zeros((64 * nw, 64 * nw), np.float32)
+    iou[:k, :k] = box_iou(torch.from_numpy(boxes), torch.from_numpy(boxes)).numpy()
+    sup = (iou > thr) & np.triu(np.ones_like(vpad[:, None] & vpad), 1) & vpad[:, None] & vpad
+    words = np.packbits(sup.reshape(64 * nw, nw, 64), axis=-1,
+                        bitorder="little").view("<u8")[..., 0]
+    workspace = [None] * nms_keep.large_tiles(k)
+    for rb in range(nw):
+        for cb in range(rb, nw):
+            if vword[rb] and vword[cb]:
+                workspace[nms_keep.large_tile_index(rb, cb, k)] = [
+                    int(x) for x in words[64 * rb:64 * rb + 64, cb]]
+
+    def tile(rb, cb):
+        t = workspace[nms_keep.large_tile_index(rb, cb, k)]
+        assert t is not None, f"the scan read tile ({rb}, {cb}), which was skipped"
+        return t
+
+    nwe = max((j + 1 for j in range(nw) if vword[j]), default=0)
+    removed = [full ^ vword[j] for j in range(nw)]
+    applied = [set() for _ in range(nw)]
+    kept = {}   # block -> kept bits, once published
+
+    def resolve(w):
+        assert applied[w] == set(range(w)), (w, sorted(applied[w]))
+        r, live = removed[w], full ^ removed[w]
+        while live:
+            t = (live & -live).bit_length() - 1
+            r |= tile(w, w)[t]
+            live = (full ^ r) & (full << (t + 1))
         removed[w] = r
-        kept = [t for t in range(64) if not (r >> t) & 1]
-        for j in range(w + 1, nwe):
-            for t in kept:
-                removed[j] |= mask[64 * w + t][j]
+        kept[w] = full ^ r
+
+    def apply(w, j, kw):
+        if kw and vword[j]:
+            rows = tile(w, j)
+            for t in range(64):
+                if (kw >> t) & 1:
+                    removed[j] |= rows[t]
+        applied[j].add(w)
+
+    def warp(r, g):
+        mine = [j for j in range(nwe) if j % cluster == r and (j // cluster) % warps == g]
+        if mine and mine[0] == 0:
+            resolve(0)
+        for w in range(mine[-1] if mine else 0):
+            while w not in kept:
+                yield
+            for j in mine:
+                if j > w:
+                    apply(w, j, kept[w])
+                    if j == w + 1:
+                        resolve(j)
+
+    rng = np.random.default_rng(seed)
+    running = [warp(r, g) for r in range(cluster) for g in range(warps)]
+    while running:
+        i = int(rng.integers(len(running)))
+        try:
+            next(running[i])
+        except StopIteration:
+            running.pop(i)
+    assert sorted(kept) == list(range(nwe))
     return np.array([not (removed[p // 64] >> (p % 64)) & 1 for p in range(k)])
 
 
@@ -505,11 +562,12 @@ def _jax_tiled(boxes, valid, thr):
                                     ("invalid", 1100), ("ties", 1030),
                                     ("chain_boxes", 1025)])
 def test_large_k_keep_mask_model_matches_plain_and_jax_tiled(case, k):
-    """K1L's algorithm (64-bit words, upper-triangular blocks, the block
-    scan, invalid boxes starting removed, the scan cut at the last valid
-    box) equals the plain version and the JAX package's tiled keep-mask on
-    deep chains (with class offsets), clusters, ragged K (not a multiple of
-    64), rows with no valid box and exact duplicates."""
+    """K1L's algorithm (64-bit words, the packed upper-triangular tiles
+    with the skipped ones never read, the owners' lookahead scan, invalid
+    boxes starting removed, the scan cut at the last valid box) equals the
+    plain version and the JAX package's tiled keep-mask on deep chains
+    (with class offsets), clusters, ragged K (not a multiple of 64), rows
+    with no valid box and exact duplicates."""
     rng = np.random.default_rng(k)
     if case == "chain":
         boxes = np.stack([nms_chain(k), nms_chain(k, 79 * 4096.0)])
@@ -537,6 +595,65 @@ def test_large_k_keep_mask_model_matches_plain_and_jax_tiled(case, k):
     np.testing.assert_array_equal(got, _jax_tiled(boxes, valid, 0.45))
     if case == "chain":
         assert got[0].tolist() == [i % 2 == 0 for i in range(k)]
+
+
+@pytest.mark.parametrize("case,k,cluster", [
+    ("chain", 1100, 8), ("chain", 1100, 16), ("clusters", 1089, 16),
+    ("prefix", 1300, 8), ("prefix", 1300, 16), ("holes", 1500, 8), ("holes", 1500, 16)])
+def test_large_k_model_owners_and_skipped_tiles(case, k, cluster):
+    """K1L's model with 8 and 16 owner CTAs, at K whose word count is not a
+    multiple of the cluster (K = 1100, 1089: 18 and 18 words; 1300: 21;
+    1500: 24, a multiple of 8 but not of 16), on valid boxes that stop in
+    the middle of a tile (the score-sorted prefix that `_nms_tail` gives)
+    and on whole 64-row tiles with no valid box in the middle (their tiles
+    skipped by the mask kernel): equal to the plain version and the JAX
+    package's tiled keep-mask, for several interleavings of the warps."""
+    rng = np.random.default_rng(k + cluster)
+    if case == "chain":
+        boxes = np.stack([nms_chain(k), nms_chain(k, 79 * 4096.0)])
+        valid = np.ones((2, k), bool)
+        valid[1, 64 * 9 + 17:] = False
+    else:
+        boxes = np.stack([_clustered(rng, k, nc=3, sigma=8.0) for _ in range(2)])
+        valid = np.ones((2, k), bool)
+        if case == "clusters":
+            valid = rng.uniform(size=(2, k)) < 0.8
+        elif case == "prefix":
+            valid[0, 64 * 7 + 23:] = False
+            valid[1, 64 * 15 + 40:] = False
+        else:   # holes: tiles 2-4 and 9 of image 0, tile 0 of image 1, invalid
+            valid[0, 64 * 2:64 * 5] = False
+            valid[0, 64 * 9:64 * 10] = False
+            valid[0, 64 * 20 + 5:] = False
+            valid[1, :64] = False
+    plain = nms_keep.nms_keep_mask_plain(torch.from_numpy(boxes), torch.from_numpy(valid),
+                                         0.45).numpy()
+    for seed in range(2):
+        got = np.stack([_large_k_model(b, v, 0.45, cluster=cluster, seed=seed)
+                        for b, v in zip(boxes, valid)])
+        np.testing.assert_array_equal(got, plain)
+    np.testing.assert_array_equal(plain, _jax_tiled(boxes, valid, 0.45))
+    if case == "chain":
+        assert got[0].tolist() == [i % 2 == 0 for i in range(k)]
+
+
+@pytest.mark.parametrize("k", [1, 63, 64, 65, 1025, 4096, 8192, 8193])
+def test_large_tile_index_is_a_bijection(k):
+    """The packed order of K1L's tiles maps the upper triangle (rb <= cb)
+    one to one onto range(nw (nw + 1) / 2), row block by row block, and the
+    workspace holds B of those 512-byte tiles: 33.8 MB at B = 8, K = 8192
+    (the (B, K, nw) layout before it was 67.1 MB)."""
+    nw = -(-k // 64)
+    idx = [nms_keep.large_tile_index(rb, cb, k) for rb in range(nw) for cb in range(rb, nw)]
+    assert idx == list(range(nw * (nw + 1) // 2)) == list(range(nms_keep.large_tiles(k)))
+    for b in (1, 8):
+        assert nms_keep.large_workspace_bytes(b, k) == b * nw * (nw + 1) // 2 * 512
+    if nw > 1:
+        with pytest.raises(ValueError):
+            nms_keep.large_tile_index(1, 0, k)
+    if k == 8192:
+        assert nms_keep.large_workspace_bytes(8, k) == 33_816_576
+        assert 8 * k * nw * 8 == 67_108_864
 
 
 def test_keep_mask_routes_by_k_and_device():

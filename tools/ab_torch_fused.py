@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """The kernels of several checkouts of the PyTorch port, timed on one card
-in one run: K1 (the NMS keep-mask, batch 8, K = 1024), K2 (the fused stem),
+in one run: K1 (the NMS keep-mask, batch 8, K = 1024), K1L (the large-K
+keep-mask, batch 8, K = 4096 and 8192, with its mask and scan kernels'
+device times from the profiler), K2 (the fused stem),
 K3 (the eight fused ELAN spans), K4 (the int8 matmul with dequant at the 41
 quantized 1x1 convs of one forward) and K4b (its bench template at the
-bench's three shapes, beside `torch._int_mm`). K1, K2 and K3 two ways: one
+bench's three shapes, beside `torch._int_mm`). K1, K1L, K2 and K3 two ways: one
 call between two CUDA events, and the replay of a CUDA graph of the call
 (device time without the host's launch cost); K4 and K4b by graph replay.
 Batch 8, 640 px, full-width yolov7 deploy shapes, random tensors from fixed
@@ -36,6 +38,7 @@ ROOT = Path(__file__).resolve().parents[1]
 INPUTS = ROOT / "build" / "ab_torch_inputs.npz"
 
 BATCH, IMG = 8, 640
+K1L_SIZES = (4096, 8192)
 # K4b's bench shapes (tools/bench_int8_pallas.py), as chip_smoke.K4B_SHAPES
 K4B_SHAPES = ((12800, 1024, 512), (3200, 2048, 1024), (8192, 1024, 1024))
 # (H at 640 px, cin, ct, cc, cout, order) of the 8 ELAN spans, plan order
@@ -46,8 +49,9 @@ SPANS = ((160, 128, 64, 64, 256, "backbone"), (80, 256, 128, 128, 512, "backbone
 
 
 def make_inputs() -> None:
-    """K1's boxes and valid rows and K4's shapes, made by this checkout's
-    `chip_smoke.py` (as its K1 and K4 checks make them) for every run."""
+    """K1's and K1L's boxes and valid rows and K4's shapes, made by this
+    checkout's `chip_smoke.py` (as its K1, K1L and K4 checks make them) for
+    every run."""
     sys.path.insert(0, str(ROOT))
     import chip_smoke
     from yolo_series_tpu_torch.models import graph
@@ -58,9 +62,15 @@ def make_inputs() -> None:
     n_valid = rng.integers(k // 2, k + 1, BATCH)
     n_valid[0] = k
     plan = graph.compile_graph(chip_smoke._cfg(1.0))
+    large = {}
+    for kl in K1L_SIZES:
+        large[f"k1l_boxes_{kl}"] = chip_smoke.chain_boxes(rng, BATCH, kl)
+        n = rng.integers(kl // 2, kl + 1, BATCH)
+        n[0] = kl
+        large[f"k1l_valid_{kl}"] = np.arange(kl)[None] < n[:, None]
     INPUTS.parent.mkdir(parents=True, exist_ok=True)
     np.savez(INPUTS, k1_boxes=boxes, k1_valid=np.arange(k)[None] < n_valid[:, None],
-             k4_shapes=np.array(chip_smoke.k4_shapes(plan, BATCH, IMG)))
+             k4_shapes=np.array(chip_smoke.k4_shapes(plan, BATCH, IMG)), **large)
 
 
 def event_ms(fn, iters=20, warmup=3):
@@ -96,6 +106,27 @@ def graph_ms(fn, reps=5, iters=10):
     return event_ms(graph.replay, iters=iters, warmup=1) / reps
 
 
+def kernel_split(fn, n=3):
+    """Device ms of one fn() call in K1L's mask and scan kernels (by name,
+    torch.profiler over n calls)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {"mask_ms": 0.0, "scan_ms": 0.0}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+        for key, name in (("mask_ms", "nms_mask_kernel"), ("scan_ms", "nms_scan_kernel")):
+            if name in e.key:
+                out[key] += us / 1e3 / n
+    return out
+
+
 def k4_operands(m, k, n, dev):
     import torch
 
@@ -108,8 +139,9 @@ def k4_operands(m, k, n, dev):
 
 
 def k1_k4(inputs, dev) -> dict:
-    """K1 (one call and graph replay), K4 per conv and summed, K4b per
-    shape beside torch._int_mm."""
+    """K1 and K1L (one call and graph replay; K1L checked against the plain
+    keep-mask first), K4 per conv and summed, K4b per shape beside
+    torch._int_mm."""
     import torch
 
     from yolo_series_tpu_torch.ops import int8_mm, nms_keep
@@ -118,6 +150,17 @@ def k1_k4(inputs, dev) -> dict:
     valid = torch.from_numpy(inputs["k1_valid"]).to(dev)
     k1 = lambda: nms_keep.nms_keep_mask(boxes, valid, 0.45)  # noqa: E731
     out = {"K1": {"ms": event_ms(k1), "graph_ms": graph_ms(k1)}}
+    for kl in K1L_SIZES:
+        lb = torch.from_numpy(inputs[f"k1l_boxes_{kl}"]).to(dev)
+        lv = torch.from_numpy(inputs[f"k1l_valid_{kl}"]).to(dev)
+        k1l = lambda: nms_keep.nms_keep_mask_large(lb, lv, 0.45)  # noqa: E731
+        got = k1l()
+        torch.cuda.synchronize()
+        if not torch.equal(got, nms_keep.nms_keep_mask_plain(lb, lv, 0.45)):
+            raise AssertionError(f"K1L K={kl}: differs from the plain keep-mask")
+        out[f"K1L_{kl}"] = {"ms": event_ms(k1l, iters=10), "graph_ms": graph_ms(k1l, reps=3),
+                            **kernel_split(k1l)}
+        del lb, lv, got
     convs = []
     for m, k, n in inputs["k4_shapes"].tolist():
         xq, wq, scale, bias = k4_operands(m, k, n, dev)

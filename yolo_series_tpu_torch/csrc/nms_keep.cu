@@ -1,7 +1,8 @@
 // Greedy-NMS keep-mask: a suppression bitmask built in parallel by a
 // cluster of CTAs, then scanned word by word by one warp (K1, K <= 1024);
-// and for any larger K a mask kernel over all SMs into device memory, then
-// a scan by one CTA an image (K1L, the entry point nms_keep_mask_large).
+// and for any larger K a mask kernel over the packed upper-triangular tiles
+// in device memory, then a lookahead scan by a cluster of CTAs an image
+// (K1L, the entry point nms_keep_mask_large).
 //
 // Replaces the Pallas TPU kernel yolo_series_tpu/ops/pallas_nms.py
 // `_nms_kernel` (called through `nms_keep_mask_pallas`). That kernel builds
@@ -280,121 +281,381 @@ nms_keep_kernel(const float4* __restrict__ boxes,
 // as K1: exact sequential greedy, IoU and threshold test bit for bit as K1
 // (`suppresses`).
 //
-// Design (simple first): two launches on the caller's stream.
-//  1. nms_mask_kernel, grid (nw, nw, B) with nw = ceil(K / 64): block
-//     (cb, rb) of image b computes rows 64 rb .. +64 against columns
-//     64 cb .. +64, one row a thread, and writes word cb of each row: bit c
-//     is IoU(i, 64 cb + c) > thr for 64 cb + c > i. Blocks below the
-//     diagonal return at once (never read). The mask lives in a (B, K, nw)
-//     uint64 workspace the caller allocates (torch's allocator, so a CUDA
-//     graph can capture the launch).
-//  2. nms_scan_kernel, one CTA an image: `removed` (nw words) in shared
-//     memory starts as the invalid boxes. For each 64-box block w up to
-//     the last valid box: one thread resolves the block alone from the
-//     diagonal words of its rows (box 64 w + t, if not removed, ORs its
-//     word w), then every thread j > w ORs word j of the block's kept rows
-//     in parallel. The next block's diagonal words load during that OR.
+// Bound on this card: the IoUs of the upper triangle are K^2 / 2 an image
+// at 13 fp32 operations (3.5 GFLOP at B = 8, K = 8192: ~0.05 ms at 67
+// TFLOP/s), and the mask is 34 MB there, written once and read once
+// (~0.02 ms at 3.35 TB/s): that is the design's floor. The scan is a chain
+// of K / 64 dependent 64-box blocks an image: latency, not bytes. So the
+// mask must run on every SM at the IoU rate, and each block's step of the
+// chain must be short: no CTA barrier, no round trip to device memory.
 //
-// Bound on this card: the IoUs are K^2 / 2 an image at 13 fp32 operations
-// (3.5 GFLOP at B = 8, K = 8192: ~0.05 ms at 67 TFLOP/s); the workspace is
-// 67 MB there, of which the upper-triangular blocks (34 MB) are written
-// once and read once by the scan (~0.02 ms at 3.35 TB/s). The
-// scan is a chain of K / 64 dependent blocks, each two CTA barriers, a
-// 64-step serial resolve and a round of loads: latency, not bytes.
+// Layout: the mask of an image is its upper-triangular 64 x 64 tiles
+// (rb, cb), cb >= rb, each 64 uint64 words (word t: row 64 rb + t, bit c:
+// column 64 cb + c), 512 contiguous bytes, packed row block by row block
+// (`tile_start`; `ops/nms_keep.large_tile_index` is the same order). The
+// caller allocates it with torch (B * nw (nw + 1) / 2 * 512 bytes), so a
+// CUDA-graph capture records it.
+//
+// Two launches on the caller's stream:
+//  1. nms_mask_kernel, a linear grid over the tiles of each image, four
+//     tiles a 256-thread CTA: the tile's 64 column boxes in shared memory,
+//     one row a thread, each row's word stored coalesced into the packed
+//     tile. Bit c is IoU(i, p) > thr for p = 64 cb + c > i, with row i and
+//     column p valid. A thread first marks the columns whose box can
+//     overlap its row's (four comparisons a pair, no arithmetic); then each
+//     lane runs the exact test on its own marked pairs, one a step, so the
+//     pairs that cannot pass cost no exact test and a step serves up to 32.
+//     A tile none of whose rows, or none of whose columns, is valid is
+//     skipped and never written: its rows are never kept and its columns
+//     start removed, so the scan has no use for it and never reads it.
+//  2. nms_scan_kernel, a cluster of kScanCluster CTAs an image, 8 warps a
+//     CTA. Word j of `removed` belongs to CTA j % C, and within it to warp
+//     (j / C) % 8, which keeps it in shared memory. The owner of word w
+//     resolves block w from its diagonal tile and publishes kept_w into
+//     every CTA of the cluster: an st.async into each CTA's shared memory
+//     that completes that CTA's mbarrier of block w, on which its warps
+//     wait asleep rather than polling. The resolve is a `__ffsll` loop over
+//     the boxes not yet removed (a step a kept box) where few are left, and
+//     64 unrolled steps on the rows in registers where many are. On kept_w,
+//     the owner of w + 1 first ORs tile (w, w + 1)'s kept rows into its
+//     word, resolves block w + 1 and publishes it: one broadcast and one
+//     on-chip resolve a block on the critical path. Every other word
+//     j > w + 1 ORs tile (w, j) after that, off the critical path. Each
+//     warp prefetches its tiles with cp.async into a ring of kRing blocks
+//     in shared memory, ahead of the resolve: their addresses do not depend
+//     on `kept`.
 
-constexpr int kTile = 64;  // rows and columns of a mask block; bits a word
-constexpr int kScanThreads = 256;
-// removed[] and the scan's static words within the 48 KB a launch may take
-// without an opt-in
-constexpr int kMaxWordsLarge = 6000;
+constexpr int kTile = 64;  // rows and columns of a tile; bits a word
+constexpr int kMaskThreads = 256;
+constexpr int kMaskTiles = kMaskThreads / kTile;  // tiles a mask CTA
+constexpr int kScanCluster = 8;                   // CTAs an image
+constexpr int kScanWarps = 8;
+constexpr int kScanThreads = 32 * kScanWarps;
+constexpr int kRing = 4;  // blocks of tiles a scan warp has in flight
+// the largest K: a scan warp's ring of 8 tiles a block within 227 KB
+constexpr int kMaxKLarge = 32768;
 
-__global__ void __launch_bounds__(kTile)
-nms_mask_kernel(const float4* __restrict__ boxes, uint64_t* __restrict__ mask, int K,
-                int nw, float thr) {
-  const int cb = blockIdx.x, rb = blockIdx.y, b = blockIdx.z;
-  if (cb < rb) return;  // below the diagonal: never read
-  __shared__ float4 sbox[kTile];
-  __shared__ float sarea[kTile];
-  const float4* bx = boxes + static_cast<size_t>(b) * K;
-  const int t = threadIdx.x;
-  const int p = cb * kTile + t;
-  if (p < K) {
-    const float4 v = bx[p];
-    sbox[t] = v;
-    sarea[t] = __fmul_rn(__fsub_rn(v.z, v.x), __fsub_rn(v.w, v.y));
-  }
-  const int i = rb * kTile + t;
-  const float4 bi = i < K ? bx[i] : make_float4(0.f, 0.f, 0.f, 0.f);
-  const float ai = __fmul_rn(__fsub_rn(bi.z, bi.x), __fsub_rn(bi.w, bi.y));
-  __syncthreads();
-  const Threshold th = make_threshold(thr);
-  const int ncol = min(kTile, K - cb * kTile);  // the same for every thread
-  uint64_t word = 0;
-  for (int c = 0; c < ncol; ++c)
-    if (suppresses(i < K && cb * kTile + c > i, bi, ai, sbox[c], sarea[c], th))
-      word |= 1ull << c;
-  if (i < K) mask[(static_cast<size_t>(b) * K + i) * nw + cb] = word;
+// the first tile of row block rb in the packed order
+__host__ __device__ __forceinline__ long long tile_start(int rb, int nw) {
+  return static_cast<long long>(rb) * nw - static_cast<long long>(rb) * (rb - 1) / 2;
 }
 
-__global__ void __launch_bounds__(kScanThreads)
+// the tile (rb, cb) at packed index idx: the last row block that starts at
+// or before it (from the quadratic's root, then corrected by whole steps)
+__device__ __forceinline__ void tile_at(long long idx, int nw, int& rb, int& cb) {
+  const double a = 2.0 * nw + 1.0;
+  int r = static_cast<int>(0.5 * (a - sqrt(a * a - 8.0 * static_cast<double>(idx))));
+  r = max(0, min(r, nw - 1));
+  while (r > 0 && tile_start(r, nw) > idx) --r;
+  while (r + 1 < nw && tile_start(r + 1, nw) <= idx) ++r;
+  rb = r;
+  cb = r + static_cast<int>(idx - tile_start(r, nw));
+}
+
+__global__ void __launch_bounds__(kMaskThreads)
+nms_mask_kernel(const float4* __restrict__ boxes, const unsigned char* __restrict__ valid,
+                uint64_t* __restrict__ mask, int K, int nw, long long ntiles, float thr) {
+  __shared__ float4 sbox[kMaskTiles][kTile];
+  __shared__ float sarea[kMaskTiles][kTile];
+  __shared__ uint32_t srow[kMaskTiles][2], scol[kMaskTiles][2];
+  const int b = blockIdx.y;
+  const int tl = threadIdx.x / kTile, t = threadIdx.x % kTile, lane = threadIdx.x % 32;
+  const long long idx = static_cast<long long>(blockIdx.x) * kMaskTiles + tl;
+  const bool in = idx < ntiles;  // the same for the tile's two warps
+  int rb = 0, cb = 0;
+  if (in) tile_at(idx, nw, rb, cb);
+  const float4* bx = boxes + static_cast<size_t>(b) * K;
+  const unsigned char* vb = valid + static_cast<size_t>(b) * K;
+  const int i = rb * kTile + t, p = cb * kTile + t;
+  const bool vi = in && i < K && vb[i] != 0;
+  const bool vp = in && p < K && vb[p] != 0;
+  float4 bi = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (vi) bi = bx[i];
+  const float ai = __fmul_rn(__fsub_rn(bi.z, bi.x), __fsub_rn(bi.w, bi.y));
+  if (vp) {
+    const float4 v = bx[p];
+    sbox[tl][t] = v;
+    sarea[tl][t] = __fmul_rn(__fsub_rn(v.z, v.x), __fsub_rn(v.w, v.y));
+  }
+  const uint32_t rw = __ballot_sync(kAll, vi), cw = __ballot_sync(kAll, vp);
+  if (lane == 0) {
+    srow[tl][t / 32] = rw;
+    scol[tl][t / 32] = cw;
+  }
+  __syncthreads();
+  const uint64_t rows = srow[tl][0] | static_cast<uint64_t>(srow[tl][1]) << 32;
+  const uint64_t cols = scol[tl][0] | static_cast<uint64_t>(scol[tl][1]) << 32;
+  if (!in || rows == 0 || cols == 0) return;  // skipped: the scan never reads it
+  const Threshold th = make_threshold(thr);
+  // the row's live columns: valid, and after the row on the diagonal tile
+  uint64_t live = vi ? cols : 0ull;
+  if (cb == rb) live &= t == kTile - 1 ? 0ull : ~0ull << (t + 1);
+  // 1. the columns whose box can overlap the row's: four comparisons a
+  //    pair, a filter that keeps every pair `suppresses` can count (a NaN
+  //    coordinate compares false, so it is kept too); below a threshold of
+  //    0 every live pair counts
+  uint64_t cand = live;
+  if (th.thr >= 0.0f) {
+    uint32_t half[2] = {0u, 0u};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int c = 0; c < 32; ++c) {
+        const float4 v = sbox[tl][32 * h + c];
+        if (!(bi.z <= v.x || v.z <= bi.x || bi.w <= v.y || v.w <= bi.y)) half[h] |= 1u << c;
+      }
+    }
+    cand &= static_cast<uint64_t>(half[1]) << 32 | half[0];
+  }
+  // 2. the exact test (`suppresses`, the plain version's bit for bit) on
+  //    the marked pairs: each lane takes its own next column, so a step
+  //    tests up to 32 pairs and the warp takes as many steps as its
+  //    busiest lane has marks
+  uint64_t word = 0;
+  while (__any_sync(kAll, cand != 0)) {
+    const bool has = cand != 0;
+    const int c = has ? __ffsll(static_cast<long long>(cand)) - 1 : 0;
+    cand &= cand - 1;
+    if (suppresses(has, bi, ai, sbox[tl][c], sarea[tl][c], th)) word |= 1ull << c;
+  }
+  mask[(static_cast<size_t>(b) * ntiles + idx) * kTile + t] = word;
+}
+
+// the scan's dynamic shared memory at nw words (see nms_scan_kernel)
+size_t scan_bytes(int nw) {
+  const int nq = (nw + kScanCluster - 1) / kScanCluster;
+  const int mmax = (nq + kScanWarps - 1) / kScanWarps;
+  return (static_cast<size_t>(kScanWarps) * kRing * mmax * kTile + 3 * nw + nq) * 8;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// an mbarrier of this CTA's shared memory that completes once: one arrival
+// (made here) and the 8 bytes of one st.async
+__device__ __forceinline__ void init_once_barrier(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], 8;\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// wait until that barrier completes (acquire at cluster scope: the 8 bytes
+// are visible after it); a lost store traps (a launch error) after ~2^22
+// tries instead of hanging
+__device__ __forceinline__ void wait_once_barrier(const uint64_t* bar) {
+  for (uint32_t tries = 0;; ++tries) {
+    uint32_t done;
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], 0;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar))
+        : "memory");
+    if (done) return;
+    if (tries == (1u << 22)) __trap();
+  }
+}
+
+// the shared::cluster address of `p` (this CTA's shared memory) in CTA rank
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, int rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(smem_u32(p)), "r"(rank));
+  return a;
+}
+
+// 8 bytes into another CTA's shared memory, completing its barrier there
+__device__ __forceinline__ void store_remote(uint32_t dst, uint64_t v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.u64 [%0], %1, [%2];\n"
+               ::"r"(dst), "l"(v), "r"(bar)
+               : "memory");
+}
+
+// OR of the tile's rows whose bit of `kept` is set: lane l holds rows 2 l
+// and 2 l + 1 (the 16 bytes it copied in), masked before the warp's OR
+__device__ __forceinline__ uint64_t or_kept(const uint64_t* tile, uint64_t kept, int lane) {
+  const ulonglong2 v = reinterpret_cast<const ulonglong2*>(tile)[lane];
+  const uint64_t x = (((kept >> (2 * lane)) & 1ull) ? v.x : 0ull) |
+                     (((kept >> (2 * lane + 1)) & 1ull) ? v.y : 0ull);
+  const uint32_t lo = __reduce_or_sync(kAll, static_cast<uint32_t>(x));
+  const uint32_t hi = __reduce_or_sync(kAll, static_cast<uint32_t>(x >> 32));
+  return static_cast<uint64_t>(hi) << 32 | lo;
+}
+
+// greedy within a block: each box not yet removed, in order, is kept and
+// removes what its row of the diagonal tile marks (only boxes after it).
+// Returns the block's removed word (kept = ~it). Few boxes left: one
+// `__ffsll` step (and one shared-memory load) a kept box. Many: the 64 rows
+// in registers and 64 unrolled steps of two dependent ALU operations, which
+// costs less than ~kSparse loads in a chain.
+constexpr int kSparse = 16;
+
+__device__ __forceinline__ uint64_t resolve(uint64_t removed, const uint64_t* diag) {
+  if (__popcll(~removed) > kSparse) {
+    uint64_t row[kTile];
+#pragma unroll
+    for (int t = 0; t < kTile; t += 2) {
+      const ulonglong2 v = reinterpret_cast<const ulonglong2*>(diag)[t / 2];
+      row[t] = v.x;
+      row[t + 1] = v.y;
+    }
+#pragma unroll
+    for (int t = 0; t < kTile; ++t)
+      if (!((removed >> t) & 1ull)) removed |= row[t];
+    return removed;
+  }
+  uint64_t live = ~removed;
+  while (live) {
+    const int t = __ffsll(static_cast<long long>(live)) - 1;
+    removed |= diag[t];
+    live = ~removed & (~1ull << t);
+  }
+  return removed;
+}
+
+__global__ void __cluster_dims__(kScanCluster, 1, 1) __launch_bounds__(kScanThreads, 1)
 nms_scan_kernel(const uint64_t* __restrict__ mask, const unsigned char* __restrict__ valid,
                 unsigned char* __restrict__ keep, int K, int nw) {
-  extern __shared__ uint64_t removed[];  // nw words
-  __shared__ uint64_t diag[2][kTile];    // diagonal words of a block's rows
-  __shared__ uint64_t kept_s;
-  __shared__ int nw_eff;                 // words up to the last valid box
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  // ring[warp][kRing][mmax][64] (tiles a warp prefetched), vword[nw] (valid
+  // bits of each word), kept_s[nw] (each block's kept bits, written by its
+  // owner), rem[nq] (`removed` of this CTA's words), bar[nw] (an mbarrier
+  // a block: kept_s[w] has arrived)
+  extern __shared__ __align__(16) uint64_t scan_smem[];
+  __shared__ int nwe_s;  // words up to the last valid box
+  const int nq = (nw + kScanCluster - 1) / kScanCluster;
+  const int mmax = (nq + kScanWarps - 1) / kScanWarps;
+  uint64_t* ring = scan_smem;
+  uint64_t* vword = ring + static_cast<size_t>(kScanWarps) * kRing * mmax * kTile;
+  uint64_t* kept_s = vword + nw;
+  uint64_t* rem = kept_s + nw;
+  uint64_t* bar = rem + nq;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int r = static_cast<int>(cluster.block_rank());
+  const int b = blockIdx.x / kScanCluster;
+  const int tid = threadIdx.x, lane = tid % 32, g = tid / 32;
+  const long long ntiles = static_cast<long long>(nw) * (nw + 1) / 2;
+  const uint64_t* mb = mask + static_cast<size_t>(b) * ntiles * kTile;
   const unsigned char* vb = valid + static_cast<size_t>(b) * K;
-  const uint64_t* mb = mask + static_cast<size_t>(b) * K * nw;
 
-  // removed = the invalid boxes (and the bits past K): a word a warp
-  if (tid == 0) nw_eff = 0;
-  __syncthreads();
-  for (int j = warp; j < nw; j += kScanThreads / 32) {
-    const int p0 = kTile * j + lane, p1 = p0 + 32;
-    const uint32_t lo = __ballot_sync(kAll, p0 < K && vb[p0] != 0);
-    const uint32_t hi = __ballot_sync(kAll, p1 < K && vb[p1] != 0);
-    const uint64_t v = (static_cast<uint64_t>(hi) << 32) | lo;
-    if (lane == 0) {
-      removed[j] = ~v;
-      if (v) atomicMax(&nw_eff, j + 1);
+  // every barrier of the cluster is set up before any CTA stores into it:
+  // the cluster barrier's arrive here, its wait before the first publish
+  for (int j = tid; j < nw; j += kScanThreads) init_once_barrier(bar + j);
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  if (tid == 0) nwe_s = 0;
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+
+  // the valid bits of every word (each CTA its own copy), 32 a ballot
+  uint32_t* vhalf = reinterpret_cast<uint32_t*>(vword);
+  for (int p0 = 0; p0 < nw * kTile; p0 += kScanThreads) {
+    if (p0 + 32 * g < nw * kTile) {  // the same for the whole warp
+      const int p = p0 + tid;
+      const uint32_t bits = __ballot_sync(kAll, p < K && vb[p] != 0);
+      if (lane == 0) vhalf[p / 32] = bits;
     }
   }
   __syncthreads();
-  const int nwe = nw_eff;
-  if (tid < kTile && nwe > 0) diag[0][tid] = tid < K ? mb[static_cast<size_t>(tid) * nw] : 0;
+  for (int j = tid; j < nw; j += kScanThreads)
+    if (vword[j]) atomicMax(&nwe_s, j + 1);
+  // invalid boxes, and the bits past K, start removed
+  for (int q = tid; q < nq && q * kScanCluster + r < nw; q += kScanThreads)
+    rem[q] = ~vword[q * kScanCluster + r];
   __syncthreads();
+  const int nwe = nwe_s;
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 
-  for (int w = 0; w < nwe; ++w) {
-    if (tid == 0) {  // the block alone: each box not yet removed is kept
-      uint64_t r = removed[w];
-#pragma unroll
-      for (int t = 0; t < kTile; ++t)
-        if (!((r >> t) & 1ull)) r |= diag[w & 1][t];
-      removed[w] = r;
-      kept_s = ~r;
+  // this warp's words: j(m) = (g + 8 m) C + r, increasing in m; `last` is
+  // the largest below nwe (words past it stay removed)
+  auto word_of = [&](int m) { return (g + kScanWarps * m) * kScanCluster + r; };
+  int last = -1;
+  for (int m = 0; word_of(m) < nwe; ++m) last = word_of(m);
+  uint64_t* my_ring = ring + static_cast<size_t>(g) * kRing * mmax * kTile;
+  auto slot = [&](int v, int m) {
+    return my_ring + (static_cast<size_t>(v % kRing) * mmax + m) * kTile;
+  };
+  // the tiles (v, j) of this warp's words j >= v, skipping those the mask
+  // kernel skipped; one cp.async group a block, empty or not
+  auto prefetch = [&](int v) {
+    if (v <= last && vword[v] != 0) {
+      for (int m = 0; word_of(m) <= last; ++m) {
+        const int j = word_of(m);
+        if (j >= v && vword[j] != 0)
+          cp_async16(slot(v, m) + 2 * lane,
+                     mb + (tile_start(v, nw) + (j - v)) * kTile + 2 * lane);
+      }
     }
-    __syncthreads();
-    const uint64_t kept = kept_s;
-    if (tid < kTile && w + 1 < nwe) {  // the next block's diagonal words
-      const int i = kTile * (w + 1) + tid;
-      diag[(w + 1) & 1][tid] = i < K ? mb[static_cast<size_t>(i) * nw + w + 1] : 0;
+    cp_async_commit();
+  };
+  // kept_w into every CTA of the cluster: lane d stores it into CTA d's
+  // kept_s[w], completing CTA d's barrier of block w
+  const uint32_t dst_kept = cluster_addr(kept_s, lane % kScanCluster);
+  const uint32_t dst_bar = cluster_addr(bar, lane % kScanCluster);
+  auto publish = [&](int w, uint64_t kept) {
+    if (lane < kScanCluster) store_remote(dst_kept + 8 * w, kept, dst_bar + 8 * w);
+  };
+
+  if (last >= 0) {
+    for (int v = 0; v < kRing; ++v) prefetch(v);
+    if (r == 0 && g == 0) {  // block 0: word 0 is this warp's first
+      cp_async_wait<kRing - 1>();
+      __syncwarp();
+      const uint64_t x = resolve(rem[0], slot(0, 0));
+      rem[0] = x;
+      publish(0, ~x);
     }
-    // words past the last valid box stay removed: no need to OR them
-    for (int j = w + 1 + tid; kept && j < nwe; j += kScanThreads) {
-      const uint64_t* col = mb + static_cast<size_t>(kTile) * w * nw + j;
-      uint64_t acc = 0;
-#pragma unroll
-      for (int t = 0; t < kTile; ++t)
-        if ((kept >> t) & 1ull) acc |= col[static_cast<size_t>(t) * nw];
-      removed[j] |= acc;
+    int m0 = 0;  // this warp's first word after w
+    for (int w = 0; w < last; ++w) {
+      while (word_of(m0) <= w) ++m0;
+      cp_async_wait<kRing - 2>();  // blocks w and w + 1 are in
+      __syncwarp();
+      wait_once_barrier(bar + w);
+      const uint64_t kw = kept_s[w];
+      // word w + 1 first, if it is this warp's: its resolve is the next
+      // step of the chain; then the others
+      for (int m = m0; word_of(m) <= last; ++m) {
+        const int j = word_of(m), q = g + kScanWarps * m;
+        uint64_t x = rem[q];
+        if (kw != 0 && vword[j] != 0) x |= or_kept(slot(w, m), kw, lane);
+        if (j == w + 1) {
+          x = resolve(x, slot(w + 1, m));
+          publish(j, ~x);
+        }
+        rem[q] = x;  // the same value from every lane
+      }
+      __syncwarp();  // slot w % kRing is read: refill it
+      prefetch(w + kRing);
     }
-    __syncthreads();
   }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  // every block's kept bits have landed here before the CTA may leave
+  if (g == 0)
+    for (int w = lane; w < nwe; w += 32) wait_once_barrier(bar + w);
+
+  // keep[p] = not removed, for every word of this warp: lane l writes
+  // boxes 2 l and 2 l + 1 of the word
   unsigned char* out = keep + static_cast<size_t>(b) * K;
-  for (int p = tid; p < K; p += kScanThreads)
-    out[p] = !((removed[p / kTile] >> (p % kTile)) & 1ull);
+  for (int m = 0; word_of(m) < nw; ++m) {
+    const int j = word_of(m);
+    const uint64_t x = rem[g + kScanWarps * m];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int p = kTile * j + 2 * lane + e;
+      if (p < K) out[p] = !((x >> (2 * lane + e)) & 1ull);
+    }
+  }
+  // no CTA leaves while another may still write into its shared memory
+  cluster.sync();
 }
 
 }  // namespace
@@ -424,19 +685,36 @@ extern "C" int nms_keep_mask(const void* boxes, const void* valid, void* keep,
 }
 
 // K1L: boxes (B, K, 4) fp32, valid (B, K) bool, keep (B, K) bool, mask a
-// (B, K, ceil(K / 64)) uint64 workspace, all on the device; two launches on
-// `stream`, no allocation, no synchronisation
+// workspace of B * nw (nw + 1) / 2 packed 512-byte tiles (nw = ceil(K /
+// 64)), all on the device; two launches on `stream`, no allocation, no
+// synchronisation
 extern "C" int nms_keep_mask_large(const void* boxes, const void* valid, void* keep,
                                    void* mask, int B, int K, float thr, void* stream) {
-  const int nw = (K + kTile - 1) / kTile;
-  if (K < 1 || nw > kMaxWordsLarge || B < 1 || B > 65535)
+  if (K < 1 || K > kMaxKLarge || B < 1 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  nms_mask_kernel<<<dim3(nw, nw, B), kTile, 0, s>>>(
-      static_cast<const float4*>(boxes), static_cast<uint64_t*>(mask), K, nw, thr);
-  const cudaError_t err = cudaGetLastError();
+  const int nw = (K + kTile - 1) / kTile;
+  // the scan's shared-memory opt-in for the largest K, once per device (a
+  // host call, kept out of the launches a CUDA graph captures)
+  static std::atomic<unsigned> opted_in{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  nms_scan_kernel<<<B, kScanThreads, nw * sizeof(uint64_t), s>>>(
+  if (dev < 0 || dev >= 32) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!(opted_in.load() & (1u << dev))) {
+    err = cudaFuncSetAttribute(nms_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(scan_bytes((kMaxKLarge + kTile - 1) / kTile)));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted_in.fetch_or(1u << dev);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long ntiles = static_cast<long long>(nw) * (nw + 1) / 2;
+  nms_mask_kernel<<<dim3(static_cast<unsigned>((ntiles + kMaskTiles - 1) / kMaskTiles), B),
+                    kMaskThreads, 0, s>>>(
+      static_cast<const float4*>(boxes), static_cast<const unsigned char*>(valid),
+      static_cast<uint64_t*>(mask), K, nw, ntiles, thr);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  nms_scan_kernel<<<B * kScanCluster, kScanThreads, scan_bytes(nw), s>>>(
       static_cast<const uint64_t*>(mask), static_cast<const unsigned char*>(valid),
       static_cast<unsigned char*>(keep), K, nw);
   return static_cast<int>(cudaGetLastError());

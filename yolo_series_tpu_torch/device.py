@@ -7,7 +7,8 @@ explicit `device` and runs on CUDA unless the caller asks for the CPU.
 
 from __future__ import annotations
 
-from typing import Optional, Union
+import contextlib
+from typing import Iterator, Optional, Union
 
 import torch
 
@@ -26,3 +27,28 @@ def device(name: Optional[Union[str, torch.device]] = None) -> torch.device:
     if d.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {d}")
     return d
+
+
+@contextlib.contextmanager
+def full_fp32(enabled: bool = True) -> Iterator[None]:
+    """Inside, when `enabled`: cuDNN convolutions and CUDA matmuls in full
+    fp32, not TF32.
+
+    Torch's default lets cuDNN run fp32 convolutions in TF32 (about three
+    decimal digits); the JAX package computes fp32 in fp32. The entry
+    points that promise an fp32 forward run it in here, whatever the
+    caller's global flags are; both flags are restored on the way out.
+    Not enabled (a bf16 forward), the flags are left alone.
+    """
+    if not enabled:
+        yield
+        return
+    cudnn = torch.backends.cudnn.allow_tf32
+    matmul = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn
+        torch.backends.cuda.matmul.allow_tf32 = matmul

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from yolo_series_tpu_torch.device import device as _device
+from yolo_series_tpu_torch.device import full_fp32
 from yolo_series_tpu_torch.eval.metrics import (ConfusionMatrix, ap_per_class,
                                                 fitness, match_predictions)
 from yolo_series_tpu_torch.models.model import apply_model, tree_map
@@ -98,7 +99,8 @@ def evaluate(plan, params, state, loader, *,
     native image space, reference test.py:147-153); save_hybrid feeds the
     ground-truth boxes into NMS as conf-1.0 candidates for hybrid
     auto-labelling (test.py:124, general.py:656-662). device: the card
-    unless "cpu" is asked for.
+    unless "cpu" is asked for. An fp32 compute_dtype runs the forward in
+    full fp32 (`device.full_fp32`: no TF32), whatever the global flags.
 
     Returns a dict with mp, mr, map50, map, per-class ap, speed, fitness.
     """
@@ -129,8 +131,9 @@ def evaluate(plan, params, state, loader, *,
             # uint8 ships to the device and normalizes there, in fp32;
             # apply_model casts to compute_dtype
             x = torch.from_numpy(np.ascontiguousarray(imgs)).to(dev)
-            out, _ = apply_model(plan, params, state, x.float() / 255.0,
-                                 dtype=compute_dtype)
+            with full_fp32(compute_dtype == torch.float32):
+                out, _ = apply_model(plan, params, state, x.float() / 255.0,
+                                     dtype=compute_dtype)
             pred = out["pred"]
             sync()
             t1 = time.perf_counter()

@@ -24,6 +24,7 @@ import torch
 
 from yolo_series_tpu_torch.data.augment import letterbox
 from yolo_series_tpu_torch.device import device as _device
+from yolo_series_tpu_torch.device import full_fp32
 from yolo_series_tpu_torch.eval.evaluator import scale_coords_np
 from yolo_series_tpu_torch.infer.serving import place, serving_transforms
 from yolo_series_tpu_torch.models.faststem import make_fast_stem
@@ -86,11 +87,13 @@ class Detector:
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B, H, W, 3) fp32 in [0, 1] -> (B, A, no) decoded predictions
         of the model and of the ensemble's other models, concatenated
-        (reference Ensemble, experimental.py:69-81)."""
-        preds = [apply_model(self.plan, self.params, self.state, x,
-                             dtype=self.dtype)[0]["pred"]]
-        for eplan, ep, es in self.extra:
-            preds.append(apply_model(eplan, ep, es, x, dtype=self.dtype)[0]["pred"])
+        (reference Ensemble, experimental.py:69-81). In fp32 without TF32
+        (`device.full_fp32`), whatever the global flags."""
+        with full_fp32(self.dtype == torch.float32):
+            preds = [apply_model(self.plan, self.params, self.state, x,
+                                 dtype=self.dtype)[0]["pred"]]
+            for eplan, ep, es in self.extra:
+                preds.append(apply_model(eplan, ep, es, x, dtype=self.dtype)[0]["pred"])
         return torch.cat(preds, dim=1)
 
     def __call__(self, images) -> List[np.ndarray]:

@@ -7,7 +7,10 @@ mask of exact sequential greedy NMS over score-sorted boxes, for any K. On
 a CUDA tensor it launches a kernel of `csrc/nms_keep.cu`: K1 for K <= 1024
 (a cluster of CTAs per image builds the suppression bitmask in shared
 memory, one warp scans it), K1L above that (`nms_keep_mask_large`: a mask
-kernel over all SMs into device memory, then one CTA an image scans it).
+kernel writes the upper-triangular 64 x 64 tiles of the suppression mask,
+packed, into a workspace in device memory; a cluster of CTAs an image
+scans it, each block resolved by the owner of its word and broadcast
+through distributed shared memory).
 On a CPU tensor it runs `nms_keep_mask_plain`, the whole-matrix fixpoint
 of `ops/nms.nms_keep_mask_full` in the JAX package. All run to
 convergence, so they agree on any suppression-chain depth; the Pallas
@@ -26,7 +29,8 @@ from yolo_series_tpu_torch.ops import _build
 from yolo_series_tpu_torch.ops.boxes import box_iou
 
 MAX_K = 1024  # K1's shared-memory capacity (16 B per box); K1L above it
-MAX_K_LARGE = 6000 * 64  # K1L's `removed` words within 48 KB of shared memory
+MAX_K_LARGE = 32768  # K1L's scan: each warp's ring of tiles within 227 KB
+TILE = 64  # K1L's tile: 64 rows of one uint64 word, 512 bytes
 
 
 @functools.cache
@@ -48,6 +52,28 @@ def _entry_large():
                                            ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def large_tiles(k: int) -> int:
+    """Tiles of K1L's packed mask an image: the upper triangle (cb >= rb)
+    of the nw x nw grid of 64 x 64 tiles, nw = ceil(k / 64)."""
+    nw = -(-k // TILE)
+    return nw * (nw + 1) // 2
+
+
+def large_tile_index(rb: int, cb: int, k: int) -> int:
+    """Packed index of tile (rb, cb), rb <= cb, in an image's K1L mask: row
+    block by row block (`tile_start` in csrc/nms_keep.cu)."""
+    nw = -(-k // TILE)
+    if not 0 <= rb <= cb < nw:
+        raise ValueError(f"tile ({rb}, {cb}) is not in the upper triangle of {nw} x {nw}")
+    return rb * nw - rb * (rb - 1) // 2 + (cb - rb)
+
+
+def large_workspace_bytes(b: int, k: int) -> int:
+    """Bytes of K1L's packed mask for b images of k boxes: 33.8 MB at
+    b = 8, k = 8192."""
+    return b * large_tiles(k) * TILE * 8
 
 
 def nms_keep_mask_plain(boxes: torch.Tensor, valid: torch.Tensor,
@@ -93,9 +119,9 @@ def _check(boxes: torch.Tensor, valid: torch.Tensor) -> bool:
 def nms_keep_mask_large(boxes: torch.Tensor, valid: torch.Tensor,
                         iou_threshold: float) -> torch.Tensor:
     """The keep mask for any K up to MAX_K_LARGE with K1L (two launches:
-    the (B, K, ceil(K / 64)) uint64 suppression mask, allocated here (67 MB
-    at B = 8, K = 8192; the mask kernel writes its upper-triangular blocks,
-    34 MB), then the scan). The CPU takes the plain version."""
+    the packed upper-triangular suppression mask into a workspace allocated
+    here, `large_workspace_bytes`, then the scan). The CPU takes the plain
+    version."""
     if _check(boxes, valid):
         return nms_keep_mask_plain(boxes, valid, iou_threshold)
     b, k, _ = boxes.shape
@@ -103,7 +129,8 @@ def nms_keep_mask_large(boxes: torch.Tensor, valid: torch.Tensor,
         raise ValueError(f"K={k} > {MAX_K_LARGE}, the largest K1L takes")
     boxes = boxes.contiguous()
     valid = valid.contiguous()
-    mask = torch.empty((b, k, (k + 63) // 64), dtype=torch.int64, device=boxes.device)
+    mask = torch.empty(large_workspace_bytes(b, k) // 8, dtype=torch.int64,
+                       device=boxes.device)
     keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
     _build.check(_entry_large()(boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(),
                                 mask.data_ptr(), b, k, float(iou_threshold),
