@@ -106,6 +106,7 @@ if Path(yolo_series_tpu_torch.__file__).resolve().parent != ROOT / "yolo_series_
 
 from yolo_series_tpu_torch.data.augment import letterbox
 from yolo_series_tpu_torch.device import full_fp32
+from yolo_series_tpu_torch.eval import evaluator
 from yolo_series_tpu_torch.eval.evaluator import evaluate, scale_coords_np
 from yolo_series_tpu_torch.infer import quant
 from yolo_series_tpu_torch.infer.detector import Detector
@@ -345,14 +346,15 @@ def plain_nms():
 def eval_candidates(m, images, conf_thres=0.001, iou_thres=0.65, max_nms=8192):
     """The keep-mask inputs (score-sorted class-offset boxes, valid) of
     `evaluate`'s NMS on `images`: the fp32 forward of the fused model, then
-    `batched_nms` multi-label with `max_nms` candidates, as eval runs it."""
+    `batched_nms` multi-label with `max_nms` candidates, as eval runs it
+    (the forward pinned to full fp32 as `evaluate` pins it)."""
     got = []
 
     def grab(boxes, valid, thr):
         got.append((boxes.clone(), valid.clone()))
         return torch.zeros_like(valid)
 
-    with torch.inference_mode(), keep_mask(grab):
+    with torch.inference_mode(), keep_mask(grab), full_fp32():
         x = torch.from_numpy(images).to(m.dev).float() / 255.0
         out, _ = apply_model(m.plan, m.params, m.state, x, dtype=torch.float32)
         batched_nms(out["pred"], conf_thres=conf_thres, iou_thres=iou_thres,
@@ -485,7 +487,7 @@ def check_k1l(dev, rows, m):
     rows["K1L"] = dict(max_abs_err=0.0, ms=ev["ms"], plain_ms=ev["plain_ms"],
                        bound_ms=ev["bound_ms"], bound_by=ev["bound_by"], library_ms=lib_ms,
                        graph_ms=ev["graph_ms"], design_floor_ms=ev["design_floor_ms"],
-                       workspace_bytes=ev["workspace_bytes"], peak_bytes=ev["peak_bytes"])
+                       peak_bytes=ev["peak_bytes"])
     rows["k1l_runs"] = runs
 
 
@@ -1588,14 +1590,36 @@ def eval_batches(m, batch=BATCH, n_images=16):
 
 @contextlib.contextmanager
 def global_tf32(on: bool):
-    """Inside: torch's global TF32 flags for cuDNN and the matmuls set to
-    `on` (True is torch's default for cuDNN); restored after."""
-    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = on
+    """Inside: torch's global TF32 flag for cuDNN set to `on` (True is
+    torch's default) and the matmul precision to "high" (TF32) or
+    "highest"; restored after."""
+    saved = torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision()
+    torch.backends.cudnn.allow_tf32 = on
+    torch.set_float32_matmul_precision("high" if on else "highest")
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+        torch.backends.cudnn.allow_tf32 = saved[0]
+        torch.set_float32_matmul_precision(saved[1])
+
+
+@contextlib.contextmanager
+def first_pred():
+    """Inside: the `pred` of the first forward `evaluate` runs is appended
+    (a clone) to the list this yields."""
+    got, real = [], evaluator.apply_model
+
+    def grab(*args, **kwargs):
+        out = real(*args, **kwargs)
+        if not got:
+            got.append(out[0]["pred"].clone())
+        return out
+
+    evaluator.apply_model = grab
+    try:
+        yield got
+    finally:
+        evaluator.apply_model = real
 
 
 # kernel-name groups of eval's NMS on the card: the stable sorts of the
@@ -1635,23 +1659,26 @@ def evaluation(dev, m, batch=BATCH, n_images=16):
     batches of 8). Counted: K1L once a batch (8192 candidates); map50 /
     map / mp / mr equal those of the same run with the plain keep-mask, and
     those of a run with the global TF32 flags at torch's defaults (on):
-    `evaluate` pins full fp32 itself. Logged beside: one batch's fp32
+    `evaluate` pins full fp32 itself. Its first batch's fp32 pred is
+    bit-equal in those two runs, and (on the card) the same forward without
+    the pin under TF32 differs from it. Logged beside: one batch's fp32
     forward timed with TF32 on and off (what the pin costs), and the NMS ms
     of one batch split into the stable sort, K1L and the packing."""
     batches = eval_batches(m, batch, n_images)
     log(f"eval: {n_images} images in {len(batches)} batches of {batch} "
         f"({[b['images'].shape[1:3] for b in batches]}), fp32, global cuDNN TF32 "
-        f"{torch.backends.cudnn.allow_tf32}, matmul TF32 "
-        f"{torch.backends.cuda.matmul.allow_tf32}")
+        f"{torch.backends.cudnn.allow_tf32}, matmul precision "
+        f"{torch.get_float32_matmul_precision()}")
     zero_counts()
-    got = evaluate(m.plan, m.params, m.state, batches, device=dev)
+    with first_pred() as pred_off:
+        got = evaluate(m.plan, m.params, m.state, batches, device=dev)
     counts = read_counts()
     want = {kid: 0 for kid in COUNTED} | {"K1L": len(batches)}
     if dev.type == "cuda" and counts != want:
         raise AssertionError(f"eval: launch counts {counts}, want {want}")
     with plain_nms():
         plain = evaluate(m.plan, m.params, m.state, batches, device=dev)
-    with global_tf32(True):
+    with global_tf32(True), first_pred() as pred_on:
         tf32 = evaluate(m.plan, m.params, m.state, batches, device=dev)
     log(f"eval: map50 {got['map50']:.6f}, map {got['map']:.6f} (plain keep-mask "
         f"{plain['map50']:.6f}, {plain['map']:.6f}; global TF32 on {tf32['map50']:.6f}, "
@@ -1679,16 +1706,30 @@ def evaluation(dev, m, batch=BATCH, n_images=16):
                 with global_tf32(on):
                     fwd_ms["tf32_on" if on else "tf32_off"] = cuda_ms(forward, iters=10)
         pred = forward()[0]["pred"]
+        # the pin at the forward's output: evaluate's first batch is
+        # bit-equal with the global TF32 on and off; the control, the same
+        # forward unpinned with TF32 on, is not (on the card)
+        with global_tf32(True):
+            unpinned = forward()[0]["pred"]
+        tf32_err = float((unpinned - pred_off[0]).abs().max())
+        if not torch.equal(pred_on[0], pred_off[0]):
+            raise AssertionError("eval: evaluate's fp32 pred differs with the global TF32 on: "
+                                 "the fp32 pin does not hold")
+        if dev.type == "cuda" and tf32_err == 0.0:
+            raise AssertionError("eval: the unpinned forward with TF32 on equals the pinned "
+                                 "one: the pin check cannot fail")
         split = nms_split_ms(pred, conf_thres=0.001, iou_thres=0.65, multi_label=True,
                              max_nms=EVAL_NMS)
     per_image = None if split is None else {k: v / batch for k, v in split.items()}
+    log(f"eval: evaluate's fp32 pred of batch 0 bit-equal with the global TF32 on and off; "
+        f"the unpinned forward with TF32 on differs by up to {tf32_err:.6g}")
     log(f"eval: fp32 forward of one batch of {batch}: TF32 on {fwd_ms.get('tf32_on')} ms, "
         f"off (the pin) {fwd_ms.get('tf32_off')} ms; NMS device ms an image by group "
         f"{per_image}")
     return {"launches": counts, "map50": got["map50"], "map": got["map"],
             "speed_ms": got["speed_ms"], "plain_nms_ms": plain["speed_ms"]["nms"],
             "tf32_on_map50": tf32["map50"], "forward_ms_bs8": fwd_ms,
-            "nms_ms_an_image": per_image}
+            "unpinned_tf32_pred_max_abs_err": tf32_err, "nms_ms_an_image": per_image}
 
 
 # substrings of the names of cuDNN's convolution kernels
@@ -1796,7 +1837,7 @@ def main() -> int:
     dev = torch.device("cuda")
     # fp32 comparisons run in full fp32, not TF32
     torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
     card = smi()
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}; card: {card}")
@@ -1843,9 +1884,8 @@ def main() -> int:
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
         if kid in ("K1", "K1L"):   # one call above; the same call by graph replay
             kernels[-1]["graph_ms"] = r["graph_ms"]
-        if kid == "K1L":
-            kernels[-1].update(workspace_bytes=r["workspace_bytes"],
-                               peak_bytes=r["peak_bytes"])
+        if kid == "K1L":   # measured: one call's peak allocation
+            kernels[-1]["peak_bytes"] = r["peak_bytes"]
     keys = ("replays", "img_s", "device_ms_bs8", "replay_ms_bs8", "eager_ms_bs8", "p50_ms_bs8",
             "p50_ms_bs1", "host_ms_infer_async", "enqueue_ms_bs8", "profile",
             "profile_eager", "feature_rms_err", "feature_rms_err_cudnn_bf16",

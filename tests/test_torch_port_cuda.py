@@ -18,6 +18,7 @@ from yolo_series_tpu_torch.ops import conv_silu
 from yolo_series_tpu_torch.ops import fused_elan as fe
 from yolo_series_tpu_torch.ops import fused_stem as fs
 from yolo_series_tpu_torch.ops import int8_mm, nms_keep
+from yolo_series_tpu_torch.ops.boxes import box_iou
 
 pytestmark = pytest.mark.cuda
 
@@ -27,7 +28,7 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
     torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
     return torch.device("cuda")
 
 
@@ -179,19 +180,44 @@ LARGE_CASES = ([("chain", 1, k) for k in (1025, 2047, 4096)]
                   ("all_invalid_rows", 8, 2047), ("all_invalid_rows", 8, 8192),
                   ("threshold_ties", 8, 1025), ("threshold_ties", 1, 4096),
                   ("chain_groups", 32, 8192), ("chain_groups", 1, 32768),
-                  ("tile_holes", 8, 4096), ("tile_holes", 8, 8192)])
+                  ("tile_holes", 8, 4096), ("tile_holes", 8, 8192),
+                  ("chain_groups", 1, 65536), ("tile_holes", 2, 65536),
+                  ("chain_groups", 1, nms_keep.MAX_K_LARGE)])
+
+
+def _plain_by_chunks(boxes, valid, thr, chunk=8192):
+    """Sequential greedy NMS a chunk of boxes at a time, for K whose (K, K)
+    matrices the plain version cannot hold: the boxes of a chunk that a
+    kept box of an earlier chunk suppresses (`box_iou` > thr, as the plain
+    version tests it) start invalid, then the plain version resolves the
+    chunk."""
+    b, k = valid.shape
+    keep = torch.zeros_like(valid)
+    for s in range(0, k, chunk):
+        e = min(s + chunk, k)
+        v = valid[:, s:e].clone()
+        for i in range(b):
+            prev = boxes[i, :s][keep[i, :s]]
+            for q in range(0, len(prev), chunk):
+                v[i] &= ~(box_iou(prev[q:q + chunk], boxes[i, s:e]) > thr).any(0)
+        keep[:, s:e] = nms_keep.nms_keep_mask_plain(boxes[:, s:e], v, thr)
+    return keep
 
 
 @pytest.mark.parametrize("name,b,k", LARGE_CASES,
                          ids=[f"{n}_B{b}_K{k}" for n, b, k in LARGE_CASES])
 def test_nms_keep_large_kernel_equals_plain(cuda, name, b, k):
-    """K1L at K = 1025, 2047, 4096, 8192 and 32768 (its largest, where the
-    scan's ring needs opt-in shared memory), B = 1, 8 and 32 (more clusters
-    than the card holds at once): deep chains (one K-deep, and the 64-long
-    overlapping chains of chip_smoke.py), rows with no valid box, whole
-    64-row tiles with no valid box (the tiles the mask kernel skips), and
-    pairs at exactly the threshold; bit-equal to the plain version, one K1L
-    launch each (the threshold case at thr 0.5)."""
+    """K1L at K = 1025, 2047, 4096, 8192, 32768 (the largest whose scan
+    prefetches every tile), 65536 and MAX_K_LARGE (384000: the scan's later
+    words read their tiles from device memory), B = 1, 2, 8 and 32 (more
+    clusters than the card holds at once): deep chains (one K-deep, and the
+    64-long overlapping chains of chip_smoke.py), rows with no valid box,
+    whole 64-row tiles with no valid box (the tiles the mask kernel skips),
+    and pairs at exactly the threshold; bit-equal to the plain version, one
+    K1L launch each (the threshold case at thr 0.5). Above K = 32768 the
+    plain version runs a chunk at a time (`_plain_by_chunks`, itself held
+    to the plain version on the first 8192 boxes, with which greedy's mask
+    starts whatever follows)."""
     rng = np.random.default_rng(k + b)
     boxes, valid = _large_case(name, rng, b, k)
     thr = 0.5 if name == "threshold_ties" else 0.45
@@ -200,10 +226,17 @@ def test_nms_keep_large_kernel_equals_plain(cuda, name, b, k):
     got = nms_keep.nms_keep_mask(boxes, valid, thr)
     torch.cuda.synchronize()
     assert nms_keep.nms_keep_mask_large.launches == before + 1
-    # the plain version 8 images at a time: its (B, K, K) matrices of 32
-    # images at K = 8192 do not fit the card
-    want = torch.cat([nms_keep.nms_keep_mask_plain(boxes[i:i + 8], valid[i:i + 8], thr)
-                      for i in range(0, b, 8)])
+    if k > 32768:
+        head = nms_keep.nms_keep_mask_plain(boxes[:, :8192], valid[:, :8192], thr)
+        assert torch.equal(got[:, :8192], head)
+        assert torch.equal(_plain_by_chunks(boxes[:, :8192], valid[:, :8192], thr,
+                                            chunk=2048), head)
+        want = _plain_by_chunks(boxes, valid, thr)
+    else:
+        # the plain version 8 images at a time: its (B, K, K) matrices of
+        # 32 images at K = 8192 do not fit the card
+        want = torch.cat([nms_keep.nms_keep_mask_plain(boxes[i:i + 8], valid[i:i + 8], thr)
+                          for i in range(0, b, 8)])
     assert torch.equal(got, want)
     if name == "chain":
         assert got[0].tolist() == [i % 2 == 0 for i in range(k)]

@@ -254,19 +254,26 @@ def test_evaluate_refuses_what_is_not_ported(eval_setup):
         tev.evaluate(tplan, tp, ts, batches, plots_dir="x", device="cpu")
 
 
-@pytest.mark.parametrize("start", [True, False], ids=["tf32_on", "tf32_off"])
+@pytest.mark.parametrize("start", [(True, "high"), (False, "highest"), (True, "medium")],
+                         ids=["tf32_on", "tf32_off", "tf32_medium"])
 def test_fp32_entry_points_pin_full_fp32(eval_setup, monkeypatch, start):
     """`evaluate(compute_dtype=torch.float32)` and an fp32 `Detector` run
-    their forward with cuDNN's and the matmuls' TF32 off, whatever the
-    caller's global flags, and leave both flags as they found them; in
-    bf16 neither touches them."""
+    their forward with cuDNN's TF32 off and the matmul precision at
+    "highest", whatever the caller's global flags, and leave cuDNN's flag
+    and the matmul precision as they found them (a "medium" precision too,
+    which reads as TF32 on through the matmuls' boolean flag); in bf16
+    neither touches them."""
     from yolo_series_tpu_torch.infer import detector as tdet
 
     *_, tplan, tp, ts, batches = eval_setup
     seen = []
 
     def flags():
-        return torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        return torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision()
+
+    def set_flags(cudnn, matmul):
+        torch.backends.cudnn.allow_tf32 = cudnn
+        torch.set_float32_matmul_precision(matmul)
 
     def record(module):
         real = module.apply_model
@@ -282,14 +289,52 @@ def test_fp32_entry_points_pin_full_fp32(eval_setup, monkeypatch, start):
     image = np.random.default_rng(3).integers(0, 256, (100, 150, 3), np.uint8)
     saved = flags()
     try:
-        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = start
+        set_flags(*start)
         for dtype in (torch.float32, torch.bfloat16):
             seen.clear()
             tev.evaluate(tplan, tp, ts, batches[:1], compute_dtype=dtype, device="cpu")
-            assert flags() == (start, start)
+            assert flags() == start
             tdet.Detector(tplan, tp, ts, img_size=128, dtype=dtype, device="cpu")(image)
-            assert flags() == (start, start)
-            inside = (False, False) if dtype == torch.float32 else (start, start)
+            assert flags() == start
+            inside = (False, "highest") if dtype == torch.float32 else start
             assert seen == [(dtype, *inside)] * 2
     finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+        set_flags(*saved)
+
+
+def test_full_fp32_pins_from_several_threads():
+    """Pins entered and left in interleaved order from two threads: the
+    flags stay pinned until the last one leaves, which restores them as the
+    caller set them."""
+    import threading
+
+    from yolo_series_tpu_torch.device import full_fp32
+
+    def flags():
+        return torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision()
+
+    saved = flags()
+    entered, release = threading.Event(), threading.Event()
+    inside = []
+
+    def other():
+        with full_fp32():
+            entered.set()
+            release.wait(30)
+            inside.append(flags())
+
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.set_float32_matmul_precision("medium")
+        thread = threading.Thread(target=other)
+        with full_fp32():
+            thread.start()
+            assert entered.wait(30)
+        assert flags() == (False, "highest")   # the other pin is still in
+        release.set()
+        thread.join(30)
+        assert inside == [(False, "highest")]
+        assert flags() == (True, "medium")
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved[0]
+        torch.set_float32_matmul_precision(saved[1])

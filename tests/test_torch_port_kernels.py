@@ -460,7 +460,8 @@ def test_keep_mask_threshold_test_without_division(thr):
 
 # ----------------------------------------------------------------- K1L ---
 
-def _large_k_model(boxes, valid, thr, cluster=8, warps=8, seed=0):
+def _large_k_model(boxes, valid, thr, cluster=8, warps=8, seed=0, prefetch=None,
+                   reads=None):
     """A numpy model of the large-K keep-mask (csrc/nms_keep.cu, K1L) for
     one image.
 
@@ -474,9 +475,14 @@ def _large_k_model(boxes, valid, thr, cluster=8, warps=8, seed=0):
     start) belongs to warp (j // cluster) % warps of CTA j % cluster. Each
     warp runs as its own coroutine, interleaved at random, and waits where
     the kernel waits on a block's barrier. The owner of w + 1, on kept_w, ORs tile
-    (w, w + 1)'s kept rows, resolves block w + 1 (one step a kept box) and
-    publishes it; then every later word it owns ORs tile (w, j). Asserted as
-    it runs: every block < w has been ORed into word w before w resolves."""
+    (w, w + 1)'s kept rows, resolves block w + 1 and publishes it; then every later word it owns ORs tile (w, j). Asserted as
+    it runs: every block < w has been ORed into word w before w resolves.
+
+    Ring: block v's slot holds the tiles of the warp's first `prefetch`
+    words at or after v (all of them if None); a later word reads its tile
+    from device memory. Asserted: the critical path's tiles, (w, w + 1)
+    and (w + 1, w + 1), are always in the ring. `reads`, if given, counts
+    the tile reads from each ("ring", "global")."""
     k = len(boxes)
     nw = -(-k // 64)
     full = (1 << 64) - 1
@@ -496,9 +502,17 @@ def _large_k_model(boxes, valid, thr, cluster=8, warps=8, seed=0):
                 workspace[nms_keep.large_tile_index(rb, cb, k)] = [
                     int(x) for x in words[64 * rb:64 * rb + 64, cb]]
 
-    def tile(rb, cb):
+    def tile(rb, cb, critical=False):
         t = workspace[nms_keep.large_tile_index(rb, cb, k)]
         assert t is not None, f"the scan read tile ({rb}, {cb}), which was skipped"
+        # the owner's words are cb - cluster * warps * i; block rb's slot
+        # starts at its first word >= rb
+        first = cb - (cb - rb) // (cluster * warps) * cluster * warps
+        where = ("ring" if prefetch is None or (cb - first) // (cluster * warps) < prefetch
+                 else "global")
+        assert where == "ring" or not critical, f"tile ({rb}, {cb}) is not in the ring"
+        if reads is not None:
+            reads[where] = reads.get(where, 0) + 1
         return t
 
     nwe = max((j + 1 for j in range(nw) if vword[j]), default=0)
@@ -511,14 +525,14 @@ def _large_k_model(boxes, valid, thr, cluster=8, warps=8, seed=0):
         r, live = removed[w], full ^ removed[w]
         while live:
             t = (live & -live).bit_length() - 1
-            r |= tile(w, w)[t]
+            r |= tile(w, w, critical=True)[t]
             live = (full ^ r) & (full << (t + 1))
         removed[w] = r
         kept[w] = full ^ r
 
     def apply(w, j, kw):
         if kw and vword[j]:
-            rows = tile(w, j)
+            rows = tile(w, j, critical=j == w + 1)
             for t in range(64):
                 if (kw >> t) & 1:
                     removed[j] |= rows[t]
@@ -635,6 +649,37 @@ def test_large_k_model_owners_and_skipped_tiles(case, k, cluster):
     np.testing.assert_array_equal(plain, _jax_tiled(boxes, valid, 0.45))
     if case == "chain":
         assert got[0].tolist() == [i % 2 == 0 for i in range(k)]
+
+
+@pytest.mark.parametrize("case,prefetch", [("chain", 1), ("clusters", 1),
+                                           ("clusters", 2), ("prefix", 1)])
+def test_large_k_model_ring_shorter_than_the_words(case, prefetch):
+    """K1L's model where a warp's ring holds fewer tiles a block than it has
+    words (the scan above K = 32768: later words read their tiles from
+    device memory), scaled down to a cluster of 2 CTAs of 2 warps, 5-6
+    words a warp: the critical path's tiles still come from the ring, some
+    tiles come from device memory, and the mask equals the plain version's
+    and the JAX package's tiled keep-mask."""
+    k = 1300
+    rng = np.random.default_rng(prefetch)
+    if case == "chain":
+        boxes = np.stack([nms_chain(k), nms_chain(k, 79 * 4096.0)])
+    else:
+        boxes = np.stack([_clustered(rng, k, nc=3, sigma=8.0) for _ in range(2)])
+    valid = np.ones((2, k), bool)
+    if case == "clusters":
+        valid = rng.uniform(size=(2, k)) < 0.8
+    elif case == "prefix":
+        valid[0, 64 * 13 + 23:] = False
+        valid[1, 64 * 4:64 * 6] = False
+    plain = nms_keep.nms_keep_mask_plain(torch.from_numpy(boxes), torch.from_numpy(valid),
+                                         0.45).numpy()
+    reads = {}
+    got = np.stack([_large_k_model(b, v, 0.45, cluster=2, warps=2, prefetch=prefetch,
+                                   reads=reads) for b, v in zip(boxes, valid)])
+    np.testing.assert_array_equal(got, plain)
+    np.testing.assert_array_equal(plain, _jax_tiled(boxes, valid, 0.45))
+    assert reads["ring"] > 0 and reads["global"] > 0, reads
 
 
 @pytest.mark.parametrize("k", [1, 63, 64, 65, 1025, 4096, 8192, 8193])

@@ -13,6 +13,7 @@ seeds, the same for every checkout.
 
     python3 tools/ab_torch_fused.py OLD NEW NEW OLD
     python3 tools/ab_torch_fused.py --k4-tiles
+    python3 tools/ab_torch_fused.py --k1l-variants
 
 Each argument is the root of a checkout. Each runs in a process of its own
 that imports that checkout's `yolo_series_tpu_torch` and builds its kernels
@@ -20,6 +21,13 @@ into that checkout's build directory. Prints one JSON line a run (K4 with
 each conv's ms and, where the checkout reports it, its tile), then the
 card's name and power limit. `--k4-tiles` times this checkout's K4 at each
 of the 41 shapes on every tile the kernel takes, one JSON line a shape.
+`--k1l-variants` times K1L of this checkout beside copies of it whose
+`csrc/nms_keep.cu` is changed in one place each (K1L_VARIANTS: the scan's
+block resolve by `__ffsll` steps, always or where at most 16 boxes are
+left, the mask kernel without its overlap pre-filter), on the chains and on the
+model's eval candidates (chip_smoke.eval_candidates, random weights) at
+K = 4096 and 8192, B = 8, in the order A B C D D C B A; one JSON line a
+run. The copies go under build/k1l_variants/.
 Needs an NVIDIA Hopper GPU and nvcc.
 """
 
@@ -27,6 +35,7 @@ from __future__ import annotations
 
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -39,6 +48,27 @@ INPUTS = ROOT / "build" / "ab_torch_inputs.npz"
 
 BATCH, IMG = 8, 640
 K1L_SIZES = (4096, 8192)
+# K1L's block resolve with a `__ffsll` loop (a shared-memory load a kept
+# box) wherever at most {n} boxes are left, before its 64 unrolled steps
+_RESOLVE = "__device__ __forceinline__ uint64_t resolve(uint64_t removed, const uint64_t* diag) {\n"
+_FFS = """  if (__popcll(~removed) <= {n}) {{
+    uint64_t live = ~removed;
+    while (live) {{
+      const int t = __ffsll(static_cast<long long>(live)) - 1;
+      removed |= diag[t];
+      live = ~removed & (~1ull << t);
+    }}
+    return removed;
+  }}
+"""
+# this checkout's csrc/nms_keep.cu with one change each: (old, new) text
+K1L_VARIANTS = {
+    "this": (),
+    "ffs_resolve": ((_RESOLVE, _RESOLVE + _FFS.format(n=64)),),
+    "hybrid_resolve": ((_RESOLVE, _RESOLVE + _FFS.format(n=16)),),
+    "no_prefilter": (("  if (th.thr >= 0.0f) {\n    uint32_t half[2]",
+                      "  if (false) {\n    uint32_t half[2]"),),
+}
 # K4b's bench shapes (tools/bench_int8_pallas.py), as chip_smoke.K4B_SHAPES
 K4B_SHAPES = ((12800, 1024, 512), (3200, 2048, 1024), (8192, 1024, 1024))
 # (H at 640 px, cin, ct, cc, cout, order) of the 8 ELAN spans, plan order
@@ -71,6 +101,27 @@ def make_inputs() -> None:
     INPUTS.parent.mkdir(parents=True, exist_ok=True)
     np.savez(INPUTS, k1_boxes=boxes, k1_valid=np.arange(k)[None] < n_valid[:, None],
              k4_shapes=np.array(chip_smoke.k4_shapes(plan, BATCH, IMG)), **large)
+
+
+def make_eval_candidates() -> dict:
+    """K1L's inputs on eval's path: the fp32 forward of the full-width
+    model (chip_smoke.make_model, random weights made to detect) on B
+    random 640 px images, then eval's multi-label candidates cut to K =
+    4096 and 8192 (chip_smoke.eval_candidates, IoU 0.65), as numpy."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    import torch
+
+    m = chip_smoke.make_model(torch.device("cuda"))
+    images = np.random.default_rng(7).integers(0, 256, (BATCH, IMG, IMG, 3), np.uint8)
+    out = {}
+    for kl in K1L_SIZES:
+        boxes, valid = chip_smoke.eval_candidates(m, images, max_nms=kl)
+        out[f"eval_boxes_{kl}"] = boxes.cpu().numpy()
+        out[f"eval_valid_{kl}"] = valid.cpu().numpy()
+    del m
+    torch.cuda.empty_cache()
+    return out
 
 
 def event_ms(fn, iters=20, warmup=3):
@@ -179,6 +230,55 @@ def k1_k4(inputs, dev) -> dict:
     return out
 
 
+def k1l_run(root: str) -> dict:
+    """K1L of the checkout at `root` on the chains and the eval candidates:
+    checked against the plain keep-mask, then one call, graph replay and
+    the mask / scan split."""
+    sys.path.insert(0, str(Path(root).resolve()))
+    import torch
+
+    from yolo_series_tpu_torch.ops import nms_keep
+
+    dev = torch.device("cuda")
+    inputs = np.load(INPUTS)
+    out = {"root": root}
+    for src, thr in (("k1l", 0.45), ("eval", 0.65)):
+        for kl in K1L_SIZES:
+            lb = torch.from_numpy(inputs[f"{src}_boxes_{kl}"]).to(dev)
+            lv = torch.from_numpy(inputs[f"{src}_valid_{kl}"]).to(dev)
+            call = lambda: nms_keep.nms_keep_mask_large(lb, lv, thr)  # noqa: E731
+            got = call()
+            torch.cuda.synchronize()
+            if not torch.equal(got, nms_keep.nms_keep_mask_plain(lb, lv, thr)):
+                raise AssertionError(f"{root} {src} K={kl}: differs from the plain keep-mask")
+            name = ("chains" if src == "k1l" else "eval") + f"_{kl}"
+            out[name] = {"ms": event_ms(call, iters=10), "graph_ms": graph_ms(call, reps=3),
+                         **kernel_split(call)}
+    return out
+
+
+def k1l_variants() -> list:
+    """Copies of this checkout's package under build/k1l_variants/<name>/,
+    each with its K1L_VARIANTS change made to csrc/nms_keep.cu (each text
+    must occur once). Returns their roots in the order of K1L_VARIANTS."""
+    roots = []
+    for name, edits in K1L_VARIANTS.items():
+        root = ROOT / "build" / "k1l_variants" / name
+        pkg = root / "yolo_series_tpu_torch"
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.copytree(ROOT / "yolo_series_tpu_torch", pkg,
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        src = pkg / "csrc" / "nms_keep.cu"
+        text = src.read_text()
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise ValueError(f"variant {name}: {old!r} occurs {text.count(old)} times")
+            text = text.replace(old, new)
+        src.write_text(text)
+        roots.append(str(root))
+    return roots
+
+
 def k4_tiles() -> None:
     """This checkout's K4 at each of the 41 shapes on every tile."""
     import torch
@@ -254,19 +354,27 @@ def one_run(root: str) -> dict:
 
 
 def main(argv) -> int:
-    if len(argv) == 2 and argv[0] == "--run":
-        print(json.dumps(one_run(argv[1])), flush=True)
+    if len(argv) == 2 and argv[0] in ("--run", "--run-k1l"):
+        run = one_run if argv[0] == "--run" else k1l_run
+        print(json.dumps(run(argv[1])), flush=True)
         return 0
     if not argv:
         print(__doc__, file=sys.stderr)
         return 2
     make_inputs()
+    mode = "--run"
     if argv == ["--k4-tiles"]:
         sys.path.insert(0, str(ROOT))
         k4_tiles()
         argv = []
+    elif argv == ["--k1l-variants"]:
+        with np.load(INPUTS) as saved:
+            arrays = dict(saved)
+        np.savez(INPUTS, **arrays, **make_eval_candidates())
+        roots = k1l_variants()
+        argv, mode = roots + roots[::-1], "--run-k1l"
     for root in argv:
-        res = subprocess.run([sys.executable, __file__, "--run", root],
+        res = subprocess.run([sys.executable, __file__, mode, root],
                              capture_output=True, text=True, timeout=900)
         if res.returncode != 0:
             print(res.stdout + res.stderr, file=sys.stderr)

@@ -53,6 +53,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <atomic>
 
 namespace cg = cooperative_groups;
@@ -314,16 +315,20 @@ nms_keep_kernel(const float4* __restrict__ boxes,
 //     resolves block w from its diagonal tile and publishes kept_w into
 //     every CTA of the cluster: an st.async into each CTA's shared memory
 //     that completes that CTA's mbarrier of block w, on which its warps
-//     wait asleep rather than polling. The resolve is a `__ffsll` loop over
-//     the boxes not yet removed (a step a kept box) where few are left, and
-//     64 unrolled steps on the rows in registers where many are. On kept_w,
-//     the owner of w + 1 first ORs tile (w, w + 1)'s kept rows into its
-//     word, resolves block w + 1 and publishes it: one broadcast and one
-//     on-chip resolve a block on the critical path. Every other word
+//     wait asleep rather than polling. The resolve is 64 unrolled steps on
+//     the diagonal tile's rows in registers. On kept_w, the owner of w + 1
+//     first ORs tile (w, w + 1)'s kept rows into its word, resolves block
+//     w + 1 and publishes it: one broadcast and one on-chip resolve a
+//     block on the critical path. Every other word
 //     j > w + 1 ORs tile (w, j) after that, off the critical path. Each
 //     warp prefetches its tiles with cp.async into a ring of kRing blocks
 //     in shared memory, ahead of the resolve: their addresses do not depend
-//     on `kept`.
+//     on `kept`. A block's slot holds the tiles of the warp's first `mpre`
+//     words at or after the block (as many as fit the shared memory: all
+//     of them up to K = 32768); the words after those read their tiles
+//     from device memory. The word on the critical path is always the
+//     first, so it is always in the ring. K is limited by the 24 bytes of
+//     shared memory each 64-box word takes in every CTA (kMaxKLarge).
 
 constexpr int kTile = 64;  // rows and columns of a tile; bits a word
 constexpr int kMaskThreads = 256;
@@ -332,8 +337,11 @@ constexpr int kScanCluster = 8;                   // CTAs an image
 constexpr int kScanWarps = 8;
 constexpr int kScanThreads = 32 * kScanWarps;
 constexpr int kRing = 4;  // blocks of tiles a scan warp has in flight
-// the largest K: a scan warp's ring of 8 tiles a block within 227 KB
-constexpr int kMaxKLarge = 32768;
+// the scan's dynamic shared memory opt-in, under the card's 227 KB a CTA
+constexpr int kScanSmem = 220 * 1024;
+// the largest K: vword, kept_s and bar of every word, rem of this CTA's,
+// and a ring of one tile a block, within kScanSmem
+constexpr int kMaxKLarge = 6000 * kTile;
 
 // the first tile of row block rb in the packed order
 __host__ __device__ __forceinline__ long long tile_start(int rb, int nw) {
@@ -421,11 +429,22 @@ nms_mask_kernel(const float4* __restrict__ boxes, const unsigned char* __restric
   mask[(static_cast<size_t>(b) * ntiles + idx) * kTile + t] = word;
 }
 
-// the scan's dynamic shared memory at nw words (see nms_scan_kernel)
-size_t scan_bytes(int nw) {
+// the scan's dynamic shared memory at nw words, with rings of mpre tiles a
+// block (see nms_scan_kernel)
+size_t scan_bytes(int nw, int mpre) {
+  const int nq = (nw + kScanCluster - 1) / kScanCluster;
+  return (static_cast<size_t>(kScanWarps) * kRing * mpre * kTile + 3 * nw + nq) * 8;
+}
+
+// the tiles a scan warp prefetches a block: all of its words (mmax) where
+// they fit kScanSmem, else as many as do (0: K too large)
+int scan_prefetch(int nw) {
   const int nq = (nw + kScanCluster - 1) / kScanCluster;
   const int mmax = (nq + kScanWarps - 1) / kScanWarps;
-  return (static_cast<size_t>(kScanWarps) * kRing * mmax * kTile + 3 * nw + nq) * 8;
+  const size_t fixed = scan_bytes(nw, 0);
+  const size_t per = scan_bytes(nw, 1) - fixed;
+  if (fixed >= static_cast<size_t>(kScanSmem)) return 0;
+  return static_cast<int>(std::min<size_t>(mmax, (kScanSmem - fixed) / per));
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -495,48 +514,37 @@ __device__ __forceinline__ uint64_t or_kept(const uint64_t* tile, uint64_t kept,
 
 // greedy within a block: each box not yet removed, in order, is kept and
 // removes what its row of the diagonal tile marks (only boxes after it).
-// Returns the block's removed word (kept = ~it). Few boxes left: one
-// `__ffsll` step (and one shared-memory load) a kept box. Many: the 64 rows
-// in registers and 64 unrolled steps of two dependent ALU operations, which
-// costs less than ~kSparse loads in a chain.
-constexpr int kSparse = 16;
-
+// Returns the block's removed word (kept = ~it). The 64 rows are loaded
+// into registers first (independent loads), then 64 unrolled steps of two
+// dependent ALU operations: no load in the chain. A `__ffsll` loop over
+// the boxes left (a load a kept box), alone or below 16 boxes left, was
+// slower on the eval candidates (tools/ab_torch_fused.py --k1l-variants).
 __device__ __forceinline__ uint64_t resolve(uint64_t removed, const uint64_t* diag) {
-  if (__popcll(~removed) > kSparse) {
-    uint64_t row[kTile];
+  uint64_t row[kTile];
 #pragma unroll
-    for (int t = 0; t < kTile; t += 2) {
-      const ulonglong2 v = reinterpret_cast<const ulonglong2*>(diag)[t / 2];
-      row[t] = v.x;
-      row[t + 1] = v.y;
-    }
+  for (int t = 0; t < kTile; t += 2) {
+    const ulonglong2 v = reinterpret_cast<const ulonglong2*>(diag)[t / 2];
+    row[t] = v.x;
+    row[t + 1] = v.y;
+  }
 #pragma unroll
-    for (int t = 0; t < kTile; ++t)
-      if (!((removed >> t) & 1ull)) removed |= row[t];
-    return removed;
-  }
-  uint64_t live = ~removed;
-  while (live) {
-    const int t = __ffsll(static_cast<long long>(live)) - 1;
-    removed |= diag[t];
-    live = ~removed & (~1ull << t);
-  }
+  for (int t = 0; t < kTile; ++t)
+    if (!((removed >> t) & 1ull)) removed |= row[t];
   return removed;
 }
 
 __global__ void __cluster_dims__(kScanCluster, 1, 1) __launch_bounds__(kScanThreads, 1)
 nms_scan_kernel(const uint64_t* __restrict__ mask, const unsigned char* __restrict__ valid,
-                unsigned char* __restrict__ keep, int K, int nw) {
-  // ring[warp][kRing][mmax][64] (tiles a warp prefetched), vword[nw] (valid
+                unsigned char* __restrict__ keep, int K, int nw, int mpre) {
+  // ring[warp][kRing][mpre][64] (tiles a warp prefetched), vword[nw] (valid
   // bits of each word), kept_s[nw] (each block's kept bits, written by its
   // owner), rem[nq] (`removed` of this CTA's words), bar[nw] (an mbarrier
   // a block: kept_s[w] has arrived)
   extern __shared__ __align__(16) uint64_t scan_smem[];
   __shared__ int nwe_s;  // words up to the last valid box
   const int nq = (nw + kScanCluster - 1) / kScanCluster;
-  const int mmax = (nq + kScanWarps - 1) / kScanWarps;
   uint64_t* ring = scan_smem;
-  uint64_t* vword = ring + static_cast<size_t>(kScanWarps) * kRing * mmax * kTile;
+  uint64_t* vword = ring + static_cast<size_t>(kScanWarps) * kRing * mpre * kTile;
   uint64_t* kept_s = vword + nw;
   uint64_t* rem = kept_s + nw;
   uint64_t* bar = rem + nq;
@@ -580,20 +588,32 @@ nms_scan_kernel(const uint64_t* __restrict__ mask, const unsigned char* __restri
   auto word_of = [&](int m) { return (g + kScanWarps * m) * kScanCluster + r; };
   int last = -1;
   for (int m = 0; word_of(m) < nwe; ++m) last = word_of(m);
-  uint64_t* my_ring = ring + static_cast<size_t>(g) * kRing * mmax * kTile;
-  auto slot = [&](int v, int m) {
-    return my_ring + (static_cast<size_t>(v % kRing) * mmax + m) * kTile;
+  // the first m with word_of(m) >= v
+  auto first = [&](int v) {
+    const int need = v - r;
+    if (need <= g * kScanCluster) return 0;
+    return ((need + kScanCluster - 1) / kScanCluster - g + kScanWarps - 1) / kScanWarps;
   };
-  // the tiles (v, j) of this warp's words j >= v, skipping those the mask
-  // kernel skipped; one cp.async group a block, empty or not
+  uint64_t* my_ring = ring + static_cast<size_t>(g) * kRing * mpre * kTile;
+  auto global_tile = [&](int v, int m) {
+    return mb + (tile_start(v, nw) + (word_of(m) - v)) * kTile;
+  };
+  // block v's slot holds the tiles of this warp's words m = f .. f + mpre
+  // - 1, f = first(v); later words read theirs from device memory
+  auto slot = [&](int v, int i) {
+    return my_ring + (static_cast<size_t>(v % kRing) * mpre + i) * kTile;
+  };
+  auto tile = [&](int v, int m, int f) -> const uint64_t* {
+    return m - f < mpre ? slot(v, m - f) : global_tile(v, m);
+  };
+  // block v's slot, skipping the tiles the mask kernel skipped; one
+  // cp.async group a block, empty or not
   auto prefetch = [&](int v) {
     if (v <= last && vword[v] != 0) {
-      for (int m = 0; word_of(m) <= last; ++m) {
-        const int j = word_of(m);
-        if (j >= v && vword[j] != 0)
-          cp_async16(slot(v, m) + 2 * lane,
-                     mb + (tile_start(v, nw) + (j - v)) * kTile + 2 * lane);
-      }
+      const int f = first(v);
+      for (int m = f; m < f + mpre && word_of(m) <= last; ++m)
+        if (vword[word_of(m)] != 0)
+          cp_async16(slot(v, m - f) + 2 * lane, global_tile(v, m) + 2 * lane);
     }
     cp_async_commit();
   };
@@ -610,13 +630,13 @@ nms_scan_kernel(const uint64_t* __restrict__ mask, const unsigned char* __restri
     if (r == 0 && g == 0) {  // block 0: word 0 is this warp's first
       cp_async_wait<kRing - 1>();
       __syncwarp();
-      const uint64_t x = resolve(rem[0], slot(0, 0));
+      const uint64_t x = resolve(rem[0], tile(0, 0, 0));
       rem[0] = x;
       publish(0, ~x);
     }
-    int m0 = 0;  // this warp's first word after w
     for (int w = 0; w < last; ++w) {
-      while (word_of(m0) <= w) ++m0;
+      // this warp's first word at or after w, and after w
+      const int f = first(w), m0 = first(w + 1);
       cp_async_wait<kRing - 2>();  // blocks w and w + 1 are in
       __syncwarp();
       wait_once_barrier(bar + w);
@@ -626,9 +646,9 @@ nms_scan_kernel(const uint64_t* __restrict__ mask, const unsigned char* __restri
       for (int m = m0; word_of(m) <= last; ++m) {
         const int j = word_of(m), q = g + kScanWarps * m;
         uint64_t x = rem[q];
-        if (kw != 0 && vword[j] != 0) x |= or_kept(slot(w, m), kw, lane);
-        if (j == w + 1) {
-          x = resolve(x, slot(w + 1, m));
+        if (kw != 0 && vword[j] != 0) x |= or_kept(tile(w, m, f), kw, lane);
+        if (j == w + 1) {  // m = m0 = first(w + 1): in the ring
+          x = resolve(x, tile(w + 1, m, m));
           publish(j, ~x);
         }
         rem[q] = x;  // the same value from every lane
@@ -693,8 +713,10 @@ extern "C" int nms_keep_mask_large(const void* boxes, const void* valid, void* k
   if (K < 1 || K > kMaxKLarge || B < 1 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const int nw = (K + kTile - 1) / kTile;
-  // the scan's shared-memory opt-in for the largest K, once per device (a
-  // host call, kept out of the launches a CUDA graph captures)
+  const int mpre = scan_prefetch(nw);
+  if (mpre < 1) return static_cast<int>(cudaErrorInvalidValue);
+  // the scan's shared-memory opt-in, once per device (a host call, kept
+  // out of the launches a CUDA graph captures)
   static std::atomic<unsigned> opted_in{0};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -702,7 +724,7 @@ extern "C" int nms_keep_mask_large(const void* boxes, const void* valid, void* k
   if (dev < 0 || dev >= 32) return static_cast<int>(cudaErrorInvalidDevice);
   if (!(opted_in.load() & (1u << dev))) {
     err = cudaFuncSetAttribute(nms_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(scan_bytes((kMaxKLarge + kTile - 1) / kTile)));
+                               kScanSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
     opted_in.fetch_or(1u << dev);
   }
@@ -714,8 +736,8 @@ extern "C" int nms_keep_mask_large(const void* boxes, const void* valid, void* k
       static_cast<uint64_t*>(mask), K, nw, ntiles, thr);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  nms_scan_kernel<<<B * kScanCluster, kScanThreads, scan_bytes(nw), s>>>(
+  nms_scan_kernel<<<B * kScanCluster, kScanThreads, scan_bytes(nw, mpre), s>>>(
       static_cast<const uint64_t*>(mask), static_cast<const unsigned char*>(valid),
-      static_cast<unsigned char*>(keep), K, nw);
+      static_cast<unsigned char*>(keep), K, nw, mpre);
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,6 +8,7 @@ explicit `device` and runs on CUDA unless the caller asks for the CPU.
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Iterator, Optional, Union
 
 import torch
@@ -29,6 +30,11 @@ def device(name: Optional[Union[str, torch.device]] = None) -> torch.device:
     return d
 
 
+# the pins entered and not yet left, and the flags the first one replaced
+_pins = {"depth": 0, "saved": None}
+_pins_lock = threading.Lock()
+
+
 @contextlib.contextmanager
 def full_fp32(enabled: bool = True) -> Iterator[None]:
     """Inside, when `enabled`: cuDNN convolutions and CUDA matmuls in full
@@ -37,18 +43,35 @@ def full_fp32(enabled: bool = True) -> Iterator[None]:
     Torch's default lets cuDNN run fp32 convolutions in TF32 (about three
     decimal digits); the JAX package computes fp32 in fp32. The entry
     points that promise an fp32 forward run it in here, whatever the
-    caller's global flags are; both flags are restored on the way out.
-    Not enabled (a bf16 forward), the flags are left alone.
+    caller's global flags are: cuDNN's flags (`torch.backends.cudnn.
+    set_flags`, TF32 off, the others as they were) and the matmul precision
+    (`torch.get_float32_matmul_precision`, "highest") are restored on the
+    way out, exactly as they were. Not enabled (a bf16 forward), the flags
+    are left alone.
+
+    The flags are process-global: while one thread is in here, every
+    thread's fp32 convolutions and matmuls run without TF32. Pins entered
+    from several threads at once restore the flags when the last one
+    leaves, so none restores them under another.
     """
     if not enabled:
         yield
         return
-    cudnn = torch.backends.cudnn.allow_tf32
-    matmul = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    cudnn = torch.backends.cudnn
+    with _pins_lock:
+        if _pins["depth"] == 0:
+            matmul = torch.get_float32_matmul_precision()
+            flags = cudnn.set_flags(cudnn.enabled, cudnn.benchmark, cudnn.benchmark_limit,
+                                    cudnn.deterministic, False)
+            torch.set_float32_matmul_precision("highest")
+            _pins["saved"] = flags, matmul
+        _pins["depth"] += 1
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = cudnn
-        torch.backends.cuda.matmul.allow_tf32 = matmul
+        with _pins_lock:
+            _pins["depth"] -= 1
+            if _pins["depth"] == 0:
+                flags, matmul = _pins["saved"]
+                cudnn.set_flags(*flags)
+                torch.set_float32_matmul_precision(matmul)

@@ -29,7 +29,7 @@ from yolo_series_tpu_torch.ops import _build
 from yolo_series_tpu_torch.ops.boxes import box_iou
 
 MAX_K = 1024  # K1's shared-memory capacity (16 B per box); K1L above it
-MAX_K_LARGE = 32768  # K1L's scan: each warp's ring of tiles within 227 KB
+MAX_K_LARGE = 6000 * 64  # K1L's scan: 24 B of shared memory a 64-box word
 TILE = 64  # K1L's tile: 64 rows of one uint64 word, 512 bytes
 
 
