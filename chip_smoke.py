@@ -74,7 +74,20 @@ non-zero on failure before the last line is printed:
     global TF32 flags on (torch's default; `evaluate` pins full fp32);
     per-image inference and NMS ms, one batch's fp32 forward with TF32 on
     and off, and its NMS split into the stable sort, K1L and the packing.
- 7. One JSON line of per-kernel numbers, the card's name and power limit,
+ 7. Train: full-width yolov7 in training form (IDetect), the port's seeded
+    init, 640 px, batch 8, bf16, the OTA loss with `LossHyp()`, SGD with
+    `OptimConfig()`, noise frames with 4-20 seeded boxes an image padded to
+    256 label rows. (a) The OTA loss and assignment on the card against the
+    CPU on the same fp32 raw maps; (b) one fp32 step (TF32 off) on the card
+    against the CPU at width 0.25, 320 px, batch 2; (c) the bf16 step
+    against the fp32 step from the same state; (d) 20 bf16 steps on one
+    batch past warmup (the loss falls, all finite, BN stats and EMA move),
+    a step with the warmup's step-0 factors and one with accumulate=2;
+    (e) ms a step (CUDA events), img/s, host time a step, peak allocation,
+    and a one-step profile split into cuDNN convolutions, BN and
+    elementwise, the OTA loss and the optimizer with the EMA. The step runs
+    none of the port's kernels (the counters stay 0).
+ 8. One JSON line of per-kernel numbers, the card's name and power limit,
     and the last line `{"ok": true, "device": {...}}`.
 """
 
@@ -112,12 +125,19 @@ from yolo_series_tpu_torch.infer import quant
 from yolo_series_tpu_torch.infer.detector import Detector
 from yolo_series_tpu_torch.infer.serving import DynamicBatcher, ServingEngine
 from yolo_series_tpu_torch.models import layers as L
-from yolo_series_tpu_torch.models.model import Model, _run_layer, apply_model, tree_map
+from yolo_series_tpu_torch.models.model import (Model, _run_layer, apply_model, tree_leaves,
+                                                tree_map)
 from yolo_series_tpu_torch.models.reparam import fuse_model
 from yolo_series_tpu_torch.ops import (_build, conv_silu, fused_elan, fused_stem,
                                        int8_mm, nms_keep)
 from yolo_series_tpu_torch.ops.boxes import box_iou
 from yolo_series_tpu_torch.ops.nms import batched_nms, fused_head_nms
+from yolo_series_tpu_torch.losses import LossHyp, make_compute_loss_ota
+from yolo_series_tpu_torch.losses.ota import ota_assign_batch
+from yolo_series_tpu_torch.train import optim as train_optim
+from yolo_series_tpu_torch.train.ema import ema_update
+from yolo_series_tpu_torch.train.schedules import warmup_factors
+from yolo_series_tpu_torch.train.step import init_train_state, make_train_step
 
 CFG = ROOT / "yolo_series_tpu_torch/models/cfg/deploy/yolov7.yaml"
 TRAIN_CFG = ROOT / "yolo_series_tpu_torch/models/cfg/training/yolov7.yaml"
@@ -182,6 +202,40 @@ K4B_SHAPES = ((12800, 1024, 512), (3200, 2048, 1024), (8192, 1024, 1024))
 # (max_nms of `evaluate`)
 K1L_SIZES = (1025, 4096, 8192)
 EVAL_NMS = 8192
+# Phase 7 (train). Labels padded to MAX_LABELS rows an image (the trainer's
+# max_labels), LABELS_AN_IMAGE boxes drawn a image.
+MAX_LABELS, LABELS_AN_IMAGE = 256, (4, 20)
+# (a) OTA on the card against the CPU on the same fp32 raw maps and labels:
+# the same operations, but the card's and the CPU's log, sqrt, sigmoid and
+# exp differ by ulps and the sums run in other orders, which can flip a
+# near-tie of two costs: at least OTA_COLUMN_SHARE of the candidate columns
+# must have the same (fg, matched_gt), and the loss items lie within
+# OTA_ITEM_RTOL relative of each other.
+OTA_ITEM_RTOL, OTA_COLUMN_SHARE = 1e-5, 0.999
+# (b) One fp32 step on the card (TF32 off, `device.full_fp32`) against the
+# same step on the CPU, width 0.25, 320 px, batch 2: the relative L2
+# distance of the two parameter updates, and of the new BN stats and EMA
+# trees (relative L2 over each tree: leaf by leaf they are led by the
+# leaves that start at 0, the running means and BN biases, whose values
+# are this step's batch means and updates alone, at 1.6e-5 and 3.4e-4
+# relative a leaf on the card).
+STEP_UPDATE_L2, STEP_STATE_REL = 1e-3, 1e-5
+# (c) The bf16 step against the fp32 step from the same state on the same
+# batch. The limits are what the JAX package's own bf16 step meets against
+# its fp32 step, from the same random init (tests/torch_port_train_noise.py
+# on the CPU, width 0.25 at 128 px and width 1.0 at 256 px, batch 2, OTA,
+# SGD): loss items within 9.24% of each other, and the whole update's
+# cosine similarity only 0.18-0.37. At a random init the loss pushes every
+# objectness logit down alike, which each BN's backward removes as a
+# per-channel constant: what reaches the early convs is the small
+# difference of nearly equal bf16-rounded terms, so their weight grads are
+# mostly rounding noise. So items within BF16_ITEM_RTOL, and the whole
+# update's cosine at least BF16_UPDATE_COS (a gradient of the wrong sign,
+# or a layer without one, gives 0 or less). Phase (b) holds the step's
+# arithmetic on the card tightly, in fp32.
+BF16_ITEM_RTOL, BF16_UPDATE_COS = 0.15, 0.1
+# (d) steps on one fixed batch
+TRAIN_STEPS = 20
 
 
 def log(*a):
@@ -892,7 +946,7 @@ def liven(plan, params, state, x, *, act_rms=0.1, head_gain=20.0,
         for bn in bns:
             bn["bias"].zero_()
         for _ in range(12):
-            out = _run_layer(ctx, spec, lp[idx], ls[idx], inp)
+            out, _ = _run_layer(ctx, spec, lp[idx], ls[idx], inp)
             rms = out.square().mean().sqrt().item()
             if not bns or abs(rms / act_rms - 1.0) < 0.05:
                 break
@@ -1732,6 +1786,304 @@ def evaluation(dev, m, batch=BATCH, n_images=16):
             "unpinned_tf32_pred_max_abs_err": tf32_err, "nms_ms_an_image": per_image}
 
 
+# ------------------------------------------------------------ train ---
+
+def train_batch(rng, batch, img, nc=80):
+    """uint8 noise frames (batch, img, img, 3) and labels padded to
+    MAX_LABELS rows, LABELS_AN_IMAGE boxes an image: random classes,
+    centres in [0.1, 0.9], sides in [0.02, 0.4] of the image."""
+    images = rng.integers(0, 256, (batch, img, img, 3), dtype=np.uint8)
+    labels = np.zeros((batch, MAX_LABELS, 5), np.float32)
+    mask = np.zeros((batch, MAX_LABELS), bool)
+    for b in range(batch):
+        k = int(rng.integers(LABELS_AN_IMAGE[0], LABELS_AN_IMAGE[1] + 1))
+        labels[b, :k] = np.concatenate([rng.integers(0, nc, (k, 1)),
+                                        rng.uniform(0.1, 0.9, (k, 2)),
+                                        rng.uniform(0.02, 0.4, (k, 2))], 1)
+        mask[b, :k] = True
+    return images, labels, mask
+
+
+def train_model(dev, width, seed=2):
+    """yolov7 training form (IDetect) at `width`, the port's seeded init
+    with the Detect bias prior, on `dev`."""
+    return Model.from_yaml(_cfg(width, TRAIN_CFG), seed=seed, device=dev)
+
+
+def lr_after_warmup(opt):
+    """(lr_groups, momentum) of the first step past a 1000-step warmup, at
+    epoch 0 of 300 (hyp.scratch.p5: lrf 0.1, warmup_bias_lr 0.1,
+    warmup_momentum 0.8)."""
+    return warmup_factors(1000, 1000, 0.0, 300, opt.lr0, 0.1, 0.1, 0.8, opt.momentum)
+
+
+def tree_update(new, old):
+    """One flat fp64 vector of new - old over all leaves (on the host)."""
+    return torch.cat([(a.detach().double() - b.detach().double()).reshape(-1).cpu()
+                      for a, b in zip(tree_leaves(new), tree_leaves(old))])
+
+
+def tree_rel_l2(got, want):
+    """|got - want| / |want| over all leaves of two trees (fp64, host)."""
+    num = den = 0.0
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        a, b = a.detach().double().cpu(), b.detach().double().cpu()
+        num += float((a - b).square().sum())
+        den += float(b.square().sum())
+    return (num / den) ** 0.5
+
+
+def check_ota(dev, plan, raw, labels, mask):
+    """(a) The OTA loss and assignment on the card against the CPU on the
+    same fp32 raw maps and labels."""
+    hyp = LossHyp()
+    head = plan.head
+    anchors = np.asarray(head.anchors, np.float32).reshape(head.nl, head.na, 2)
+    strides = np.asarray(head.strides, np.float32)
+    loss_fn = make_compute_loss_ota(head, hyp)
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        r = [t.to(where) for t in raw]
+        lb, mk = labels.to(where), mask.to(where)
+        total, items = loss_fn(r, lb, mk)
+        fg, mg, _ = ota_assign_batch(r, lb, mk, anchors, strides, hyp, 0.5, 10)
+        out[where.type] = ({k: float(v) for k, v in items.items()} | {"total": float(total)},
+                           fg.cpu(), mg.cpu())
+    (card, fg_c, mg_c), (cpu, fg_h, mg_h) = out[dev.type], out["cpu"]
+    same = ((fg_c == fg_h) & (~fg_c | (mg_c == mg_h))).double().mean().item()
+    err = max(abs(card[k] - cpu[k]) / max(abs(cpu[k]), 1e-30) for k in cpu)
+    log(f"train (a): OTA at {tuple(raw[0].shape[:1])} images, {labels.shape[1]} label rows, "
+        f"{fg_c.shape[1]} candidate columns an image: items card {card}, CPU {cpu}, "
+        f"largest relative difference {err:.3g} (limit {OTA_ITEM_RTOL}); columns with "
+        f"the same (fg, matched_gt) {same:.6f} (limit {OTA_COLUMN_SHARE}); "
+        f"fg {int(fg_c.sum())} card, {int(fg_h.sum())} CPU")
+    if not same >= OTA_COLUMN_SHARE:
+        raise AssertionError(f"train (a): OTA assignments agree on {same} of the columns")
+    if not err <= OTA_ITEM_RTOL:
+        raise AssertionError(f"train (a): OTA loss items differ by {err} relative")
+    return {"items_card": card, "items_cpu": cpu, "item_rel_err": err, "same_columns": same,
+            "fg": int(fg_c.sum())}
+
+
+def check_fp32_step(dev, width=0.25, img=320, batch=2):
+    """(b) One fp32 step (OTA, SGD) on the card, TF32 off, against the same
+    step on the CPU from the same state on the same batch."""
+    model = train_model(torch.device("cpu"), width, seed=3)
+    opt = train_optim.OptimConfig()
+    lr, mom = lr_after_warmup(opt)
+    batch_np = train_batch(np.random.default_rng(5), batch, img)
+    res = {}
+    for where in (dev, torch.device("cpu")):
+        ts = init_train_state(model.params, model.state, opt, device=where)
+        step = make_train_step(model.plan, make_compute_loss_ota(model.plan.head, LossHyp()),
+                               opt, compute_dtype=torch.float32)
+        with full_fp32(where.type == "cuda"):
+            new, metrics = step(ts, *batch_np, lr, mom)
+        res[where.type] = (ts, new, {k: float(v) for k, v in metrics.items()})
+    (ts_c, new_c, m_c), (ts_h, new_h, m_h) = res[dev.type], res["cpu"]
+    du_c, du_h = tree_update(new_c.params, ts_c.params), tree_update(new_h.params, ts_h.params)
+    l2 = float((du_c - du_h).norm() / du_h.norm())
+    state_err = tree_rel_l2(new_c.state, new_h.state)
+    ema_err = max(tree_rel_l2(new_c.ema_params, new_h.ema_params),
+                  tree_rel_l2(new_c.ema_state, new_h.ema_state))
+    log(f"train (b): one fp32 step, width {width}, {img} px, batch {batch}: losses card "
+        f"{m_c}, CPU {m_h}; parameter updates' relative L2 distance {l2:.3g} (limit "
+        f"{STEP_UPDATE_L2}); BN stats {state_err:.3g}, EMA {ema_err:.3g} (limit "
+        f"{STEP_STATE_REL})")
+    if not l2 <= STEP_UPDATE_L2:
+        raise AssertionError(f"train (b): fp32 updates differ by {l2} (relative L2)")
+    if not max(state_err, ema_err) <= STEP_STATE_REL:
+        raise AssertionError(f"train (b): BN stats {state_err}, EMA {ema_err}")
+    return {"update_rel_l2": l2, "bn_state_rel_err": state_err, "ema_rel_err": ema_err,
+            "losses_card": m_c, "losses_cpu": m_h}
+
+
+def step_profile(dev, plan, step, ts, batch_np, lr, mom, loss_fn, opt):
+    """Device time of one bf16 step by part, from torch.profiler: the
+    step's cuDNN convolution kernels (by name), the loss (OTA forward and
+    backward on the step's raw maps) and the optimizer with the EMA, each
+    profiled alone (`kernel_ms`), and BN and elementwise, the rest of the
+    step's device time; the device's busy share of the profiled step's
+    wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.from_numpy(batch_np[0]).to(dev).float() / 255.0
+    labels, mask = (torch.from_numpy(a).to(dev) for a in batch_np[1:])
+    with torch.no_grad():
+        out, _ = apply_model(plan, ts.params, ts.state, x, training=True, dtype=torch.bfloat16)
+    raw = [r.detach().requires_grad_() for r in out["raw"]]
+    del out
+
+    def loss_part():
+        total, _ = loss_fn(raw, labels, mask)
+        torch.autograd.grad(total, raw)
+
+    _, update = train_optim.make_optimizer(opt, ts.params)
+    grads = tree_map(torch.ones_like, ts.params)
+
+    def optim_part():
+        p, _ = update(ts.opt_state, ts.params, grads, lr, mom)
+        ema_update(ts.ema_params, p, 1)
+        ema_update(ts.ema_state, ts.state, 1)
+
+    step(ts, *batch_np, lr, mom)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        step(ts, *batch_np, lr, mom)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    kernels = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if e.device_type == torch.autograd.DeviceType.CUDA and us:
+            kernels.append((us / 1e3, e.key))
+    if not kernels:
+        log("train (e): profile: no device time recorded (not measured)")
+        return None
+    busy = sum(ms for ms, _ in kernels)
+    conv = sum(ms for ms, name in kernels if any(k in name.lower() for k in CUDNN_NAMES))
+    # "" is in every kernel's name: each part's whole device time
+    loss, optim = (kernel_ms(part, ("",), n=2)[""] for part in (loss_part, optim_part))
+    split = {"cudnn_conv_fwd_bwd": conv, "loss_ota": loss, "optimizer_ema": optim,
+             "bn_elementwise": busy - conv - loss - optim}
+    log(f"train (e): one-step profile: device busy {busy:.3f} ms of {wall_ms:.3f} ms wall "
+        f"({busy / wall_ms:.1%}); device ms by part (the loss and the optimizer profiled "
+        f"alone) {split}")
+    log("train (e): top kernels (ms/step): "
+        + "; ".join(f"{name[:70]} {ms:.3f}" for ms, name in sorted(kernels, reverse=True)[:10]))
+    return {"wall_ms": wall_ms, "busy_ms": busy, "busy_share": busy / wall_ms,
+            "split_ms": split}
+
+
+def train(dev, width=1.0, img=IMG, batch=BATCH):
+    """Phase 7: the yolov7 train step (training form, IDetect, full width)
+    at `img` px, batch `batch`, bf16, the OTA loss with `LossHyp()`
+    (hyp.scratch.p5 at nl 3, nc 80, 640 px), SGD with `OptimConfig()`,
+    labels padded to 256 rows an image. The step runs no kernel of the
+    port (its custom gradients are autograd Functions over PyTorch ops):
+    the launch counters stay 0. (a) OTA card against CPU, (b) one fp32
+    step card against CPU at width 0.25, (c) the bf16 step against the
+    fp32 step, (d) TRAIN_STEPS bf16 steps on one fixed batch past warmup:
+    the loss falls, everything finite, BN stats and EMA move; one step
+    with the warmup's step-0 factors and one with accumulate=2, (e) ms a
+    step, img/s, host time a step, peak memory and a one-step profile."""
+    t_phase = time.perf_counter()
+    model = train_model(dev, width)
+    plan = model.plan
+    opt = train_optim.OptimConfig()
+    hyp = LossHyp()
+    loss_fn = make_compute_loss_ota(plan.head, hyp)
+    rng = np.random.default_rng(7)
+    batch_np = train_batch(rng, batch, img)
+    labels, mask = (torch.from_numpy(a).to(dev) for a in batch_np[1:])
+    log(f"train: yolov7 training form ({type(plan.head).__name__} head), width {width}, "
+        f"{model.num_params()} params, {img} px, batch {batch}, OTA loss {hyp}, {opt}, "
+        f"{int(batch_np[2].sum())} boxes in {MAX_LABELS}-row label pads")
+    zero_counts()
+
+    # (a) OTA on the card against the CPU, on the fp32 raw maps of a
+    # training forward
+    x = torch.from_numpy(batch_np[0]).to(dev).float() / 255.0
+    with torch.no_grad():
+        out, _ = apply_model(plan, model.params, model.state, x, training=True,
+                             dtype=torch.bfloat16)
+    ota = check_ota(dev, plan, [r.float() for r in out["raw"]], labels, mask)
+    del out
+
+    # (b) fp32 step, card against CPU
+    fp32_cpu = check_fp32_step(dev)
+
+    # (c) the bf16 step against the fp32 step, from the same state
+    lr, mom = lr_after_warmup(opt)
+    ts = init_train_state(model.params, model.state, opt, device=dev)
+    steps = {dt: make_train_step(plan, loss_fn, opt, compute_dtype=dt)
+             for dt in (torch.bfloat16, torch.float32)}
+    with full_fp32():
+        new32, m32 = steps[torch.float32](ts, *batch_np, lr, mom)
+    new16, m16 = steps[torch.bfloat16](ts, *batch_np, lr, mom)
+    du16, du32 = tree_update(new16.params, ts.params), tree_update(new32.params, ts.params)
+    cos = float(du16 @ du32 / (du16.norm() * du32.norm()))
+    m16, m32 = ({k: float(v) for k, v in m.items()} for m in (m16, m32))
+    item_err = max(abs(m16[k] - m32[k]) / abs(m32[k]) for k in m32)
+    log(f"train (c): bf16 step against the fp32 step: losses bf16 {m16}, fp32 {m32}, "
+        f"largest relative difference {item_err:.3g} (limit {BF16_ITEM_RTOL}); parameter "
+        f"updates' cosine similarity {cos:.6f} (limit {BF16_UPDATE_COS})")
+    if not item_err <= BF16_ITEM_RTOL:
+        raise AssertionError(f"train (c): bf16 loss items differ by {item_err} relative")
+    if not cos >= BF16_UPDATE_COS:
+        raise AssertionError(f"train (c): bf16 update cosine {cos}")
+    del new32, new16
+
+    # (d) TRAIN_STEPS bf16 steps on the batch, past warmup
+    step = steps[torch.bfloat16]
+    cur, totals = ts, []
+    for i in range(TRAIN_STEPS):
+        cur, metrics = step(cur, *batch_np, lr, mom)
+        totals.append(metrics["total"])
+    totals = [float(t) for t in torch.stack(totals).cpu()]
+    finite = all(bool(torch.isfinite(t).all()) for t in
+                 tree_leaves(cur.params) + tree_leaves(cur.opt_state) + tree_leaves(cur.state)
+                 + tree_leaves(cur.ema_params))
+    moved = {name: tree_rel_l2(getattr(cur, name), getattr(ts, name)) > 0
+             for name in ("state", "ema_params", "ema_state")}
+    last3 = statistics.mean(totals[-3:])
+    log(f"train (d): {TRAIN_STEPS} bf16 steps on one batch, lr {lr.tolist()}, momentum "
+        f"{float(mom):.4f}: total loss {[round(t, 5) for t in totals]}; mean of the last 3 "
+        f"{last3:.5f} against {totals[0]:.5f} at the first; params, momentum buffer "
+        f"(the sum of every grad so far), BN stats and EMA finite {finite}; moved {moved}")
+    if not last3 < totals[0]:
+        raise AssertionError(f"train (d): the loss did not fall: {totals}")
+    if not finite or not all(moved.values()):
+        raise AssertionError(f"train (d): finite {finite}, moved {moved}")
+    lr0, mom0 = warmup_factors(0, 1000, 0.0, 300, opt.lr0, 0.1, 0.1, 0.8, opt.momentum)
+    _, m_warm = step(cur, *batch_np, lr0, mom0)
+    acc_step = make_train_step(plan, loss_fn, opt, compute_dtype=torch.bfloat16, accumulate=2)
+    half = batch // 2
+    micro = tuple(a.reshape(2, half, *a.shape[1:]) for a in batch_np)
+    _, m_acc = acc_step(cur, *micro, lr, mom)
+    extra = {"warmup_step0": {k: float(v) for k, v in m_warm.items()},
+             "accumulate2": {k: float(v) for k, v in m_acc.items()}}
+    log(f"train (d): one step with the warmup's step-0 factors (lr {lr0.tolist()}, momentum "
+        f"{float(mom0):.3f}): {extra['warmup_step0']}; one with accumulate=2 (2 x {half} "
+        f"images): {extra['accumulate2']}")
+    if not all(math.isfinite(v) for m in extra.values() for v in m.values()):
+        raise AssertionError(f"train (d): non-finite losses {extra}")
+
+    # (e) time, memory, profile
+    counts = read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"train: the step launched a kernel of the port: {counts}")
+    timing = {"ms_step": None, "img_s": None, "host_ms_step": None, "peak_bytes": None,
+              "profile": None}
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        timing["ms_step"] = cuda_ms(lambda: step(cur, *batch_np, lr, mom), iters=10, warmup=2)
+        timing["peak_bytes"] = torch.cuda.max_memory_allocated()
+        timing["img_s"] = batch / timing["ms_step"] * 1e3
+        host = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            step(cur, *batch_np, lr, mom)
+            host.append((time.perf_counter() - t) * 1e3)
+        torch.cuda.synchronize()
+        timing["host_ms_step"] = statistics.median(host)
+        timing["profile"] = step_profile(dev, plan, step, cur, batch_np, lr, mom, loss_fn, opt)
+    secs = time.perf_counter() - t_phase
+    log(f"train (e): bf16 step at batch {batch}, {img} px: {timing['ms_step']} ms a step "
+        f"(median of 10, CUDA events), {timing['img_s']} img/s, host {timing['host_ms_step']} "
+        f"ms a step (enqueue, median of 5), peak allocation {timing['peak_bytes']} bytes; "
+        f"phase {secs:.1f} s")
+    return {"ota": ota, "fp32_card_cpu": fp32_cpu,
+            "bf16_vs_fp32": {"item_rel_err": item_err, "update_cos": cos,
+                             "losses_bf16": m16, "losses_fp32": m32},
+            "losses": totals, **extra, **timing, "phase_s": secs, "launches": counts}
+
+
 # substrings of the names of cuDNN's convolution kernels
 CUDNN_NAMES = ("conv", "xmma", "cudnn", "cutlass", "gemm")
 
@@ -1835,6 +2187,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
     # fp32 comparisons run in full fp32, not TF32
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
@@ -1863,6 +2216,7 @@ def main() -> int:
     full = full_int8(dev, m)
     det = detect(dev)
     ev = evaluation(dev, m)
+    tr = train(dev)
 
     # host-side counts of each kernel's main path: K1-K3 as the bf16
     # engines launched them (warm-up and capture; what the replays launch
@@ -1892,12 +2246,14 @@ def main() -> int:
             "agreement", "agreement_cudnn_bf16")
     log(json.dumps({"serving": {k: srv[k] for k in keys + ("ingest",)},
                     "int8_serving": {k: srv8[k] for k in keys + ("calibrate_s",)},
-                    "full_int8": full, "detect": det, "eval": ev,
+                    "full_int8": full, "detect": det, "eval": ev, "train": tr,
                     "fused": {"K2": rows["K2"], "K3": rows["K3"]},
                     "k1l_runs": rows["k1l_runs"],
                     "stages": rows["stages"], "k4_convs": rows["k4_convs"],
                     "card": card}))
     log(json.dumps({"kernels": kernels}))
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, train phase "
+        f"{tr['phase_s']:.1f} s")
     log(smi())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -48,15 +48,65 @@ def to_numpy(tree):
 
 
 def to_jax_tree(tree, key=None):
-    """The port's param tree back to the JAX package's numpy form (the
-    inverse of `models/convert.from_jax_params`: OIHW -> HWIO for `w` and
-    the int8 `wq`)."""
+    """The port's param tree (or a tree shaped like one: grads, optimizer
+    slots, EMA) back to the JAX package's numpy form (the inverse of
+    `models/convert.from_jax_params`: OIHW -> HWIO for `w` and the int8
+    `wq`); leaves that are not tensors (Adam's step count) pass as they
+    are."""
     if isinstance(tree, dict):
         return {k: to_jax_tree(v, k) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [to_jax_tree(v, key) for v in tree]
+    if not hasattr(tree, "detach"):
+        return tree
     a = tree.detach().cpu().numpy()
     return a.transpose(2, 3, 1, 0) if key in ("w", "wq") and a.ndim == 4 else a
+
+
+def assert_trees_close(got, want, rel, what=""):
+    """Every leaf of the port's tree `got` (back in JAX form) against the
+    JAX tree `want`: max |got - want| <= rel x max(|want|) of that leaf
+    (a leaf of zeros must be zeros). Same structure and shapes."""
+    import jax
+
+    g = jax.tree_util.tree_leaves_with_path(to_jax_tree(got))
+    w = jax.tree_util.tree_leaves_with_path(to_numpy(want))
+    assert [p for p, _ in g] == [p for p, _ in w], what
+    for (path, a), (_, b) in zip(g, w):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        assert a.shape == b.shape, (what, path)
+        err, scale = np.abs(a - b).max(initial=0.0), np.abs(b).max(initial=0.0)
+        assert err <= rel * scale, (what, jax.tree_util.keystr(path), err, scale)
+
+
+def jax_training_model(width=0.25, seed=0, stats_seed=None):
+    """yolov7 training form (IDetect) at `width`, weights drawn by the JAX
+    package (seed), unlivened: (jax plan, params_np, state_np, port plan,
+    port params, port state). With stats_seed, every BN running mean is
+    N(0, 0.2) and every running var U(0.5, 1.5) (so the shifted one-pass
+    moments are centred off zero)."""
+    import jax
+
+    from yolo_series_tpu.models.model import Model
+    from yolo_series_tpu_torch.models.convert import from_jax_params
+    from yolo_series_tpu_torch.models.graph import compile_graph
+
+    cfg = training_cfg(width)
+    m = Model.from_yaml(cfg, key=jax.random.PRNGKey(seed))
+    params, state = to_numpy(m.params), to_numpy(m.state)
+    if stats_seed is not None:
+        rng = np.random.default_rng(stats_seed)
+
+        def draw(path, a):
+            name = jax.tree_util.keystr(path[-1:])
+            if "mean" in name:
+                return rng.normal(0, 0.2, a.shape).astype(np.float32)
+            return rng.uniform(0.5, 1.5, a.shape).astype(np.float32)
+
+        state = jax.tree_util.tree_map_with_path(draw, state)
+    tplan = compile_graph(cfg)
+    tp, ts = from_jax_params(tplan, params, state)
+    return m.plan, params, state, tplan, tp, ts
 
 
 def jax_model(width=0.5, seed=0, size=128, candidates=150, cfg=None):

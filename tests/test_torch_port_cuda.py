@@ -693,3 +693,84 @@ def test_graph_capture_failure_raises(cuda, graph_engine):
     with pytest.raises(Exception):
         eng.infer(_frames(4, n=1))
     assert not eng.captured and eng.replays == 0
+
+
+# ------------------------------------------------------------ train step ---
+
+def test_train_step_fp32_card_equals_cpu(cuda):
+    """One fp32 step (OTA, SGD) of yolov7's training form at width 0.25,
+    320 px, batch 2 on the card (TF32 off) against the same step on the
+    CPU: the relative L2 distance of the updates, the BN stats and the EMA
+    within chip_smoke's limits (phase 7 (b))."""
+    import chip_smoke
+
+    got = chip_smoke.check_fp32_step(cuda)
+    assert got["update_rel_l2"] <= chip_smoke.STEP_UPDATE_L2
+    assert max(got["bn_state_rel_err"], got["ema_rel_err"]) <= chip_smoke.STEP_STATE_REL
+
+
+def test_ota_card_equals_cpu(cuda):
+    """The OTA loss and assignment on the card against the CPU on the same
+    fp32 raw maps (a bf16 training forward of yolov7 at width 0.5, 320 px,
+    batch 4) and labels padded to 256 rows: chip_smoke's limits (phase 7
+    (a))."""
+    import chip_smoke
+    from yolo_series_tpu_torch.models.model import apply_model
+
+    m = chip_smoke.train_model(cuda, 0.5)
+    images, labels, mask = chip_smoke.train_batch(np.random.default_rng(0), 4, 320)
+    x = torch.from_numpy(images).to(cuda).float() / 255.0
+    with torch.no_grad():
+        out, _ = apply_model(m.plan, m.params, m.state, x, training=True,
+                             dtype=torch.bfloat16)
+    got = chip_smoke.check_ota(cuda, m.plan, [r.float() for r in out["raw"]],
+                               torch.from_numpy(labels).to(cuda),
+                               torch.from_numpy(mask).to(cuda))
+    assert got["same_columns"] >= chip_smoke.OTA_COLUMN_SHARE and got["fg"] > 0
+
+
+def test_bf16_train_step_grads_finite(cuda):
+    """Two bf16 steps at width 0.5, 320 px, batch 2: finite losses, params,
+    momentum buffer (the sum of every grad) and BN stats; the first
+    momentum buffer is the first step's grads (+ weight decay), all finite
+    and not all zero."""
+    import chip_smoke
+    from yolo_series_tpu_torch.losses import LossHyp, make_compute_loss_ota
+    from yolo_series_tpu_torch.train.optim import OptimConfig
+    from yolo_series_tpu_torch.train.step import init_train_state, make_train_step
+    from yolo_series_tpu_torch.models.model import tree_leaves as leaves
+
+    m = chip_smoke.train_model(cuda, 0.5)
+    opt = OptimConfig()
+    step = make_train_step(m.plan, make_compute_loss_ota(m.plan.head, LossHyp()), opt)
+    ts = init_train_state(m.params, m.state, opt, device=cuda)
+    batch = chip_smoke.train_batch(np.random.default_rng(1), 2, 320)
+    lr, mom = chip_smoke.lr_after_warmup(opt)
+    for _ in range(2):
+        ts, metrics = step(ts, *batch, lr, mom)
+        assert all(torch.isfinite(v) for v in metrics.values())
+        v = leaves(ts.opt_state["v"])
+        assert all(bool(torch.isfinite(t).all()) for t in v + leaves(ts.params)
+                   + leaves(ts.state))
+        assert any(bool(t.any()) for t in v)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_tiled_max_pool_ties_card_equals_cpu(cuda, dtype):
+    """The tiled 2x2/2 max pool on tied inputs (values in {0, 1/2, 1}):
+    output and gradient on the card bit-equal to the CPU's (a window's
+    gradient split equally among its tied maxima)."""
+    from yolo_series_tpu_torch.models.layers import max_pool
+
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.integers(0, 3, (4, 64, 40, 48)) / 2).to(dtype)
+    g = torch.from_numpy(rng.normal(0, 1, (4, 64, 20, 24))).to(dtype)
+    out = {}
+    for where in (cuda, torch.device("cpu")):
+        xt = x.to(where).contiguous(memory_format=torch.channels_last).requires_grad_()
+        y = max_pool(xt, 2, 2, 0)
+        gx, = torch.autograd.grad(y, xt, g.to(where))
+        out[where.type] = (y.detach().cpu(), gx.cpu())
+    assert torch.equal(out["cuda"][0], out["cpu"][0])
+    assert torch.equal(out["cuda"][1], out["cpu"][1])
+    assert (out["cpu"][1] != 0).sum() > y.numel()      # ties split the gradient

@@ -34,6 +34,11 @@ def test_every_module_imports_without_jax():
     assert res.returncode == 0, res.stderr
     assert "LOADED []" in res.stdout, res.stdout
     assert len(MODULES) >= 15, MODULES
+    # the train step's modules are among those imported
+    assert {f"yolo_series_tpu_torch.{m}" for m in (
+        "losses", "losses.targets", "losses.yolo_loss", "losses.ota", "train.optim",
+        "train.schedules", "train.ema", "train.step")} <= {
+        m.removesuffix(".__init__") for m in MODULES}
 
 
 _FORBIDDEN = re.compile(
@@ -52,6 +57,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from yolo_series_tpu_torch.device import device
     from yolo_series_tpu_torch.infer.serving import ServingEngine
     from yolo_series_tpu_torch.models.model import Model
+    from yolo_series_tpu_torch.train.optim import OptimConfig
+    from yolo_series_tpu_torch.train.step import init_train_state
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -60,6 +67,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         Model.from_yaml(str(PKG / "models/cfg/deploy/yolov7.yaml"))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingEngine(None, None, None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_train_state({"layers": []}, {"layers": []}, OptimConfig())
     assert device("cpu") == torch.device("cpu")
 
 

@@ -289,8 +289,8 @@ def test_int8_layers_match_jax(models, case):
                (y if spec.frm == -1 else saved[spec.frm]))
         tin = [_nchw(a) for a in inp] if frm else _nchw(inp)
         with torch.no_grad():
-            got = _run_layer(tctx, tplan.layers[idx], tq["layers"][idx],
-                             tqs["layers"][idx], tin, idx)
+            got, _ = _run_layer(tctx, tplan.layers[idx], tq["layers"][idx],
+                                tqs["layers"][idx], tin, idx)
         y, _ = jrun_layer(jctx, spec, jq["layers"][idx], jqs["layers"][idx], inp, None, idx)
         want = np.asarray(y)
         err = np.abs(got.permute(0, 2, 3, 1).numpy() - want).max()

@@ -79,12 +79,16 @@ class Detect:
         return y.permute(0, 2, 3, 1).reshape(b, ny, nx, self.na, self.no)
 
     def apply(self, params, state, xs: Sequence[torch.Tensor], ctx: Ctx):
+        """In training only {"raw": [...]} (JAX heads.py:97-107)."""
         raws, preds = [], []
         apx = self.anchors_grid()
         for i in range(self.nl):
             y = self._raw_level(params, xs, i, ctx)
             raws.append(y.permute(0, 3, 1, 2, 4))
-            preds.append(_decode_level(y, self.strides[i], apx[i], self.nc))
+            if not ctx.training:
+                preds.append(_decode_level(y, self.strides[i], apx[i], self.nc))
+        if ctx.training:
+            return {"raw": raws}, state
         return {"pred": torch.cat(preds, dim=1), "raw": raws}, state
 
     def _bias_prior(self, stride, cf=None):

@@ -13,6 +13,12 @@ Only what the yolov7 deploy and training graphs run is here: ConvBnAct
 convs), MP, Upsample, Concat, SPPCSPC, RepConv, and the implicit-knowledge
 layers ImplicitA / ImplicitM of IDetect. The rest of the zoo is ROADMAP
 queue 1, slice 3.
+
+In training (`Ctx.training`) BN normalizes with the batch's moments and
+returns the new running stats, which every block hands back as its new
+state; BN and the non-overlapping max pool have the JAX package's custom
+gradients (`BnTrainCore`, `MaxPoolTiled`). Cross-replica (`axis_name`)
+SyncBN is ROADMAP queue 1 item 12 and is not accepted here.
 """
 
 from __future__ import annotations
@@ -25,17 +31,25 @@ import torch
 import torch.nn.functional as F
 
 BN_EPS = 1e-3       # layers.BN_EPS of the JAX package
+BN_MOMENTUM = 0.03  # layers.BN_MOMENTUM of the JAX package
 
 
 @dataclasses.dataclass(frozen=True)
 class Ctx:
     """Per-forward context: the working dtype of the convs, and the int8
     calibration hook `observer(path, x)`, fired at every conv input with
-    the conv's param path (set only while an observer is given)."""
+    the conv's param path (set only while an observer is given).
+
+    training: BN takes the batch's moments and updates its running stats.
+    bn_shards > 1: per-replica BN, the batch split into this many
+    contiguous groups, each normalized with its own moments; the running
+    stats follow group 0 (`_batch_norm_per_replica`)."""
 
     dtype: torch.dtype = torch.float32
     observer: Any = None
     path: str = ""
+    training: bool = False
+    bn_shards: int = 1
 
 
 ACTIVATIONS = {"silu": F.silu, "identity": lambda x: x}
@@ -88,12 +102,109 @@ def bn_init(c):
     return params, state
 
 
-def batch_norm(bn_params, bn_state, x):
-    """Inference BatchNorm over NCHW channels, computed in fp32."""
-    inv = torch.rsqrt(bn_state["var"] + BN_EPS) * bn_params["scale"]
-    y = (x.float() - bn_state["mean"][:, None, None]) * inv[:, None, None] \
-        + bn_params["bias"][:, None, None]
-    return y.to(x.dtype)
+def _c(v):
+    """(C,) -> (C, 1, 1), to broadcast over NCHW channels."""
+    return v[:, None, None]
+
+
+_AXES = (0, 2, 3)   # the N, H, W axes of NCHW
+
+
+def _bn_train_moments(x, m0):
+    """Training batch moments of NCHW x in fp32 (`_bn_train_moments` of the
+    JAX package): the shifted one-pass form, centred on the running mean m0,
+    for C >= 64, the two-pass form below. The two round differently, so the
+    port takes the JAX package's form at each C."""
+    xf = x.float()
+    if x.shape[1] >= 64:
+        xc = xf - _c(m0)
+        mc = xc.mean(_AXES)
+        msq = xc.square().mean(_AXES)
+        return m0 + mc, torch.clamp(msq - mc.square(), min=0.0)
+    mean = xf.mean(_AXES)
+    return mean, (xf - _c(mean)).square().mean(_AXES)
+
+
+class BnTrainCore(torch.autograd.Function):
+    """Training-mode BN (moments, normalize, affine) with the JAX package's
+    custom gradient (`_bn_train_core`, layers.py:183-239): it saves only
+    (x, mean, var, scale), x in its own dtype, and its backward recomputes
+    x-hat, the classic BN training backward, plus the exact cotangents of
+    the mean and var outputs (zero in the train step, where they only feed
+    the running stats). Returns (y in x's dtype, mean, var)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, m0):
+        mean, var = _bn_train_moments(x, m0)
+        inv = torch.rsqrt(var + BN_EPS) * scale
+        y = (x.float() - _c(mean)) * _c(inv) + _c(bias)
+        ctx.save_for_backward(x, mean, var, scale)
+        # an unused output's cotangent arrives as None, not as a tensor of
+        # zeros, so the train step (mean and var unused) pays no pass for it
+        ctx.set_materialize_grads(False)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, gy, gm, gv):
+        x, mean, var, scale = ctx.saved_tensors
+        xf = x.float()
+        inv = torch.rsqrt(var + BN_EPS)
+        xc = xf - _c(mean)
+        xhat = xc * _c(inv)
+        gyf = torch.zeros_like(xf) if gy is None else gy.float()
+        sg = gyf.sum(_AXES)
+        sgx = (gyf * xhat).sum(_AXES)
+        n = x.shape[0] * x.shape[2] * x.shape[3]
+        dx = _c(scale * inv) * (gyf - _c(sg / n) - xhat * _c(sgx / n))
+        if gm is not None:
+            dx = dx + _c(gm / n)
+        if gv is not None:
+            dx = dx + _c(gv * (2.0 / n)) * xc
+        return dx.to(x.dtype), sgx, sg, None
+
+
+def _running(bn_state, mean, var, n):
+    """The running stats after one batch of n values a channel: momentum
+    BN_MOMENTUM, the unbiased variance."""
+    unbiased = var.detach() * (n / max(n - 1, 1))
+    m = BN_MOMENTUM
+    return {"mean": (1 - m) * bn_state["mean"] + m * mean.detach(),
+            "var": (1 - m) * bn_state["var"] + m * unbiased}
+
+
+def batch_norm(bn_params, bn_state, x, ctx: Optional[Ctx] = None):
+    """BatchNorm over NCHW channels in fp32 -> (y in x's dtype, new state).
+    In inference the running stats, unchanged; in training the batch's
+    moments and the updated running stats (`layers.batch_norm` of the JAX
+    package)."""
+    scale, bias = bn_params["scale"], bn_params["bias"]
+    if ctx is not None and ctx.training:
+        if ctx.bn_shards > 1:
+            return _batch_norm_per_replica(bn_params, bn_state, x, ctx.bn_shards)
+        y, mean, var = BnTrainCore.apply(x, scale, bias, bn_state["mean"].detach())
+        return y, _running(bn_state, mean, var, x.shape[0] * x.shape[2] * x.shape[3])
+    inv = torch.rsqrt(bn_state["var"] + BN_EPS) * scale
+    y = (x.float() - _c(bn_state["mean"])) * _c(inv) + _c(bias)
+    return y.to(x.dtype), bn_state
+
+
+def _batch_norm_per_replica(bn_params, bn_state, x, g):
+    """Per-replica (unsynced) BN (`_batch_norm_per_replica` of the JAX
+    package): the batch splits into g contiguous groups, each normalized
+    with its own two-pass moments, through plain autograd; the running
+    stats follow group 0."""
+    b = x.shape[0]
+    if b % g:
+        raise ValueError(f"batch {b} does not split into {g} BN groups")
+    xf = x.float().reshape(g, b // g, *x.shape[1:])
+    axes = (1, 3, 4)
+    mean = xf.mean(axes)                                     # (g, C)
+    var = (xf - mean[:, None, :, None, None]).square().mean(axes)
+    new_state = _running(bn_state, mean[0], var[0], (b // g) * x.shape[2] * x.shape[3])
+    inv = torch.rsqrt(var + BN_EPS) * bn_params["scale"]     # (g, C)
+    y = (xf - mean[:, None, :, None, None]) * inv[:, None, :, None, None] \
+        + _c(bn_params["bias"])
+    return y.reshape(x.shape).to(x.dtype), new_state
 
 
 def conv2d(x, w, b=None, stride=1, padding=0, groups=1, dtype=None):
@@ -113,8 +224,39 @@ def conv2d(x, w, b=None, stride=1, padding=0, groups=1, dtype=None):
                     _pair(stride), padding, 1, groups)
 
 
+class MaxPoolTiled(torch.autograd.Function):
+    """Non-overlapping k x k / stride-k max pool with the JAX package's
+    gradient (`_max_pool_tiled`, layers.py:317-349): each input belongs to
+    one window, and a window's gradient is split equally among the inputs
+    that tie for its max (torch's max_pool2d routes it to one of them)."""
+
+    @staticmethod
+    def forward(ctx, x, k):
+        m = F.max_pool2d(x, k, k)
+        ctx.save_for_backward(x, m)
+        ctx.k = k
+        return m
+
+    @staticmethod
+    def backward(ctx, g):
+        x, m = ctx.saved_tensors
+        k = ctx.k
+        n, c, ho, wo = m.shape
+        xr = x.reshape(n, c, ho, k, wo, k)
+        mask = xr == m[:, :, :, None, :, None]
+        cnt = mask.sum((3, 5), keepdim=True)
+        gr = torch.where(mask, g[:, :, :, None, :, None] / cnt, torch.zeros((), dtype=g.dtype,
+                                                                             device=g.device))
+        return gr.reshape(x.shape), None
+
+
 def max_pool(x, k, s, padding):
-    """Max pool with implicit -inf padding (torch semantics)."""
+    """Max pool with implicit -inf padding (torch semantics). The
+    non-overlapping case takes `MaxPoolTiled` under the JAX package's
+    condition (layers.py:352-357), so its gradient splits ties as JAX's."""
+    if (s == k and padding == 0 and x.ndim == 4 and x.shape[2] % k == 0
+            and x.shape[3] % k == 0 and x.is_floating_point()):
+        return MaxPoolTiled.apply(x, k)
     return F.max_pool2d(x, k, s, padding)
 
 
@@ -164,14 +306,18 @@ class Composite(Block):
         return params, state
 
     def _call(self, params, state, ctx):
+        """(call, new_state): call(name, x) applies the child `name` and
+        records its new state in new_state."""
         kids = self.children()
+        new_state = dict(state)
 
         def call(name, x):
             c = (dataclasses.replace(ctx, path=f"{ctx.path}/{name}")
                  if ctx.observer is not None else ctx)
-            return kids[name].apply(params[name], state[name], x, c)[0]
+            y, new_state[name] = kids[name].apply(params[name], state[name], x, c)
+            return y
 
-        return call
+        return call, new_state
 
 
 def _int8_conv(params, x, stride, padding, groups):
@@ -219,11 +365,11 @@ class ConvBnAct(Block):
             return fn(y).to(x.dtype), state
         if "bn" in params:
             y = conv2d(x, params["w"], None, self.s, pad, self.g, ctx.dtype)
-            y = batch_norm(params["bn"], state["bn"], y)
-        else:  # fused deploy form
-            y = conv2d(x, params["w"], params["b"], self.s, pad, self.g,
-                       ctx.dtype)
-        return fn(y), state
+            y, bns = batch_norm(params["bn"], state["bn"], y, ctx)
+            return fn(y), {"bn": bns}
+        # fused deploy form
+        return fn(conv2d(x, params["w"], params["b"], self.s, pad, self.g,
+                         ctx.dtype)), state
 
 
 @dataclasses.dataclass(frozen=True)
@@ -351,12 +497,12 @@ class SPPCSPC(Composite):
         }
 
     def apply(self, params, state, x, ctx):
-        call = self._call(params, state, ctx)
+        call, new_state = self._call(params, state, ctx)
         x1 = call("cv4", call("cv3", call("cv1", x)))
         pools = max_pool_pyramid(x1, self.k)
         y1 = call("cv6", call("cv5", torch.cat([x1] + pools, dim=1)))
         y2 = call("cv2", x)
-        return call("cv7", torch.cat([y1, y2], dim=1)), state
+        return call("cv7", torch.cat([y1, y2], dim=1)), new_state
 
 
 @dataclasses.dataclass(frozen=True)
@@ -415,13 +561,19 @@ class RepConv(Composite):
         if "w" in params:  # fused deploy form
             return fn(conv2d(x, params["w"], params["b"], self.s, 1, self.g,
                              ctx.dtype)), state
+        new_state = dict(state)
         yd = conv2d(x, params["dense"]["w"], None, self.s, 1, self.g, ctx.dtype)
-        y = batch_norm(params["dense"]["bn"], state["dense"]["bn"], yd)
+        y, bns = batch_norm(params["dense"]["bn"], state["dense"]["bn"], yd, ctx)
+        new_state["dense"] = {"bn": bns}
         y1 = conv2d(x, params["one"]["w"], None, self.s, 0, self.g, ctx.dtype)
-        y = y + batch_norm(params["one"]["bn"], state["one"]["bn"], y1)
+        y1, bns = batch_norm(params["one"]["bn"], state["one"]["bn"], y1, ctx)
+        new_state["one"] = {"bn": bns}
+        y = y + y1
         if self.has_identity:
-            y = y + batch_norm(params["idbn"], state["idbn"], x.to(y.dtype))
-        return fn(y), state
+            yid, new_state["idbn"] = batch_norm(params["idbn"], state["idbn"],
+                                                x.to(y.dtype), ctx)
+            y = y + yid
+        return fn(y), new_state
 
 
 @dataclasses.dataclass(frozen=True)

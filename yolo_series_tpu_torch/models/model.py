@@ -30,11 +30,33 @@ def tree_map(fn, tree):
 
 
 def tree_leaves(tree) -> List[torch.Tensor]:
+    """Every tensor leaf, dicts walked in sorted key order (as
+    `jax.tree_util` walks them), so two trees with the same keys flatten
+    leaf for leaf alike whatever order their dicts were built in."""
     if isinstance(tree, dict):
-        return [x for v in tree.values() for x in tree_leaves(v)]
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in tree_leaves(v)]
     return [tree] if isinstance(tree, torch.Tensor) else []
+
+
+def tree_rebuild(tree, new: List[Any]) -> Any:
+    """`tree` with its tensor leaves replaced by `new`, in the order
+    `tree_leaves` gives them."""
+    it = iter(new)
+
+    def build(t):
+        if isinstance(t, dict):
+            done = {k: build(t[k]) for k in sorted(t)}
+            return {k: done[k] for k in t}
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(v) for v in t)
+        return next(it) if isinstance(t, torch.Tensor) else t
+
+    out = build(tree)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree holds")
+    return out
 
 
 def init_model(plan: GraphPlan, generator: torch.Generator) -> Tuple[Any, Any]:
@@ -56,37 +78,47 @@ def init_model(plan: GraphPlan, generator: torch.Generator) -> Tuple[Any, Any]:
 
 
 def _run_layer(ctx, spec, p, s, inp, idx=0):
-    """One non-head layer. With an observer, the blocks see the param path
-    of layer `idx` ("l{idx}", or "l{idx}.{r}" for a repeat)."""
+    """One non-head layer -> (its output, its new state). With an observer,
+    the blocks see the param path of layer `idx` ("l{idx}", or "l{idx}.{r}"
+    for a repeat)."""
     def at(path):
         return dataclasses.replace(ctx, path=path) if ctx.observer is not None else ctx
 
     if spec.n_seq > 1:
-        cur = inp
+        cur, states = inp, []
         for r in range(spec.n_seq):
-            cur, _ = spec.block.apply(p[r], s[r], cur, at(f"l{idx}.{r}"))
-        return cur
-    return spec.block.apply(p, s, inp, at(f"l{idx}"))[0]
+            cur, s_r = spec.block.apply(p[r], s[r], cur, at(f"l{idx}.{r}"))
+            states.append(s_r)
+        return cur, states
+    return spec.block.apply(p, s, inp, at(f"l{idx}"))
 
 
 def apply_model(plan: GraphPlan, params, state, x, *, training: bool = False,
                 dtype: torch.dtype = torch.float32, observer=None,
-                return_head_inputs: bool = False):
+                return_head_inputs: bool = False, bn_shards: int = 1,
+                remat_prefix: int = 0):
     """Run the graph. x: (B, H, W, C) NHWC in [0, 1].
 
-    Returns (out, state): the head's {"pred": (B, A, no), "raw": [...]}, or
+    Returns (out, new_state): the head's {"pred": (B, A, no), "raw": [...]}
+    in inference, {"raw": [per-level (B, na, ny, nx, no)]} in training, or
     with return_head_inputs=True the head's per-level NHWC inputs (the
-    serving path fuses the head with NMS, ops/nms.fused_head_nms).
+    serving path fuses the head with NMS, ops/nms.fused_head_nms). In
+    training, BN normalizes with the batch's moments and new_state holds
+    every layer's updated running stats; in inference it is `state`.
 
     observer(path, x): fired at every conv input with the paths of
     `infer/quant.quantize_tree` ("l3", "l51/cv1", "l7.0"; the head's convs
     with path "", as in the JAX package), for int8 calibration.
+    bn_shards > 1: per-replica BN in training (`layers.Ctx`).
+    remat_prefix > 0 (recompute the first layers in the backward, a TPU
+    memory-for-FLOPs lever) is ROADMAP queue 1 item 21 and raises.
     """
-    if training:
+    if remat_prefix > 0:
         raise NotImplementedError(
-            "the training-mode forward is ROADMAP queue 1, slice 2 (item 8)")
-    ctx = Ctx(dtype=dtype, observer=observer)
+            "remat_prefix is not ported yet: ROADMAP queue 1, item 21")
+    ctx = Ctx(dtype=dtype, observer=observer, training=training, bn_shards=bn_shards)
     lp, ls = params["layers"], state["layers"]
+    new_state = list(ls)
     saved: Dict[int, torch.Tensor] = {}
     y = x.to(dtype).permute(0, 3, 1, 2).contiguous(
         memory_format=torch.channels_last)
@@ -97,10 +129,10 @@ def apply_model(plan: GraphPlan, params, state, x, *, training: bool = False,
             inp = y if spec.frm == -1 else saved[spec.frm]
         if spec.is_head:
             if return_head_inputs:
-                return [t.permute(0, 2, 3, 1) for t in inp], state
-            out, _ = spec.block.apply(lp[idx], ls[idx], inp, ctx)
-            return out, state
-        y = _run_layer(ctx, spec, lp[idx], ls[idx], inp, idx)
+                return [t.permute(0, 2, 3, 1) for t in inp], {"layers": new_state}
+            out, new_state[idx] = spec.block.apply(lp[idx], ls[idx], inp, ctx)
+            return out, {"layers": new_state}
+        y, new_state[idx] = _run_layer(ctx, spec, lp[idx], ls[idx], inp, idx)
         if idx in plan.save:
             saved[idx] = y
     raise ValueError("graph plan ended without a head layer")
