@@ -87,7 +87,21 @@ non-zero on failure before the last line is printed:
     and a one-step profile split into cuDNN convolutions, BN and
     elementwise, the OTA loss and the optimizer with the EMA. The step runs
     none of the port's kernels (the counters stay 0).
- 8. One JSON line of per-kernel numbers, the card's name and power limit,
+ 8. Train and test through the CLIs: a synthetic set of 64 train and 16
+    val JPEGs (phase 5's four shapes, blocky noise with 1-8 filled
+    rectangles an image over the 80 classes) written under build/, then
+    `cli/train.py` on full-width yolov7 training form from a start whose
+    BN state is set on a training batch and whose head passes candidates
+    (the val labels also hold its own 3 most confident detections an
+    image, so mAP is above 0), 640 px, batch 8 accumulated to 16, bf16,
+    2 epochs, the default hyp (mosaic, mixup, paste-in), autoanchor and
+    per-epoch validation: every loss item finite, last.ckpt and best.ckpt
+    stripped and read back, validation launched K1L only. Then `cli/test.py` on last.ckpt (fused, fp32): its
+    mAP equal with K1L and with the plain keep-mask. Timed: img/s and ms a
+    step an epoch, the share of the trainer's time spent waiting for a
+    batch, the loader alone with 1 and 4 threads, a checkpoint's bytes and
+    write time, validation and the test CLI's ms an image, peak allocation.
+ 9. One JSON line of per-kernel numbers, the card's name and power limit,
     and the last line `{"ok": true, "device": {...}}`.
 """
 
@@ -96,6 +110,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -117,7 +132,10 @@ import yolo_series_tpu_torch  # noqa: E402
 if Path(yolo_series_tpu_torch.__file__).resolve().parent != ROOT / "yolo_series_tpu_torch":
     raise ImportError(f"yolo_series_tpu_torch is not the one beside {__file__}")
 
+from yolo_series_tpu_torch.cli import test as cli_test
+from yolo_series_tpu_torch.cli import train as cli_train
 from yolo_series_tpu_torch.data.augment import letterbox
+from yolo_series_tpu_torch.data.datasets import DetectionDataset, create_loader
 from yolo_series_tpu_torch.device import full_fp32
 from yolo_series_tpu_torch.eval import evaluator
 from yolo_series_tpu_torch.eval.evaluator import evaluate, scale_coords_np
@@ -135,6 +153,9 @@ from yolo_series_tpu_torch.ops.nms import batched_nms, fused_head_nms
 from yolo_series_tpu_torch.losses import LossHyp, make_compute_loss_ota
 from yolo_series_tpu_torch.losses.ota import ota_assign_batch
 from yolo_series_tpu_torch.train import optim as train_optim
+from yolo_series_tpu_torch.train import trainer
+from yolo_series_tpu_torch.train.checkpoints import (load_checkpoint, load_checkpoint_any,
+                                                     save_checkpoint)
 from yolo_series_tpu_torch.train.ema import ema_update
 from yolo_series_tpu_torch.train.schedules import warmup_factors
 from yolo_series_tpu_torch.train.step import init_train_state, make_train_step
@@ -236,6 +257,15 @@ STEP_UPDATE_L2, STEP_STATE_REL = 1e-3, 1e-5
 BF16_ITEM_RTOL, BF16_UPDATE_COS = 0.15, 0.1
 # (d) steps on one fixed batch
 TRAIN_STEPS = 20
+# Phase 8 (train and test through the CLIs): a synthetic set written under
+# build/ from SMOKE_SEED, at the four image shapes of phase 5, with
+# BOXES_AN_IMAGE filled rectangles an image over the 80 COCO classes;
+# CLI_EPOCHS epochs at batch BATCH accumulated to CLI_NBS, CLI_WORKERS
+# loader threads.
+SMOKE_DATA, SMOKE_RUNS = ROOT / "build" / "smoke_data", ROOT / "build" / "smoke_runs"
+DATA_SHAPES = ((480, 640), (720, 1280), (640, 640), (375, 500))
+TRAIN_IMAGES, VAL_IMAGES, BOXES_AN_IMAGE, SMOKE_SEED = 64, 16, (1, 8), 21
+CLI_EPOCHS, CLI_NBS, CLI_WORKERS = 2, 16, 4
 
 
 def log(*a):
@@ -915,6 +945,24 @@ def _bn_leaves(tree):
 
 
 @torch.no_grad()
+def settle_bn(plan, params, state, x):
+    """Set every BN's running mean and variance to its input's moments on
+    the images x (a training forward with BN momentum 1): then the
+    evaluation forward on such images equals the training forward, as in a
+    trained network, and a training step moves the BN state by a little,
+    not from the init's (0, 1) to the batch's moments."""
+    momentum = L.BN_MOMENTUM
+    L.BN_MOMENTUM = 1.0
+    try:
+        _, new = apply_model(plan, params, state, x.float(), training=True,
+                             dtype=torch.float32)
+    finally:
+        L.BN_MOMENTUM = momentum
+    for a, b in zip(tree_leaves(state), tree_leaves(new)):
+        a.copy_(b)
+
+
+@torch.no_grad()
 def liven(plan, params, state, x, *, act_rms=0.1, head_gain=20.0,
           candidates=300, conf_thres=0.25):
     """Edit a random-init unfused param tree in place so it detects, and
@@ -930,7 +978,8 @@ def liven(plan, params, state, x, *, act_rms=0.1, head_gain=20.0,
     bf16 paths of equal merit land 3% and 8% (RMS) from the fp32 head
     inputs. The head's weights are multiplied by head_gain, its class
     biases zeroed, and one objectness bias chosen by bisection so that
-    about `candidates` anchors per image pass conf_thres."""
+    about `candidates` anchors per image pass conf_thres. act_rms=None
+    leaves the BN layers as they are (`settle_bn` has set them)."""
     ctx = L.Ctx(torch.float32)
     lp, ls = params["layers"], state["layers"]
     saved = {}
@@ -942,7 +991,7 @@ def liven(plan, params, state, x, *, act_rms=0.1, head_gain=20.0,
             inp = y if spec.frm == -1 else saved[spec.frm]
         if spec.is_head:
             break
-        bns = _bn_leaves(lp[idx])
+        bns = _bn_leaves(lp[idx]) if act_rms is not None else []
         for bn in bns:
             bn["bias"].zero_()
         for _ in range(12):
@@ -2084,6 +2133,251 @@ def train(dev, width=1.0, img=IMG, batch=BATCH):
             "losses": totals, **extra, **timing, "phase_s": secs, "launches": counts}
 
 
+# ------------------------------------------------- train and test CLIs ---
+
+def write_dataset(root, n_train=TRAIN_IMAGES, n_val=VAL_IMAGES, nc=80, size=None):
+    """A detection set under `root`: train/ and val/ with images/ (JPEGs at
+    DATA_SHAPES in turn, blocky noise as `noise_image` makes it at `size`)
+    and labels/ (YOLO txt: BOXES_AN_IMAGE filled rectangles an image, each
+    of a random class and colour), and data.yaml. Drawn from SMOKE_SEED;
+    returns the yaml's path."""
+    import cv2
+    import yaml
+
+    rng = np.random.default_rng(SMOKE_SEED)
+    for split, n in (("train", n_train), ("val", n_val)):
+        (root / split / "images").mkdir(parents=True, exist_ok=True)
+        (root / split / "labels").mkdir(parents=True, exist_ok=True)
+        for i in range(n):
+            h, w = DATA_SHAPES[i % len(DATA_SHAPES)]
+            img = noise_image(rng, (h, w), size)
+            rows = []
+            for _ in range(int(rng.integers(BOXES_AN_IMAGE[0], BOXES_AN_IMAGE[1] + 1))):
+                bw, bh = (int(rng.uniform(0.05, 0.4) * w), int(rng.uniform(0.05, 0.4) * h))
+                x1, y1 = int(rng.integers(0, w - bw)), int(rng.integers(0, h - bh))
+                colour = tuple(int(c) for c in rng.integers(0, 256, 3))
+                cv2.rectangle(img, (x1, y1), (x1 + bw - 1, y1 + bh - 1), colour, -1)
+                rows.append(f"{int(rng.integers(0, nc))} {(x1 + bw / 2) / w:.6f} "
+                            f"{(y1 + bh / 2) / h:.6f} {bw / w:.6f} {bh / h:.6f}")
+            cv2.imwrite(str(root / split / "images" / f"{split}{i:03d}.jpg"), img)
+            (root / split / "labels" / f"{split}{i:03d}.txt").write_text("\n".join(rows))
+    data = root / "data.yaml"
+    data.write_text(yaml.safe_dump({"train": str(root / "train" / "images"),
+                                    "val": str(root / "val" / "images"), "nc": nc,
+                                    "names": [f"class{i}" for i in range(nc)]}))
+    return str(data)
+
+
+def label_own_detections(model, val_dir, img, batch, max_det=3):
+    """Append to each val image's labels the model's `max_det` most
+    confident detections on it (conf 0.25, fp32), found on the val images
+    as the trainer's evaluation letterboxes them and mapped back to the
+    image: so the evaluations' mAP is above 0 and best.ckpt is written."""
+    ds = DetectionDataset(str(val_dir / "images"), img_size=img, batch_size=batch, rect=True,
+                          pad=0.5, stride=int(max(model.plan.strides)))
+    dev = tree_leaves(model.params)[0].device
+    for b in create_loader(ds, batch_size=batch, shuffle=False, drop_last=False):
+        with torch.inference_mode(), full_fp32():
+            x = torch.from_numpy(b["images"]).to(dev).float() / 255.0
+            out, _ = apply_model(model.plan, model.params, model.state, x, dtype=torch.float32)
+            dets = batched_nms(out["pred"], max_det=max_det)
+        hw = b["images"].shape[1:3]
+        for si, path in enumerate(b["paths"]):
+            n = int(dets.num_dets[si])
+            (h0, w0), ratio_pad = b["shapes"][si]
+            xyxy = scale_coords_np(hw, dets.boxes[si, :n].cpu().numpy(), (h0, w0), ratio_pad)
+            xyxy = xyxy.clip(0, [w0, h0, w0, h0])
+            label = val_dir / "labels" / (Path(path).stem + ".txt")
+            rows = [label.read_text()] + [
+                f"{int(c)} {(x1 + x2) / 2 / w0:.6f} {(y1 + y2) / 2 / h0:.6f} "
+                f"{(x2 - x1) / w0:.6f} {(y2 - y1) / h0:.6f}"
+                for c, (x1, y1, x2, y2) in zip(dets.classes[si, :n].tolist(), xyxy)
+                if x2 - x1 >= 2 and y2 - y1 >= 2]
+            label.write_text("\n".join(rows))
+
+
+def loader_img_s(data_dir, img, batch, workers):
+    """img/s of one epoch of `create_loader` over the training images, as
+    the trainer builds it (host augment with the default hyp), no step."""
+    ds = DetectionDataset(str(data_dir), img_size=img, batch_size=batch, augment=True,
+                          hyp=trainer.load_hyp(None), seed=0)
+    loader = create_loader(ds, batch_size=batch, workers=workers, hold=2)
+    t = time.perf_counter()
+    n = sum(len(b["images"]) for b in loader)
+    return n / (time.perf_counter() - t)
+
+
+def loader_split_ms(data_dir, img, n=32):
+    """On one thread, ms an image: the decode and resize of one file
+    (`load_image`, every training image once) and a whole training sample
+    (`__getitem__`: four decodes a mosaic, the warp, mixup, HSV, flips),
+    n samples."""
+    ds = DetectionDataset(str(data_dir), img_size=img, augment=True,
+                          hyp=trainer.load_hyp(None), seed=0)
+    t = time.perf_counter()
+    for i in range(len(ds)):
+        ds.load_image(i)
+    decode = (time.perf_counter() - t) * 1e3 / len(ds)
+    t = time.perf_counter()
+    for i in range(n):
+        ds[i % len(ds)]
+    return {"decode": decode, "sample": (time.perf_counter() - t) * 1e3 / n}
+
+
+def train_and_test(dev, width=1.0, img=IMG, batch=BATCH, n_train=TRAIN_IMAGES,
+                   n_val=VAL_IMAGES):
+    """Phase 8: `cli/train.py` at `width` (1.0: the training form as
+    published) from a settled start (seed 1, `settle_bn` and `liven`'s
+    head on a training batch) on a synthetic set written under build/,
+    `img` px, batch
+    `batch` accumulated to CLI_NBS, bf16, CLI_EPOCHS epochs with the default
+    hyp (mosaic, mixup, paste-in), autoanchor and per-epoch validation, on
+    `dev`; then `cli/test.py` on its last.ckpt (fused, fp32), with K1L and
+    with the plain keep-mask. Held: every loss item finite; last.ckpt and
+    best.ckpt written and stripped, and read back; validation launched K1L
+    (two batches an evaluation, one evaluation an epoch and a final one)
+    and nothing else; the test CLI's mAP equal with K1L and with the plain
+    keep-mask, and so are its detections (txt). Timed on the card: img/s and ms a step an epoch, the share
+    of the trainer's time spent waiting for a batch, the loader alone with 1
+    and CLI_WORKERS threads (and, on one thread, a file's decode and a
+    whole sample), a checkpoint's bytes and seconds to write,
+    validation ms an image, the test CLI's inference and NMS ms an image,
+    and the peak allocation."""
+    import yaml
+
+    t_phase = time.perf_counter()
+    for d in (SMOKE_DATA, SMOKE_RUNS):
+        shutil.rmtree(d, ignore_errors=True)
+    data = write_dataset(SMOKE_DATA, n_train, n_val, size=img)
+    cfg = SMOKE_DATA / "model.yaml"
+    cfg.write_text(yaml.safe_dump(_cfg(width, TRAIN_CFG)))
+    # the start: the training form (seed 1) with its BN state set on a
+    # training batch and its head made to pass candidates (a random init
+    # passes none at conf 0.001, where mAP and the NMS would check
+    # nothing), written by the port's checkpoint writer. With the BN state
+    # of its own batches a step moves it by a little: livened as phase 5's,
+    # one step takes its mAP to 0.
+    model = Model.from_yaml(str(cfg), seed=1, device=dev)
+    ds = DetectionDataset(str(SMOKE_DATA / "train" / "images"), img_size=img, augment=True,
+                          hyp=trainer.load_hyp(None), seed=SMOKE_SEED)
+    calib = next(iter(create_loader(ds, batch_size=batch)))["images"]
+    calib = torch.from_numpy(calib.copy()).to(dev).float() / 255.0
+    settle_bn(model.plan, model.params, model.state, calib)
+    liven(model.plan, model.params, model.state, calib, act_rms=None, head_gain=1.0)
+    start = SMOKE_DATA / "livened.ckpt"
+    save_checkpoint(start, init_train_state(model.params, model.state,
+                                            train_optim.OptimConfig(), device=dev),
+                    cfg=_cfg(width, TRAIN_CFG))
+    label_own_detections(model, SMOKE_DATA / "val", img, batch)
+    del model
+    on_cpu = ["--device", "cpu"] if dev.type == "cpu" else []
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    val = {"s": 0.0, "images": 0}
+    real_evaluate = trainer.evaluate
+
+    def timed_evaluate(*args, **kwargs):
+        sync()
+        t = time.perf_counter()
+        res = real_evaluate(*args, **kwargs)
+        sync()
+        val["s"] += time.perf_counter() - t
+        val["images"] += res["seen"]
+        return res
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    trainer.evaluate = timed_evaluate
+    try:
+        out = cli_train.main(["--cfg", str(cfg), "--data", data, "--weights", str(start),
+                              "--epochs", str(CLI_EPOCHS),
+                              "--batch-size", str(batch), "--nbs", str(CLI_NBS),
+                              "--no-warmup-accumulate", "--img-size", str(img),
+                              "--workers", str(CLI_WORKERS), "--project", str(SMOKE_RUNS),
+                              "--name", "exp"] + on_cpu)
+    finally:
+        trainer.evaluate = real_evaluate
+    train_counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    rows = out["results"]
+    items = [{k: v for k, v in r.items() if k.startswith("train/")} for r in rows]
+    log(f"train CLI: width {width}, {img} px, batch {batch} x {CLI_NBS // batch} micro-batches, "
+        f"{CLI_EPOCHS} epochs of {n_train} images, {CLI_WORKERS} loader threads: rows {rows}")
+    if not all(math.isfinite(v) for r in items for v in r.values()) or len(items[0]) != 4:
+        raise AssertionError(f"train CLI: loss items {items}")
+    evals = CLI_EPOCHS + 1
+    want = {kid: 0 for kid in COUNTED} | {"K1L": evals * -(-n_val // batch)}
+    if cuda and train_counts != want:
+        raise AssertionError(f"train CLI: launch counts {train_counts}, want {want}")
+    weights = Path(out["save_dir"]) / "weights"
+    for name in ("last.ckpt", "best.ckpt"):
+        blob = load_checkpoint(weights / name)
+        if blob["opt_state"] is not None or blob["epoch"] != -1:
+            raise AssertionError(f"train CLI: {name} is not stripped")
+        load_checkpoint_any(str(weights / name))
+
+    # the test CLI on last.ckpt: K1L against the plain keep-mask
+    # (with its detections as txt, which must be equal too: the mAP of a
+    # model trained 8 steps may well be 0 with either keep-mask)
+    def test_cli(name):
+        return cli_test.main(["--weights", str(weights / "last.ckpt"), "--data", data,
+                              "--img-size", str(img), "--batch-size", str(batch),
+                              "--save-txt", "--save-conf", "--project", str(SMOKE_RUNS),
+                              "--name", name] + on_cpu)
+
+    zero_counts()
+    test = test_cli("test_k1l")
+    test_counts = read_counts()
+    with plain_nms():
+        plain = test_cli("test_plain")
+    want = {kid: 0 for kid in COUNTED} | {"K1L": -(-n_val // batch)}
+    if cuda and test_counts != want:
+        raise AssertionError(f"test CLI: launch counts {test_counts}, want {want}")
+    for key in ("map50", "map", "mp", "mr"):
+        if test[key] != plain[key]:
+            raise AssertionError(f"test CLI: {key} {test[key]} with K1L, {plain[key]} with "
+                                 "the plain keep-mask")
+    txt = {name: {p.name: p.read_text() for p in (SMOKE_RUNS / name / "labels").glob("*.txt")}
+           for name in ("test_k1l", "test_plain")}
+    n_dets = sum(t.count("\n") for t in txt["test_k1l"].values())
+    if txt["test_k1l"] != txt["test_plain"] or not n_dets:
+        raise AssertionError(f"test CLI: {n_dets} detections, the txts equal with K1L and the "
+                             f"plain keep-mask: {txt['test_k1l'] == txt['test_plain']}")
+    log(f"test CLI: last.ckpt, fused, fp32: map50 {test['map50']:.6f}, map {test['map']:.6f}, "
+        f"mp {test['mp']:.6f}, mr {test['mr']:.6f} (plain keep-mask map50 "
+        f"{plain['map50']:.6f}, map {plain['map']:.6f}); {n_dets} detections on {n_val} "
+        f"images, their txt rows equal with the plain keep-mask; launches {test_counts}")
+
+    timing = {"epochs": None, "loader_img_s": None, "loader_ms_an_image": None,
+              "ckpt_bytes": None, "ckpt_write_s": None,
+              "val_ms_an_image": None, "test_ms_an_image": None, "peak_bytes": peak}
+    if cuda:
+        steps = n_train // batch // (CLI_NBS // batch)
+        timing["epochs"] = [{"img_s": n_train / r["time_s"],
+                             "ms_step": r["time_s"] * 1e3 / steps,
+                             "wait_share": r["wait_s"] / r["time_s"]} for r in rows]
+        timing["loader_img_s"] = {w: loader_img_s(SMOKE_DATA / "train" / "images", img,
+                                                  batch, w) for w in (1, CLI_WORKERS)}
+        timing["loader_ms_an_image"] = loader_split_ms(SMOKE_DATA / "train" / "images", img)
+        path = SMOKE_RUNS / "ckpt_write.ckpt"
+        t = time.perf_counter()
+        save_checkpoint(path, out["train_state"], cfg=load_checkpoint(weights / "last.ckpt")["cfg"])
+        timing["ckpt_write_s"] = time.perf_counter() - t
+        timing["ckpt_bytes"] = path.stat().st_size
+        timing["val_ms_an_image"] = val["s"] * 1e3 / val["images"]
+        timing["test_ms_an_image"] = test["speed_ms"]
+    secs = time.perf_counter() - t_phase
+    log(f"train and test CLIs: {timing}; phase {secs:.1f} s; card {smi() if cuda else 'none'}")
+    return {"rows": rows, "launches_train": train_counts, "launches_test": test_counts,
+            "test": {k: test[k] for k in ("map50", "map", "mp", "mr", "speed_ms")},
+            **timing, "phase_s": secs}
+
+
 # substrings of the names of cuDNN's convolution kernels
 CUDNN_NAMES = ("conv", "xmma", "cudnn", "cutlass", "gemm")
 
@@ -2217,14 +2511,16 @@ def main() -> int:
     det = detect(dev)
     ev = evaluation(dev, m)
     tr = train(dev)
+    cli = train_and_test(dev)
 
     # host-side counts of each kernel's main path: K1-K3 as the bf16
     # engines launched them (warm-up and capture; what the replays launch
     # is in the graph profiles' traces), K4 (and K4b: none) as the int8
-    # engines did, K1L as detect and eval did
+    # engines did, K1L as detect, eval and the train and test CLIs did
     launches = {**srv["launches"], "K4": srv8["launches"]["K4"],
                 "K4b": srv8["launches"]["K4b"],
-                "K1L": det["launches"]["K1L"] + ev["launches"]["K1L"]}
+                "K1L": det["launches"]["K1L"] + ev["launches"]["K1L"]
+                + cli["launches_train"]["K1L"] + cli["launches_test"]["K1L"]}
     for kid in COUNTED:
         if kid != "K4b" and launches[kid] == 0:
             raise AssertionError(f"{kid} was launched no time on its main path")
@@ -2247,13 +2543,14 @@ def main() -> int:
     log(json.dumps({"serving": {k: srv[k] for k in keys + ("ingest",)},
                     "int8_serving": {k: srv8[k] for k in keys + ("calibrate_s",)},
                     "full_int8": full, "detect": det, "eval": ev, "train": tr,
+                    "train_test_cli": cli,
                     "fused": {"K2": rows["K2"], "K3": rows["K3"]},
                     "k1l_runs": rows["k1l_runs"],
                     "stages": rows["stages"], "k4_convs": rows["k4_convs"],
                     "card": card}))
     log(json.dumps({"kernels": kernels}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, train phase "
-        f"{tr['phase_s']:.1f} s")
+        f"{tr['phase_s']:.1f} s, train and test CLIs {cli['phase_s']:.1f} s")
     log(smi())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

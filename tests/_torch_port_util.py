@@ -8,6 +8,8 @@ numbers.
 
 import numpy as np
 
+from yolo_series_tpu_torch.models.convert import to_jax_tree  # noqa: F401 (re-exported)
+
 DEPLOY_CFG = "yolo_series_tpu/models/cfg/deploy/yolov7.yaml"
 PORT_DEPLOY_CFG = "yolo_series_tpu_torch/models/cfg/deploy/yolov7.yaml"
 TRAINING_CFG = "yolo_series_tpu/models/cfg/training/yolov7.yaml"
@@ -45,22 +47,6 @@ def to_numpy(tree):
     if isinstance(tree, (list, tuple)):
         return [to_numpy(v) for v in tree]
     return np.asarray(tree)
-
-
-def to_jax_tree(tree, key=None):
-    """The port's param tree (or a tree shaped like one: grads, optimizer
-    slots, EMA) back to the JAX package's numpy form (the inverse of
-    `models/convert.from_jax_params`: OIHW -> HWIO for `w` and the int8
-    `wq`); leaves that are not tensors (Adam's step count) pass as they
-    are."""
-    if isinstance(tree, dict):
-        return {k: to_jax_tree(v, k) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [to_jax_tree(v, key) for v in tree]
-    if not hasattr(tree, "detach"):
-        return tree
-    a = tree.detach().cpu().numpy()
-    return a.transpose(2, 3, 1, 0) if key in ("w", "wq") and a.ndim == 4 else a
 
 
 def assert_trees_close(got, want, rel, what=""):

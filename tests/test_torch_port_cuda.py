@@ -774,3 +774,87 @@ def test_tiled_max_pool_ties_card_equals_cpu(cuda, dtype):
     assert torch.equal(out["cuda"][0], out["cpu"][0])
     assert torch.equal(out["cuda"][1], out["cpu"][1])
     assert (out["cpu"][1] != 0).sum() > y.numel()      # ties split the gradient
+
+
+# ------------------------------------------------------------ trainer ---
+
+# The trainer's step card against CPU: the update and the momentum slot by
+# relative L2, within PR 7's step limit for two implementations
+# (tests/test_torch_port_train.py STEP_UPDATE_L2): the synthetic set's
+# flat regions (the mosaic's grey border, filled rectangles, blocky noise)
+# make near-ties in the max pools, which the two devices' roundings route
+# to different inputs (phase 7 (b)'s 1e-3 holds on noise frames, with few
+# ties). A wrong batch, upload or lr moves it by 10-100%.
+TRAINER_UPDATE_L2 = 1e-2
+
+def test_trainer_upload_equals_loader_batches(cuda, tmp_path):
+    """The trainer's uploads (`BatchUpload`: pinned staging buffers, an
+    asynchronous copy) of the loader's batches, two micro-batches stacked
+    a step with the loader's pooled buffers cycling at hold = 2 and two
+    workers: each uploaded tensor equals the batches as the loader yielded
+    them, though their buffers are overwritten as soon as the upload
+    returns."""
+    import chip_smoke
+    from yolo_series_tpu_torch.data.datasets import DetectionDataset, create_loader
+    from yolo_series_tpu_torch.train.trainer import BatchUpload, load_hyp
+
+    chip_smoke.write_dataset(tmp_path, n_train=24, n_val=0, size=256)
+    ds = DetectionDataset(str(tmp_path / "train" / "images"), img_size=256, augment=True,
+                          hyp=load_hyp(None), seed=0)
+    upload = BatchUpload(cuda)
+    got, want, micro = [], [], []
+    for b in create_loader(ds, batch_size=4, hold=2, workers=2, prefetch=1):
+        micro.append(b)
+        if len(micro) < 2:
+            continue
+        for key in ("images", "labels", "label_mask"):
+            want.append(np.stack([m[key] for m in micro]))
+            got.append(upload([m[key] for m in micro]))
+        want.append(micro[0]["images"].copy())
+        got.append(upload([micro[0]["images"]]))
+        for m in micro:   # the loader's buffers are the loader's again
+            m["images"][...] = 0
+        micro = []
+    torch.cuda.synchronize()
+    assert len(got) == 3 * 4
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and torch.equal(g.cpu(), torch.from_numpy(w))
+
+
+def test_trainer_card_step_equals_cpu(cuda, tmp_path):
+    """One optimizer step of the trainer (yolov7 training form at width
+    0.25, 320 px, batch 2, fp32 with TF32 off) on the card and on the CPU
+    from the same seed on the same synthetic set, with no warmup, so every
+    group steps at lr0: the params' update and the momentum slot (the
+    whole gradient) within TRAINER_UPDATE_L2, the BN stats, the EMA
+    params and the EMA's BN stats within chip_smoke.STEP_STATE_REL
+    (relative L2 of each tree, phase 7 (b)'s limit)."""
+    import yaml
+
+    import chip_smoke
+    from yolo_series_tpu_torch.models.graph import compile_graph
+    from yolo_series_tpu_torch.models.model import init_model, tree_map
+    from yolo_series_tpu_torch.train.trainer import TrainConfig, train
+
+    data = chip_smoke.write_dataset(tmp_path / "data", n_train=2, n_val=0, size=320)
+    cfg = tmp_path / "model.yaml"
+    cfg.write_text(yaml.safe_dump(chip_smoke._cfg(0.25, chip_smoke.TRAIN_CFG)))
+    snaps = {}
+    for dev in ("cuda", "cpu"):
+        tc = TrainConfig(cfg=str(cfg), data=data, epochs=1, batch_size=2, img_size=320,
+                         nominal_batch_size=2, compute_dtype=torch.float32, noval=True,
+                         max_labels=64, seed=0, device=dev, save_dir=str(tmp_path / dev),
+                         hyp={"warmup_epochs": 0}, warmup_min_steps=0)
+        train(tc, callbacks={"on_epoch_end": lambda e, r, ts, d=dev: snaps.__setitem__(d, ts)})
+    card, cpu = snaps["cuda"], snaps["cpu"]
+    init, _ = init_model(compile_graph(str(cfg), nc=80), torch.Generator().manual_seed(0))
+    du_card = chip_smoke.tree_update(card.params, tree_map(lambda t: t.to(cuda), init))
+    du_cpu = chip_smoke.tree_update(cpu.params, init)
+    err = {"update": float((du_card - du_cpu).norm() / du_cpu.norm()),
+           "v": chip_smoke.tree_rel_l2(card.opt_state["v"], cpu.opt_state["v"])}
+    err |= {name: chip_smoke.tree_rel_l2(getattr(card, name), getattr(cpu, name))
+            for name in ("state", "ema_state", "ema_params")}
+    print(f"trainer step, card against CPU, relative L2: {err}")
+    assert max(err["update"], err["v"]) <= TRAINER_UPDATE_L2, err
+    assert max(err["state"], err["ema_state"], err["ema_params"]) <= \
+        chip_smoke.STEP_STATE_REL, err

@@ -4,6 +4,7 @@ the JAX trainer, `Detector`, the detect CLI, the host and device
 letterbox, and the input sources. Same numpy inputs and weights on both
 sides, fp32, small widths and sizes."""
 
+import shutil
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -275,8 +276,18 @@ def test_cli_detect_on_an_image_folder(ckpt, tmp_path):
             h0, w0 = im.shape[:2]
             assert int(vals[0]) == int(r[5]) and abs(vals[5] - r[4]) < 1e-5
             assert abs(vals[1] - (r[0] + r[2]) / 2 / w0) < 1e-5
-    with pytest.raises(SystemExit):
-        cli.main(["--weights", ckpt, "--update", "--device", "cpu"])
+    # --update strips the weights in place after the run: the same file as
+    # the JAX package's strip_checkpoint writes
+    from yolo_series_tpu.train.checkpoints import strip_checkpoint as jstrip
+
+    mine, ref = tmp_path / "mine.ckpt", tmp_path / "ref.ckpt"
+    shutil.copyfile(ckpt, mine)
+    shutil.copyfile(ckpt, ref)
+    cli.main(["--weights", str(mine), "--source", str(src), "--img-size", str(SIZE),
+              "--device", "cpu", "--nosave", "--update", "--project", str(tmp_path / "runs"),
+              "--name", "upd"])
+    jstrip(str(ref))
+    assert mine.read_bytes() == ref.read_bytes() != Path(ckpt).read_bytes()
 
 
 @pytest.mark.parametrize("hw,kw", [((100, 150), {}), ((90, 200), {"auto": False}),
@@ -345,7 +356,13 @@ def test_load_streams_retrieves_every_fourth_frame(tmp_path):
     ls = LoadStreams(str(txt), img_size=64, stride=32)
     try:
         assert len(ls.sources) == 2
-        assert all(int(round(im[:, :, 0].mean() / 8)) == 0 for im in ls.imgs)
+        # the primer is frame 0 until the stream's grabber retrieves one (it
+        # starts as the stream opens, so a loaded host may see stream 0's
+        # first retrieval before stream 1 is open): read both under its lock
+        with ls._new_frame:
+            first = [(int(round(im[:, :, 0].mean() / 8)), n)
+                     for im, n in zip(ls.imgs, ls.frames)]
+        assert all(x == 0 if n == 0 else x == 4 * n for x, n in first), first
         for i in range(2):
             assert ls.wait_frames(i, 1, timeout=30.0), "no frame retrieved"
         with ls._new_frame:

@@ -14,7 +14,10 @@ It prints one line a measurement:
     the input images scaled by 1 + 1e-7 N(0, 1), and against the port's
     step (the relative L2 distance of the parameter updates);
   * three fp32 steps in a row of both packages from equal init (no resync):
-    the relative L2 distance of the updates after each step.
+    the relative L2 distance of the updates after each step;
+  * the loss items of one fp32 step, port against JAX, from the same state
+    on eight random batches: their largest relative difference (what the
+    trainer test's loss limit rests on).
 """
 
 import jax
@@ -112,6 +115,14 @@ def main():
         print(f"seed {seed}: three fp32 steps in a row, port against JAX, relative L2 of "
               f"the updates after each: "
               + ", ".join(f"{rel_l2(t, j):.3g}" for (t, _), (j, _) in zip(tn, jn)), flush=True)
+    errs = []
+    for seed in range(8):
+        data = train_batch(np.random.default_rng(100 + seed), 2, 128)
+        (_, jm), = jax_steps(model, data, jnp.float32)
+        (_, tm), = port_steps(model, data, torch.float32)
+        errs.append(items_err(tm, jm))
+    print("one fp32 step's loss items, port against JAX, largest relative difference on "
+          "8 batches: " + ", ".join(f"{e:.3g}" for e in errs), flush=True)
 
 
 if __name__ == "__main__":

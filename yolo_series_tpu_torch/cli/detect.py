@@ -7,9 +7,9 @@
 Image files / dirs / globs, videos, webcam ('0') and stream lists; saves
 annotated media and optional txt labels, with the reference's output
 conventions. Runs on the card unless `--device cpu` is given (the CPU runs
-the kernels' plain versions). The weights are native checkpoints written
-by the JAX trainer (.ckpt); `--update` (strip in place) comes with the
-checkpoint writer (ROADMAP queue 1, item 11).
+the kernels' plain versions). The weights are native checkpoints
+written by either package's trainer (.ckpt); `--update` strips them in
+place after the run (`train/checkpoints.strip_checkpoint`).
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from pathlib import Path
 import cv2
 import numpy as np
 
+from yolo_series_tpu_torch.train.checkpoints import strip_checkpoint
 from yolo_series_tpu_torch.utils.general import increment_path
 
 
@@ -151,8 +152,8 @@ def make_parser():
     p.add_argument("--name", default="exp")
     p.add_argument("--exist-ok", action="store_true")
     p.add_argument("--update", action="store_true",
-                   help="strip --weights in place after running (not ported "
-                        "yet: refused)")
+                   help="strip optimizer/EMA state from --weights in place "
+                        "after running (reference detect.py:174-177)")
     p.add_argument("--device", default=None,
                    help="'cpu' for the CPU; the card when not given")
     return p
@@ -160,10 +161,16 @@ def make_parser():
 
 def main(argv=None):
     opt = make_parser().parse_args(argv)
+    save_dir = detect(opt)
     if opt.update:
-        raise SystemExit("--update needs the checkpoint writer, which is not "
-                         "ported yet (ROADMAP queue 1, item 11)")
-    return detect(opt)
+        for w in opt.weights:
+            if w.endswith(".ckpt"):
+                strip_checkpoint(w)
+                print(f"stripped {w}")
+            else:
+                print(f"WARNING: --update skipped {w}: only native .ckpt files "
+                      "can be stripped in place")
+    return save_dir
 
 
 if __name__ == "__main__":

@@ -1,2 +1,3 @@
-"""Data helpers of the port (counterpart of `yolo_series_tpu/data`): the
-letterbox of inference, on the host and on the device, so far."""
+"""Data pipeline of the port (counterpart of `yolo_series_tpu/data`): label
+parsers, host augmentation, the dataset and its batched loader, and the
+device letterbox of inference."""

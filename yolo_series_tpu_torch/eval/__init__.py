@@ -1,2 +1,2 @@
-"""Evaluation of the port (counterpart of `yolo_series_tpu/eval`): metrics
-and the mAP evaluator."""
+"""Evaluation of the port (counterpart of `yolo_series_tpu/eval`): metrics,
+the mAP evaluator and the numpy COCOeval."""

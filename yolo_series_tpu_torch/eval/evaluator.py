@@ -10,8 +10,8 @@ accounting with a synchronise on the card. The forward and NMS run on the
 device; matching and AP on the host, in numpy. The loader is any iterable
 of the JAX loader's batch dicts (`images` (B, H, W, 3) uint8 letterboxed,
 `labels` (B, M, 5) normalized cls-xywh, `label_mask` (B, M), `shapes`,
-`paths`); the dataset loader itself comes with the training slice
-(ROADMAP queue 1, item 11). TF32 is left as the caller set it.
+`paths`), such as `data/datasets.create_loader` yields. TF32 is left as
+the caller set it.
 """
 
 from __future__ import annotations

@@ -1,2 +1,3 @@
 """Observability helpers of the port (counterpart of `yolo_series_tpu/obs`):
-the box drawing that detect needs, so far."""
+the box drawing that detect needs, the experiment logger and the local
+artifact store."""
