@@ -92,7 +92,7 @@ non-zero on failure before the last line is printed:
     rectangles an image over the 80 classes) written under build/, then
     `cli/train.py` on full-width yolov7 training form from a start whose
     BN state is set on a training batch and whose head passes candidates
-    (the val labels also hold its own 3 most confident detections an
+    (the val labels also hold its own 30 most confident detections an
     image, so mAP is above 0), 640 px, batch 8 accumulated to 16, bf16,
     2 epochs, the default hyp (mosaic, mixup, paste-in), autoanchor and
     per-epoch validation: every loss item finite, last.ckpt and best.ckpt
@@ -101,8 +101,24 @@ non-zero on failure before the last line is printed:
     step an epoch, the share of the trainer's time spent waiting for a
     batch, the loader alone with 1 and 4 threads, a checkpoint's bytes and
     write time, validation and the test CLI's ms an image, peak allocation.
- 9. One JSON line of per-kernel numbers, the card's name and power limit,
-    and the last line `{"ok": true, "device": {...}}`.
+ 9. The P6 family, yolov7-w6 at full width and 1280 px (the ReOrg stem, a
+    4-level head): (a) the deploy form's bf16 `ServingEngine` and
+    `DynamicBatcher` at batch 8 as phase 4 drives yolov7's (graphs
+    bit-equal to eager, K1 once and K3 once a span, 11 spans, no fused
+    stem; detections against the cuDNN references; img/s, p50 at batch 1
+    and 8, busy share); (b) K3 at each of the 11 w6 spans against its
+    plain version, with its bound and the cuDNN chain; (c) the Detector
+    (K1L) and fp32 `evaluate` (K1L, mAP equal with the plain keep-mask and
+    with TF32 on) on the training form (IAuxDetect, fused); (d) the aux
+    train step (aux OTA loss card against CPU, 8 bf16 steps on one batch,
+    ms a step, host ms, peak bytes); (e) the training form written as a
+    reference `.pt` (fp16), `cli/train.py --weights` it for one epoch on
+    phase 8's set (64 + 16 images, drawn at 1280 px) with the P6 hyp, and
+    `cli/test.py` on its last.ckpt, mAP equal with K1L and the plain
+    keep-mask.
+10. One JSON line of per-kernel numbers (launch counts with phase 9's),
+    the card's name and power limit, and the last line `{"ok": true,
+    "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -146,11 +162,13 @@ from yolo_series_tpu_torch.models import layers as L
 from yolo_series_tpu_torch.models.model import (Model, _run_layer, apply_model, tree_leaves,
                                                 tree_map)
 from yolo_series_tpu_torch.models.reparam import fuse_model
+from yolo_series_tpu_torch.models.torch_export import export_state_dict
 from yolo_series_tpu_torch.ops import (_build, conv_silu, fused_elan, fused_stem,
                                        int8_mm, nms_keep)
 from yolo_series_tpu_torch.ops.boxes import box_iou
 from yolo_series_tpu_torch.ops.nms import batched_nms, fused_head_nms
-from yolo_series_tpu_torch.losses import LossHyp, make_compute_loss_ota
+from yolo_series_tpu_torch.losses import (LossHyp, make_compute_loss_aux_ota,
+                                          make_compute_loss_ota)
 from yolo_series_tpu_torch.losses.ota import ota_assign_batch
 from yolo_series_tpu_torch.train import optim as train_optim
 from yolo_series_tpu_torch.train import trainer
@@ -266,6 +284,16 @@ SMOKE_DATA, SMOKE_RUNS = ROOT / "build" / "smoke_data", ROOT / "build" / "smoke_
 DATA_SHAPES = ((480, 640), (720, 1280), (640, 640), (375, 500))
 TRAIN_IMAGES, VAL_IMAGES, BOXES_AN_IMAGE, SMOKE_SEED = 64, 16, (1, 8), 21
 CLI_EPOCHS, CLI_NBS, CLI_WORKERS = 2, 16, 4
+# Phase 9 (the P6 family): yolov7-w6 at full width, P6_IMG px. Serving at
+# batch BATCH; P6_STEPS aux steps on one batch (BATCH, or the largest that
+# the card holds: P6_BATCHES in turn); the .pt bridge through the train
+# and test CLIs on phase 8's set (drawn again at P6_IMG), one epoch, with
+# the P6 hyp.
+P6_DEPLOY_CFG = ROOT / "yolo_series_tpu_torch/models/cfg/deploy/yolov7-w6.yaml"
+P6_TRAIN_CFG = ROOT / "yolo_series_tpu_torch/models/cfg/training/yolov7-w6.yaml"
+P6_HYP = ROOT / "data/hyp.scratch.p6.yaml"
+P6_IMG, P6_SPANS, P6_STEPS, P6_BATCHES = 1280, 11, 8, (8, 4, 2)
+P6_DATA, P6_RUNS = ROOT / "build" / "smoke_data_p6", ROOT / "build" / "smoke_runs_p6"
 
 
 def log(*a):
@@ -742,23 +770,24 @@ def span_params(gen, cin, ct, cc, cout, order, dev):
         "w11": _conv_w(gen, 1, 1, cat, cout, dev), "b11": _bf16(gen, (cout,), 0.1, dev)})
 
 
-def check_k3(dev, rows):
-    """K3 on each of the 8 spans at its serving shape, timed as K2 is, and
-    summed over the spans; then each span's launches alone."""
+def check_k3(dev, rows, spans=SPANS, batch=BATCH, key="K3", stages_alone=True):
+    """K3 on each span of `spans` (H, cin, ct, cc, cout, order) at its
+    serving shape, timed as K2 is, and summed over the spans into
+    rows[key]; then (stages_alone) each span's launches alone."""
     gen = torch.Generator().manual_seed(3)
     tot = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
                library_ms=0.0, staged_floor_ms=0.0, graph_ms=0.0,
                library_graph_ms=0.0)
     by = {"bytes": 0.0, "operations": 0.0}  # bound time of each kind
     stages = []
-    for h, cin, ct, cc, cout, order in SPANS:
+    for h, cin, ct, cc, cout, order in spans:
         p = span_params(gen, cin, ct, cc, cout, order, dev)
-        x = _bf16(gen, (BATCH, h, h, cin), 1.0, dev)
+        x = _bf16(gen, (batch, h, h, cin), 1.0, dev)
         with recorded_launches() as calls:
             got = fused_elan.fused_elan(x, p, order)
         torch.cuda.synchronize()
         want = fused_elan.fused_elan_plain(x, p, order)
-        err = _close(f"K3 fused_elan {order} {h}x{h}x{cin}", got, want)
+        err = _close(f"{key} fused_elan {order} {h}x{h}x{cin}", got, want)
         ms = cuda_ms(lambda: fused_elan.fused_elan(x, p, order))
         g_ms = graph_ms(lambda: fused_elan.fused_elan(x, p, order))
         plain_ms = cuda_ms(lambda: fused_elan.fused_elan_plain(x, p, order), iters=5)
@@ -775,7 +804,13 @@ def check_k3(dev, rows):
             return _cudnn_conv_silu(cat, p["w11"], p["b11"], 1, (0, 0, 0, 0))
 
         lib_ms, lib_g_ms = cuda_ms(library), graph_ms(library)
-        span = check_launches(f"K3 {order[:4]}{h}", SPAN_LAUNCHES, calls)
+        if stages_alone:
+            span = check_launches(f"{key} {order[:4]}{h}", SPAN_LAUNCHES, calls)
+        else:   # the launches' operations and bytes, not timed alone
+            if len(calls) != len(SPAN_LAUNCHES):
+                raise AssertionError(f"{key}: {len(calls)} conv_silu launches a span")
+            span = [{"ops": st.ops, "bound_ms": bound_ms(st.ops, PEAK_BF16, st.nbytes)[0]}
+                    for st in map(launch_stage, calls)]
         del calls
         stages += span
         ops = sum(r["ops"] for r in span)
@@ -784,26 +819,35 @@ def check_k3(dev, rows):
         nb = nbytes(x, got, *(v for k, v in p.items() if k not in ("w45", "b45")))
         b_ms, b_by = bound_ms(ops, PEAK_BF16, nb)
         floor = sum(r["bound_ms"] for r in span)
-        log(f"K3 fused_elan {order:8s} x {tuple(x.shape)} -> {tuple(got.shape)}: "
+        log(f"{key} fused_elan {order:8s} x {tuple(x.shape)} -> {tuple(got.shape)}: "
             f"max abs err {err:.4g}; one call {ms:.3f} ms (graph replay {g_ms:.3f}), "
             f"plain {plain_ms:.3f} ms, cuDNN one call {lib_ms:.3f} ms (graph replay "
             f"{lib_g_ms:.3f}), bound {b_ms:.4f} ms ({b_by}, {ops / 1e9:.1f} GFLOP), "
             f"staged floor {floor:.4f} ms")
         tot["max_abs_err"] = max(tot["max_abs_err"], err)
-        for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
-                       ("bound_ms", b_ms), ("staged_floor_ms", floor),
-                       ("graph_ms", g_ms), ("library_graph_ms", lib_g_ms)):
-            tot[key] += v
+        for name, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                        ("bound_ms", b_ms), ("staged_floor_ms", floor),
+                        ("graph_ms", g_ms), ("library_graph_ms", lib_g_ms)):
+            tot[name] += v
         by[b_by] += b_ms
+        if not stages_alone:
+            rows.setdefault(f"{key}_spans", []).append(dict(
+                h=h, cin=cin, ct=ct, cc=cc, cout=cout, order=order, max_abs_err=err, ms=ms,
+                graph_ms=g_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                library_graph_ms=lib_g_ms, bound_ms=b_ms, bound_by=b_by,
+                staged_floor_ms=floor))
+        del x, got, want, p
     # the spans run one after another: their bounds add up
-    log(f"K3 all 8 spans (one batch-{BATCH} forward): one call each {tot['ms']:.3f} ms "
+    log(f"{key} all {len(spans)} spans (one batch-{batch} forward): one call each "
+        f"{tot['ms']:.3f} ms "
         f"(graph replay {tot['graph_ms']:.3f}), plain {tot['plain_ms']:.3f} ms, cuDNN "
         f"one call each {tot['library_ms']:.3f} ms (graph replay "
         f"{tot['library_graph_ms']:.3f}), bound {tot['bound_ms']:.4f} ms, staged floor "
         f"{tot['staged_floor_ms']:.4f} ms")
-    stages_total("K3", stages)
-    rows["K3"] = dict(tot, bound_by=max(by, key=by.get))
-    rows["stages"] += stages
+    rows[key] = dict(tot, bound_by=max(by, key=by.get))
+    if stages_alone:
+        stages_total(key, stages)
+        rows["stages"] += stages
 
 
 # ------------------------------------------------------- K4 / K4b ---
@@ -1069,12 +1113,13 @@ def agreement(name, got, want):
     return float(np.mean(fracs))
 
 
-def make_model(dev, width=1.0, img=IMG):
-    """yolov7 deploy at `width` with random weights (torch.Generator seed
-    0), livened on two noise frames and re-parameterized. Returns a
-    namespace with the fused plan, params and state, and the numpy
-    generator that made the frames (phase 4 draws its images from it)."""
-    model = Model.from_yaml(_cfg(width), seed=0, device=dev)
+def make_model(dev, width=1.0, img=IMG, cfg=CFG):
+    """The deploy form of `cfg` (yolov7 unless given) at `width` with random
+    weights (torch.Generator seed 0), livened on two noise frames and
+    re-parameterized. Returns a namespace with the fused plan, params and
+    state, and the numpy generator that made the frames (phase 4 draws its
+    images from it)."""
+    model = Model.from_yaml(_cfg(width, cfg), seed=0, device=dev)
     rng = np.random.default_rng(0)
     calib = torch.from_numpy(rng.integers(0, 256, (2, img, img, 3), np.uint8))
     obj_bias = liven(model.plan, model.params, model.state,
@@ -1082,7 +1127,7 @@ def make_model(dev, width=1.0, img=IMG):
     params, state = fuse_model(model.plan, model.params, model.state)
     return SimpleNamespace(plan=model.plan, params=params, state=state, rng=rng,
                            n_params=model.num_params(), obj_bias=obj_bias,
-                           width=width, img=img, dev=dev)
+                           width=width, img=img, dev=dev, name=Path(cfg).stem)
 
 
 def make_reference(m):
@@ -1274,9 +1319,11 @@ def plan_names(engine):
     return names.count("FusedStem"), names.count("FusedELAN")
 
 
-def serving(dev, m, batch=BATCH, requests=12):
-    """Phase 4: the bf16 graph engines. Returns the launch counts of the
-    main-path run and the serving numbers."""
+def serving(dev, m, batch=BATCH, requests=12, what="serving", transforms=(1, 8),
+            with_ingest=True):
+    """Phase 4 (and 9 (a) on w6): the bf16 graph engines. The plan must
+    hold `transforms` = (FusedStem, FusedELAN) blocks. Returns the launch
+    counts of the main-path run and the serving numbers."""
     img, rng = m.img, m.rng
     plan, params, state = m.plan, m.params, m.state
     engine = ServingEngine(plan, params, state, batch_size=batch, img_size=img,
@@ -1284,11 +1331,12 @@ def serving(dev, m, batch=BATCH, requests=12):
     engine1 = ServingEngine(plan, params, state, batch_size=1, img_size=img,
                             dtype=torch.bfloat16, device=dev)
     n_stem, n_elan = plan_names(engine)
-    log(f"serving: yolov7 deploy width {m.width}, {m.n_params} params, {img} px, "
+    log(f"{what}: {m.name} deploy width {m.width}, {m.n_params} params, {img} px, "
         f"batch {batch}, bf16; objectness bias {m.obj_bias:.3f}; the plan has "
         f"{n_stem} FusedStem, {n_elan} FusedELAN")
-    if (n_stem, n_elan) != (1, 8):
+    if (n_stem, n_elan) != tuple(transforms):
         raise AssertionError(f"transforms did not engage: {n_stem} stems, {n_elan} spans")
+    conv_a_forward = 3 * n_stem + 6 * n_elan
     normalized, reference = make_reference(m)
 
     batches = [rng.integers(0, 256, (batch, img, img, 3), np.uint8) for _ in range(3)]
@@ -1299,16 +1347,16 @@ def serving(dev, m, batch=BATCH, requests=12):
     zero_counts()
     outs, partial, lone_res, results = drive(engine, engine1, batches, lone, frames)
     counts = read_counts()
-    per_forward = {"K1": 1, "K2": 1, "K3": 8}
-    check_path_counts("serving", counts, (engine, engine1), per_forward)
+    per_forward = {"K1": 1, "K2": n_stem, "K3": n_elan}
+    check_path_counts(what, counts, (engine, engine1), per_forward)
     # device launches of the conv + SiLU kernel: 3 per stem, 6 per span
     conv_launches = conv_silu.launch.launches
-    log(f"serving: {conv_launches} conv_silu launches at the warm-up and capture calls "
-        f"(3 per stem + 6 per span = {3 + 6 * 8} a forward)")
-    if dev.type == "cuda" and conv_launches != (3 + 6 * 8) * 4:
-        raise AssertionError(f"{conv_launches} conv_silu launches, want {(3 + 6 * 8) * 4}")
-    graph_equals_eager("serving", engine, outs, batches)
-    graph_equals_eager("serving bs1", engine1, [engine1.infer(lone[0][None])],
+    log(f"{what}: {conv_launches} conv_silu launches at the warm-up and capture calls "
+        f"(3 per stem + 6 per span = {conv_a_forward} a forward)")
+    if dev.type == "cuda" and conv_launches != conv_a_forward * 4:
+        raise AssertionError(f"{conv_launches} conv_silu launches, want {conv_a_forward * 4}")
+    graph_equals_eager(what, engine, outs, batches)
+    graph_equals_eager(f"{what} bs1", engine1, [engine1.infer(lone[0][None])],
                        [lone[0][None]])
 
     # ---- the output against the references ----
@@ -1324,12 +1372,12 @@ def serving(dev, m, batch=BATCH, requests=12):
         with_kernel = fused_head_nms(engine.plan.head, hp, feats, **nms_kw)
         with plain_nms():
             with_plain = fused_head_nms(engine.plan.head, hp, feats, **nms_kw)
-    for a, b, what in zip(with_kernel, with_plain, with_plain._fields):
+    for a, b, field in zip(with_kernel, with_plain, with_plain._fields):
         if not torch.equal(a, b):
-            raise AssertionError(f"NMS tail: {what} differ between the keep-mask "
+            raise AssertionError(f"{what}: NMS tail: {field} differ between the keep-mask "
                                  "kernel and the plain keep-mask")
     err_eng, err_bf16 = feature_error(feats, f32), feature_error(f16, f32)
-    log(f"serving: NMS tail equal with the kernel and the plain keep-mask "
+    log(f"{what}: NMS tail equal with the kernel and the plain keep-mask "
         f"({int(with_plain.num_dets.sum())} detections); head inputs "
         f"{err_eng:.4f} relative RMS from the fp32 reference (cuDNN bf16 "
         f"{err_bf16:.4f})")
@@ -1337,7 +1385,7 @@ def serving(dev, m, batch=BATCH, requests=12):
         raise AssertionError(f"head inputs: {err_eng} relative RMS from the fp32 "
                              f"reference, cuDNN bf16 {err_bf16}")
 
-    agree_eng, agree_bf16 = agreements("serving", reference, outs, partial, lone_res,
+    agree_eng, agree_bf16 = agreements(what, reference, outs, partial, lone_res,
                                        results, batches, lone, frames)
     if not agree_eng >= agree_bf16 - MATCH_MARGIN:
         raise AssertionError(f"detections agree with the fp32 reference {agree_eng:.3f}, "
@@ -1349,9 +1397,10 @@ def serving(dev, m, batch=BATCH, requests=12):
            "agreement_cudnn_bf16": agree_bf16, "feature_rms_err": err_eng,
            "feature_rms_err_cudnn_bf16": err_bf16}
     if dev.type == "cuda":
-        res.update(speed(engine, engine1, batches, lone, "serving",
-                         {"nms_keep_kernel": 1, "conv_silu_kernel": 3 + 6 * 8}))
-    res["ingest"] = ingest(dev, m, engine, reference)
+        res.update(speed(engine, engine1, batches, lone, what,
+                         {"nms_keep_kernel": 1, "conv_silu_kernel": conv_a_forward}))
+    if with_ingest:
+        res["ingest"] = ingest(dev, m, engine, reference)
     return res
 
 
@@ -1605,53 +1654,55 @@ def noise_image(rng, hw, size=None):
     return np.clip(img + rng.integers(-3, 4, img.shape), 0, 255).astype(np.uint8)
 
 
-def detect(dev, width=1.0):
-    """Phase 5: full-width yolov7 training form (IDetect), random weights
-    (seed 1) livened and fused, through the bf16 Detector (fast stem, fused
-    stem, fused spans) on four BGR images of different sizes. Counted:
-    K1L once (4096 candidates), K2 once, K3 once a span; bit-equal to the
-    same Detector with the plain keep-mask; agreement with an fp32 cuDNN
+def detect(dev, width=1.0, cfg=TRAIN_CFG, img=IMG, transforms=(1, 8), what="detect"):
+    """Phase 5 (and 9 (c) on w6): the training form of `cfg` (yolov7's,
+    IDetect, unless given) at `width`, random weights (seed 1) livened and
+    fused, through the bf16 Detector at `img` px (fast stem, and the fused
+    stem and spans where they match: `transforms` = (FusedStem, FusedELAN)
+    blocks) on four BGR images of different sizes. Counted: K1L once (4096
+    candidates), K2 once a stem, K3 once a span; bit-equal to the same
+    Detector with the plain keep-mask; agreement with an fp32 cuDNN
     Detector at least cuDNN bf16's less MATCH_MARGIN."""
-    model = Model.from_yaml(_cfg(width, TRAIN_CFG), seed=1, device=dev)
+    model = Model.from_yaml(_cfg(width, cfg), seed=1, device=dev)
     rng = np.random.default_rng(11)
-    calib = torch.from_numpy(rng.integers(0, 256, (2, IMG, IMG, 3), np.uint8))
+    calib = torch.from_numpy(rng.integers(0, 256, (2, img, img, 3), np.uint8))
     liven(model.plan, model.params, model.state, calib.to(dev).float() / 255.0)
     params, state = fuse_model(model.plan, model.params, model.state)
     shapes = ((480, 640), (720, 1280), (640, 640), (375, 500))
-    images = [noise_image(rng, hw) for hw in shapes]
-    det = Detector(model.plan, params, state, img_size=IMG, dtype=torch.bfloat16,
+    images = [noise_image(rng, hw, img) for hw in shapes]
+    det = Detector(model.plan, params, state, img_size=img, dtype=torch.bfloat16,
                    device=dev)
     n_stem, n_elan = plan_names(det)
-    log(f"detect: yolov7 training form ({type(model.plan.head).__name__} head), "
-        f"width {width}, {model.num_params()} params, fused; Detector bf16 at {IMG} px "
+    log(f"{what}: {Path(cfg).stem} training form ({type(model.plan.head).__name__} head), "
+        f"width {width}, {model.num_params()} params, fused; Detector bf16 at {img} px "
         f"with {n_stem} FusedStem, {n_elan} FusedELAN; images {shapes}")
-    if dev.type == "cuda" and (n_stem, n_elan) != (1, 8):
-        raise AssertionError(f"detect: transforms did not engage: {n_stem}, {n_elan}")
+    if dev.type == "cuda" and (n_stem, n_elan) != tuple(transforms):
+        raise AssertionError(f"{what}: transforms did not engage: {n_stem}, {n_elan}")
     zero_counts()
     got = det(images)
     counts = read_counts()
-    log(f"detect: {sum(len(d) for d in got)} detections; launches {counts}")
-    want = {kid: 0 for kid in COUNTED} | {"K1L": 1, "K2": 1, "K3": 8}
+    log(f"{what}: {sum(len(d) for d in got)} detections; launches {counts}")
+    want = {kid: 0 for kid in COUNTED} | {"K1L": 1, "K2": n_stem, "K3": n_elan}
     if dev.type == "cuda" and counts != want:
-        raise AssertionError(f"detect: launch counts {counts}, want {want}")
+        raise AssertionError(f"{what}: launch counts {counts}, want {want}")
     with plain_nms():
         plain = det(images)
-        refs = {dt: Detector(model.plan, params, state, img_size=IMG, dtype=dt, device=dev,
+        refs = {dt: Detector(model.plan, params, state, img_size=img, dtype=dt, device=dev,
                              fast_stem=False)(images)
                 for dt in (torch.float32, torch.bfloat16)}
     for i, (a, b) in enumerate(zip(got, plain)):
         if not np.array_equal(a, b):
-            raise AssertionError(f"detect image {i}: detections differ between K1L and "
+            raise AssertionError(f"{what} image {i}: detections differ between K1L and "
                                  "the plain keep-mask")
     want32 = rows_out(refs[torch.float32])
-    agree = agreement("detect", rows_out(got), want32)
-    agree_bf16 = agreement("detect cuDNN bf16", rows_out(refs[torch.bfloat16]), want32)
-    log(f"detect: detections bit-equal with K1L and with the plain keep-mask; agree "
+    agree = agreement(what, rows_out(got), want32)
+    agree_bf16 = agreement(f"{what} cuDNN bf16", rows_out(refs[torch.bfloat16]), want32)
+    log(f"{what}: detections bit-equal with K1L and with the plain keep-mask; agree "
         f"{agree:.3f} with the fp32 cuDNN Detector (cuDNN bf16 {agree_bf16:.3f})")
     if not agree >= agree_bf16 - MATCH_MARGIN:
-        raise AssertionError(f"detect: agreement {agree:.3f}, cuDNN bf16 {agree_bf16:.3f}")
+        raise AssertionError(f"{what}: agreement {agree:.3f}, cuDNN bf16 {agree_bf16:.3f}")
     ms = cuda_ms(lambda: det(images), iters=5, warmup=1) if dev.type == "cuda" else None
-    log(f"detect: one call on {len(images)} images {ms} ms (host letterbox, "
+    log(f"{what}: one call on {len(images)} images {ms} ms (host letterbox, "
         f"forward, NMS, rows to the host)")
     return {"launches": counts, "agreement": agree, "agreement_cudnn_bf16": agree_bf16,
             "detections": sum(len(d) for d in got), "ms": ms}
@@ -1660,14 +1711,15 @@ def detect(dev, width=1.0):
 def eval_batches(m, batch=BATCH, n_images=16):
     """`n_images` uniform-noise images in rect batches of `batch`, half at
     img x img and half at 3/5 of the height (m.img = 640: 640 x 640 and
-    384 x 640), in the loader's batch dicts, labelled with the model's own
+    384 x 640; 1280: 1280 x 1280 and 768 x 1280), in the loader's batch
+    dicts, labelled with the model's own
     detections (conf 0.25 through the fp32 cuDNN path with the plain
     keep-mask) jittered by a few pixels, plus one box the model does not
     find an image (so map50 is neither 0 nor 1)."""
     rng = np.random.default_rng(13)
-    img = m.img
+    img, gs = m.img, int(max(m.plan.strides))
     batches = []
-    for bi, (h, w) in enumerate(((img, img), (img * 3 // 5 // 32 * 32, img))):
+    for bi, (h, w) in enumerate(((img, img), (img * 3 // 5 // gs * gs, img))):
         for _ in range(n_images // batch // 2):
             imgs = rng.integers(0, 256, (batch, h, w, 3), np.uint8)
             with torch.inference_mode(), plain_nms(), full_fp32():
@@ -1757,9 +1809,9 @@ def nms_split_ms(pred, n=3, **kw):
     return out
 
 
-def evaluation(dev, m, batch=BATCH, n_images=16):
-    """Phase 6: `evaluate` in fp32 over `eval_batches` (16 images, rect
-    batches of 8). Counted: K1L once a batch (8192 candidates); map50 /
+def evaluation(dev, m, batch=BATCH, n_images=16, what="eval"):
+    """Phase 6 (and 9 (c) on w6): `evaluate` in fp32 over `eval_batches`
+    (16 images, rect batches of 8). Counted: K1L once a batch (8192 candidates); map50 /
     map / mp / mr equal those of the same run with the plain keep-mask, and
     those of a run with the global TF32 flags at torch's defaults (on):
     `evaluate` pins full fp32 itself. Its first batch's fp32 pred is
@@ -1768,7 +1820,7 @@ def evaluation(dev, m, batch=BATCH, n_images=16):
     forward timed with TF32 on and off (what the pin costs), and the NMS ms
     of one batch split into the stable sort, K1L and the packing."""
     batches = eval_batches(m, batch, n_images)
-    log(f"eval: {n_images} images in {len(batches)} batches of {batch} "
+    log(f"{what}: {n_images} images in {len(batches)} batches of {batch} "
         f"({[b['images'].shape[1:3] for b in batches]}), fp32, global cuDNN TF32 "
         f"{torch.backends.cudnn.allow_tf32}, matmul precision "
         f"{torch.get_float32_matmul_precision()}")
@@ -1778,25 +1830,25 @@ def evaluation(dev, m, batch=BATCH, n_images=16):
     counts = read_counts()
     want = {kid: 0 for kid in COUNTED} | {"K1L": len(batches)}
     if dev.type == "cuda" and counts != want:
-        raise AssertionError(f"eval: launch counts {counts}, want {want}")
+        raise AssertionError(f"{what}: launch counts {counts}, want {want}")
     with plain_nms():
         plain = evaluate(m.plan, m.params, m.state, batches, device=dev)
     with global_tf32(True), first_pred() as pred_on:
         tf32 = evaluate(m.plan, m.params, m.state, batches, device=dev)
-    log(f"eval: map50 {got['map50']:.6f}, map {got['map']:.6f} (plain keep-mask "
+    log(f"{what}: map50 {got['map50']:.6f}, map {got['map']:.6f} (plain keep-mask "
         f"{plain['map50']:.6f}, {plain['map']:.6f}; global TF32 on {tf32['map50']:.6f}, "
         f"{tf32['map']:.6f}); per image: inference {got['speed_ms']['inference']:.3f} ms, "
         f"NMS {got['speed_ms']['nms']:.3f} ms (plain keep-mask NMS "
         f"{plain['speed_ms']['nms']:.3f} ms); launches {counts}")
     for key in ("map50", "map", "mp", "mr"):
         if got[key] != plain[key]:
-            raise AssertionError(f"eval: {key} {got[key]} with K1L, {plain[key]} with the "
+            raise AssertionError(f"{what}: {key} {got[key]} with K1L, {plain[key]} with the "
                                  "plain keep-mask")
         if got[key] != tf32[key]:
-            raise AssertionError(f"eval: {key} {got[key]} with the global TF32 off, "
+            raise AssertionError(f"{what}: {key} {got[key]} with the global TF32 off, "
                                  f"{tf32[key]} with it on: the fp32 pin does not hold")
     if not 0.0 < got["map50"] < 1.0:
-        raise AssertionError(f"eval: map50 {got['map50']} is not a meaningful check")
+        raise AssertionError(f"{what}: map50 {got['map50']} is not a meaningful check")
 
     # the pin's cost, and where one batch's NMS goes
     with torch.inference_mode():
@@ -1816,17 +1868,17 @@ def evaluation(dev, m, batch=BATCH, n_images=16):
             unpinned = forward()[0]["pred"]
         tf32_err = float((unpinned - pred_off[0]).abs().max())
         if not torch.equal(pred_on[0], pred_off[0]):
-            raise AssertionError("eval: evaluate's fp32 pred differs with the global TF32 on: "
+            raise AssertionError(f"{what}: evaluate's fp32 pred differs with the global TF32 on: "
                                  "the fp32 pin does not hold")
         if dev.type == "cuda" and tf32_err == 0.0:
-            raise AssertionError("eval: the unpinned forward with TF32 on equals the pinned "
+            raise AssertionError(f"{what}: the unpinned forward with TF32 on equals the pinned "
                                  "one: the pin check cannot fail")
         split = nms_split_ms(pred, conf_thres=0.001, iou_thres=0.65, multi_label=True,
                              max_nms=EVAL_NMS)
     per_image = None if split is None else {k: v / batch for k, v in split.items()}
-    log(f"eval: evaluate's fp32 pred of batch 0 bit-equal with the global TF32 on and off; "
+    log(f"{what}: evaluate's fp32 pred of batch 0 bit-equal with the global TF32 on and off; "
         f"the unpinned forward with TF32 on differs by up to {tf32_err:.6g}")
-    log(f"eval: fp32 forward of one batch of {batch}: TF32 on {fwd_ms.get('tf32_on')} ms, "
+    log(f"{what}: fp32 forward of one batch of {batch}: TF32 on {fwd_ms.get('tf32_on')} ms, "
         f"off (the pin) {fwd_ms.get('tf32_off')} ms; NMS device ms an image by group "
         f"{per_image}")
     return {"launches": counts, "map50": got["map50"], "map": got["map"],
@@ -2168,11 +2220,16 @@ def write_dataset(root, n_train=TRAIN_IMAGES, n_val=VAL_IMAGES, nc=80, size=None
     return str(data)
 
 
-def label_own_detections(model, val_dir, img, batch, max_det=3):
+def label_own_detections(model, val_dir, img, batch, max_det=30):
     """Append to each val image's labels the model's `max_det` most
     confident detections on it (conf 0.25, fp32), found on the val images
     as the trainer's evaluation letterboxes them and mapped back to the
-    image: so the evaluations' mAP is above 0 and best.ckpt is written."""
+    image: so the evaluations' mAP is above 0 and best.ckpt is written.
+    Training moves the detections (the card's bf16 steps are not
+    deterministic): with 3 an image, 4 of the 10 validations of five
+    phase-8 runs on the card read map50 0 and one run wrote no best.ckpt;
+    with 10, one run of three wrote none; with 30, the 6 validations of
+    three runs read 0.00039-0.0026."""
     ds = DetectionDataset(str(val_dir / "images"), img_size=img, batch_size=batch, rect=True,
                           pad=0.5, stride=int(max(model.plan.strides)))
     dev = tree_leaves(model.params)[0].device
@@ -2378,6 +2435,278 @@ def train_and_test(dev, width=1.0, img=IMG, batch=BATCH, n_train=TRAIN_IMAGES,
             **timing, "phase_s": secs}
 
 
+# ------------------------------------------------------ the P6 family ---
+
+def model_spans(m):
+    """(H, cin, ct, cc, cout, order) of the ELAN spans that `make_fused_elan`
+    rewrites in the fused plan of `m`, at m.img px, in plan order."""
+    out = []
+    for i, order in fused_elan.find_elan_spans(m.plan, m.params):
+        layers = m.plan.layers
+        out.append((int(m.img / layers[i].stride), layers[i].block.c1, layers[i].block.c2,
+                    layers[i + 2].block.c2, layers[i + 7].block.c2, order))
+    return tuple(out)
+
+
+def aux_hyp(nl, img):
+    """The aux loss's hyp as the trainer scales hyp.scratch.p6 (nc 80)."""
+    return trainer._scaled_loss_hyp(trainer.load_hyp(str(P6_HYP)), nl, 80, img)
+
+
+def check_aux_loss(dev, head, hyp, raw, labels, mask):
+    """(d) The aux OTA loss on the card against the CPU on the same fp32
+    raw maps (lead and aux) and labels: both assignments (lead g 0.5 and
+    aux g 1.0, top-20, from the lead maps) and the loss items, held as
+    phase 7 (a) holds the OTA loss."""
+    nl = head.nl
+    anchors = np.asarray(head.anchors, np.float32).reshape(nl, head.na, 2)
+    strides = np.asarray(head.strides, np.float32)
+    loss_fn = make_compute_loss_aux_ota(head, hyp)
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        r = [t.to(where) for t in raw]
+        lb, mk = labels.to(where), mask.to(where)
+        total, items = loss_fn(r, lb, mk)
+        assign = [ota_assign_batch(r[:nl], lb, mk, anchors, strides, hyp, g, 20)[:2]
+                  for g in (0.5, 1.0)]
+        out[where.type] = ({k: float(v) for k, v in items.items()} | {"total": float(total)},
+                           [(fg.cpu(), mg.cpu()) for fg, mg in assign])
+    (card, a_c), (cpu, a_h) = out[dev.type], out["cpu"]
+    same = min(((fc == fh) & (~fc | (mc == mh))).double().mean().item()
+               for (fc, mc), (fh, mh) in zip(a_c, a_h))
+    err = max(abs(card[k] - cpu[k]) / max(abs(cpu[k]), 1e-30) for k in cpu)
+    log(f"p6 (d): aux OTA at {raw[0].shape[0]} images, {2 * nl} maps, {labels.shape[1]} label "
+        f"rows: items card {card}, CPU {cpu}, largest relative difference {err:.3g} (limit "
+        f"{OTA_ITEM_RTOL}); columns with the same (fg, matched_gt), the lesser of the lead "
+        f"and the aux assignment, {same:.6f} (limit {OTA_COLUMN_SHARE}); fg lead / aux "
+        f"{int(a_c[0][0].sum())} / {int(a_c[1][0].sum())}")
+    if not same >= OTA_COLUMN_SHARE:
+        raise AssertionError(f"p6 (d): aux assignments agree on {same} of the columns")
+    if not err <= OTA_ITEM_RTOL:
+        raise AssertionError(f"p6 (d): aux loss items differ by {err} relative")
+    return {"items_card": card, "items_cpu": cpu, "item_rel_err": err, "same_columns": same}
+
+
+def train_aux(dev, width=1.0, img=P6_IMG):
+    """Phase 9 (d): the yolov7-w6 train step (IAuxDetect, full width) at
+    `img` px, bf16, the aux OTA loss with hyp.scratch.p6 scaled as the
+    trainer scales it, SGD: the largest batch of P6_BATCHES that the card
+    holds (the cut logged). The aux loss card against CPU on the same fp32
+    raw maps; P6_STEPS steps on one batch past warmup (finite, the loss
+    falls); ms a step, host ms a step, peak allocation. No kernel of the
+    port is on this path: the counters stay 0."""
+    t_phase = time.perf_counter()
+    model = Model.from_yaml(_cfg(width, P6_TRAIN_CFG), seed=2, device=dev)
+    plan, head = model.plan, model.plan.head
+    hyp = aux_hyp(head.nl, img)
+    loss_fn = make_compute_loss_aux_ota(head, hyp)
+    opt = train_optim.OptimConfig()
+    lr, mom = lr_after_warmup(opt)
+    step = make_train_step(plan, loss_fn, opt, compute_dtype=torch.bfloat16)
+    zero_counts()
+    batch = cur = None
+    for b in P6_BATCHES:
+        batch_np = train_batch(np.random.default_rng(7), b, img)
+        ts = init_train_state(model.params, model.state, opt, device=dev)
+        try:
+            cur, first = step(ts, *batch_np, lr, mom)
+            batch = b
+            break
+        except torch.cuda.OutOfMemoryError:
+            del ts
+            cur = None
+            torch.cuda.empty_cache()
+            log(f"p6 (d): a batch of {b} at {img} px does not fit the card's memory")
+    if batch is None:
+        raise AssertionError(f"p6 (d): no batch of {P6_BATCHES} fits")
+    log(f"p6 (d): yolov7-w6 training form ({type(head).__name__}), width {width}, "
+        f"{model.num_params()} params, {img} px, batch {batch} (of {P6_BATCHES}), bf16, aux "
+        f"OTA loss {hyp}, {opt}")
+    labels, mask = (torch.from_numpy(a).to(dev) for a in batch_np[1:])
+    x = torch.from_numpy(batch_np[0]).to(dev).float() / 255.0
+    with torch.no_grad():
+        out, _ = apply_model(plan, ts.params, ts.state, x, training=True, dtype=torch.bfloat16)
+    if len(out["raw"]) != 2 * head.nl:
+        raise AssertionError(f"p6 (d): {len(out['raw'])} raw maps, want {2 * head.nl}")
+    aux = check_aux_loss(dev, head, hyp, [r.float() for r in out["raw"]], labels, mask)
+    del out, x
+    totals = [first["total"]]
+    for _ in range(P6_STEPS - 1):
+        cur, metrics = step(cur, *batch_np, lr, mom)
+        totals.append(metrics["total"])
+    totals = [float(t) for t in torch.stack(totals).cpu()]
+    finite = all(bool(torch.isfinite(t).all()) for t in
+                 tree_leaves(cur.params) + tree_leaves(cur.state) + tree_leaves(cur.ema_params))
+    last3 = statistics.mean(totals[-3:])
+    log(f"p6 (d): {P6_STEPS} bf16 steps on one batch: total loss "
+        f"{[round(t, 5) for t in totals]}; mean of the last 3 {last3:.5f} against "
+        f"{totals[0]:.5f} at the first; params, BN stats and EMA finite {finite}")
+    if not (last3 < totals[0] and finite):
+        raise AssertionError(f"p6 (d): finite {finite}, losses {totals}")
+    counts = read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"p6 (d): the step launched a kernel of the port: {counts}")
+    timing = {"ms_step": None, "img_s": None, "host_ms_step": None, "peak_bytes": None}
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        timing["ms_step"] = cuda_ms(lambda: step(cur, *batch_np, lr, mom), iters=5, warmup=1)
+        timing["peak_bytes"] = torch.cuda.max_memory_allocated()
+        timing["img_s"] = batch / timing["ms_step"] * 1e3
+        host = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            step(cur, *batch_np, lr, mom)
+            host.append((time.perf_counter() - t) * 1e3)
+        torch.cuda.synchronize()
+        timing["host_ms_step"] = statistics.median(host)
+    secs = time.perf_counter() - t_phase
+    log(f"p6 (d): bf16 aux step at batch {batch}, {img} px: {timing['ms_step']} ms a step "
+        f"(median of 5, CUDA events), {timing['img_s']} img/s, host {timing['host_ms_step']} "
+        f"ms a step (median of 3), peak allocation {timing['peak_bytes']} bytes; phase "
+        f"{secs:.1f} s")
+    return {"batch": batch, "aux_loss": aux, "losses": totals, **timing, "phase_s": secs,
+            "launches": counts}
+
+
+def bridge(dev, width=1.0, img=P6_IMG, batch=BATCH, n_train=TRAIN_IMAGES,
+           n_val=VAL_IMAGES):
+    """Phase 9 (e): the yolov7-w6 training form (seed 1, BN state settled
+    and the head livened on a training batch, as phase 8's start) written
+    as a reference `.pt` (`{"model": state_dict, "ema": None}`, fp16
+    tensors, `torch.save`), read back by `load_checkpoint_any`; then
+    `cli/train.py --weights that.pt --hyp hyp.scratch.p6.yaml` for one
+    epoch on phase 8's generator at `img` px (n_train / n_val images, the
+    val labels holding the start's own detections), and `cli/test.py` on
+    its last.ckpt (fused, fp32) with K1L and with the plain keep-mask:
+    every loss item finite, validation launches K1L only, the test CLI's
+    mAP and detections equal with either keep-mask."""
+    import yaml
+
+    t_phase = time.perf_counter()
+    for d in (P6_DATA, P6_RUNS):
+        shutil.rmtree(d, ignore_errors=True)
+    data = write_dataset(P6_DATA, n_train, n_val, size=img)
+    cfg = P6_DATA / "model.yaml"
+    cfg.write_text(yaml.safe_dump(_cfg(width, P6_TRAIN_CFG)))
+    model = Model.from_yaml(str(cfg), seed=1, device=dev)
+    ds = DetectionDataset(str(P6_DATA / "train" / "images"), img_size=img, augment=True,
+                          hyp=trainer.load_hyp(str(P6_HYP)), seed=SMOKE_SEED,
+                          stride=int(max(model.plan.strides)))
+    calib = next(iter(create_loader(ds, batch_size=batch)))["images"]
+    calib = torch.from_numpy(calib.copy()).to(dev).float() / 255.0
+    settle_bn(model.plan, model.params, model.state, calib)
+    liven(model.plan, model.params, model.state, calib, act_rms=None, head_gain=1.0)
+    del calib
+    label_own_detections(model, P6_DATA / "val", img, batch)
+    pt = P6_DATA / "yolov7-w6.pt"
+    sd = export_state_dict(model.plan, model.params, model.state)
+    torch.save({"model": {k: torch.from_numpy(v).half() for k, v in sd.items()}, "ema": None},
+               pt)
+    _, params, state = load_checkpoint_any(str(pt), str(cfg))
+    for a, b in zip(tree_leaves(params) + tree_leaves(state),
+                    tree_leaves(model.params) + tree_leaves(model.state)):
+        if not torch.equal(a, b.detach().cpu().half().float()):
+            raise AssertionError("p6 (e): the .pt does not read back as the fp16 trees")
+    log(f"p6 (e): {pt.name}: {len(sd)} keys, {pt.stat().st_size} bytes (fp16), read back "
+        f"bit-equal with the fp16-rounded trees")
+    del model, params, state
+    on_cpu = ["--device", "cpu"] if dev.type == "cpu" else []
+    cuda = dev.type == "cuda"
+    zero_counts()
+    out = cli_train.main(["--cfg", str(cfg), "--data", data, "--weights", str(pt),
+                          "--hyp", str(P6_HYP), "--epochs", "1", "--batch-size", str(batch),
+                          "--nbs", str(batch), "--img-size", str(img),
+                          "--workers", str(CLI_WORKERS), "--project", str(P6_RUNS),
+                          "--name", "exp"] + on_cpu)
+    train_counts = read_counts()
+    rows = out["results"]
+    items = [{k: v for k, v in r.items() if k.startswith("train/")} for r in rows]
+    log(f"p6 (e) train CLI from the .pt: width {width}, {img} px, batch {batch}, 1 epoch of "
+        f"{n_train} images: rows {rows}")
+    if not all(math.isfinite(v) for r in items for v in r.values()) or len(items[0]) != 4:
+        raise AssertionError(f"p6 (e) train CLI: loss items {items}")
+    want = {kid: 0 for kid in COUNTED} | {"K1L": 2 * -(-n_val // batch)}
+    if cuda and train_counts != want:
+        raise AssertionError(f"p6 (e) train CLI: launch counts {train_counts}, want {want}")
+    last = Path(out["save_dir"]) / "weights" / "last.ckpt"
+
+    def test_cli(name):
+        return cli_test.main(["--weights", str(last), "--data", data, "--img-size", str(img),
+                              "--batch-size", str(batch), "--save-txt", "--save-conf",
+                              "--project", str(P6_RUNS), "--name", name] + on_cpu)
+
+    zero_counts()
+    test = test_cli("test_k1l")
+    test_counts = read_counts()
+    with plain_nms():
+        plain = test_cli("test_plain")
+    want = {kid: 0 for kid in COUNTED} | {"K1L": -(-n_val // batch)}
+    if cuda and test_counts != want:
+        raise AssertionError(f"p6 (e) test CLI: launch counts {test_counts}, want {want}")
+    for key in ("map50", "map", "mp", "mr"):
+        if test[key] != plain[key]:
+            raise AssertionError(f"p6 (e) test CLI: {key} {test[key]} with K1L, {plain[key]} "
+                                 "with the plain keep-mask")
+    txt = {name: {p.name: p.read_text() for p in (P6_RUNS / name / "labels").glob("*.txt")}
+           for name in ("test_k1l", "test_plain")}
+    n_dets = sum(t.count("\n") for t in txt["test_k1l"].values())
+    if txt["test_k1l"] != txt["test_plain"] or not n_dets:
+        raise AssertionError(f"p6 (e) test CLI: {n_dets} detections, the txts equal with K1L "
+                             f"and the plain keep-mask: {txt['test_k1l'] == txt['test_plain']}")
+    secs = time.perf_counter() - t_phase
+    log(f"p6 (e) test CLI: last.ckpt, fused, fp32: map50 {test['map50']:.6f}, map "
+        f"{test['map']:.6f} (plain keep-mask map50 {plain['map50']:.6f}, map "
+        f"{plain['map']:.6f}); {n_dets} detections on {n_val} images, equal with the plain "
+        f"keep-mask; launches {test_counts}; ms an image {test['speed_ms']}; phase {secs:.1f} s")
+    return {"rows": rows, "launches_train": train_counts, "launches_test": test_counts,
+            "test": {k: test[k] for k in ("map50", "map", "mp", "mr", "speed_ms")},
+            "pt_bytes": pt.stat().st_size, "phase_s": secs}
+
+
+def p6(dev, rows, width=1.0, img=P6_IMG, batch=BATCH, requests=12):
+    """Phase 9: the P6 family (yolov7-w6) on the card. (a) the deploy form's
+    bf16 graph engines at `img` px (no fused stem: the ReOrg stem; the fast
+    stem folds the pair after it; P6_SPANS fused spans); (b) K3 at each of
+    those spans against its plain version; (c) the Detector and fp32
+    `evaluate` on the training form (IAuxDetect, fused); (d) the aux train
+    step; (e) the `.pt` bridge through the train and test CLIs. Returns the
+    numbers, with the launches of the counted main paths: K1 and K3 of (a),
+    K3 and K1L of (c), K1L of (e)."""
+    t_phase = time.perf_counter()
+    m = make_model(dev, width, img, P6_DEPLOY_CFG)
+    spans = model_spans(m)
+    log(f"p6: yolov7-w6 deploy at {img} px: {len(spans)} ELAN spans (H, cin, ct, cc, cout, "
+        f"order) {spans}")
+    if len(spans) != P6_SPANS:
+        raise AssertionError(f"p6: {len(spans)} ELAN spans, want {P6_SPANS}")
+    srv = serving(dev, m, batch, requests, what="p6 (a) serving", transforms=(0, P6_SPANS),
+                  with_ingest=False)
+    del m
+    if dev.type == "cuda":
+        check_k3(dev, rows, spans, batch, key="K3_p6", stages_alone=False)
+    det = detect(dev, width, P6_TRAIN_CFG, img, transforms=(0, P6_SPANS), what="p6 (c) detect")
+    m = make_model(dev, width, img, P6_TRAIN_CFG)
+    ev = evaluation(dev, m, batch, 16, what="p6 (c) eval")
+    del m
+    tr = train_aux(dev, width, img)
+    br = bridge(dev, width, img, tr["batch"])
+    launches = {"K1": srv["launches"]["K1"],
+                "K3": srv["launches"]["K3"] + det["launches"]["K3"],
+                "K1L": det["launches"]["K1L"] + ev["launches"]["K1L"]
+                + br["launches_train"]["K1L"] + br["launches_test"]["K1L"]}
+    secs = time.perf_counter() - t_phase
+    log(f"p6: launches of its main paths {launches}; phase {secs:.1f} s")
+    keys = ("replays", "img_s", "device_ms_bs8", "replay_ms_bs8", "eager_ms_bs8", "p50_ms_bs8",
+            "p50_ms_bs1", "host_ms_infer_async", "enqueue_ms_bs8", "profile",
+            "feature_rms_err", "feature_rms_err_cudnn_bf16", "agreement",
+            "agreement_cudnn_bf16")
+    return {"launches": launches, "serving": {k: srv.get(k) for k in keys},
+            "k3_spans": rows.get("K3_p6_spans"), "k3": rows.get("K3_p6"), "detect": det,
+            "eval": ev, "train": tr, "bridge": br, "phase_s": secs}
+
+
 # substrings of the names of cuDNN's convolution kernels
 CUDNN_NAMES = ("conv", "xmma", "cudnn", "cutlass", "gemm")
 
@@ -2512,15 +2841,19 @@ def main() -> int:
     ev = evaluation(dev, m)
     tr = train(dev)
     cli = train_and_test(dev)
+    six = p6(dev, rows)
 
     # host-side counts of each kernel's main path: K1-K3 as the bf16
     # engines launched them (warm-up and capture; what the replays launch
     # is in the graph profiles' traces), K4 (and K4b: none) as the int8
-    # engines did, K1L as detect, eval and the train and test CLIs did
+    # engines did, K1L as detect, eval and the train and test CLIs did;
+    # with the P6 phase's K1, K3 and K1L
     launches = {**srv["launches"], "K4": srv8["launches"]["K4"],
                 "K4b": srv8["launches"]["K4b"],
                 "K1L": det["launches"]["K1L"] + ev["launches"]["K1L"]
                 + cli["launches_train"]["K1L"] + cli["launches_test"]["K1L"]}
+    for kid, n in six["launches"].items():
+        launches[kid] += n
     for kid in COUNTED:
         if kid != "K4b" and launches[kid] == 0:
             raise AssertionError(f"{kid} was launched no time on its main path")
@@ -2543,14 +2876,15 @@ def main() -> int:
     log(json.dumps({"serving": {k: srv[k] for k in keys + ("ingest",)},
                     "int8_serving": {k: srv8[k] for k in keys + ("calibrate_s",)},
                     "full_int8": full, "detect": det, "eval": ev, "train": tr,
-                    "train_test_cli": cli,
+                    "train_test_cli": cli, "p6": six,
                     "fused": {"K2": rows["K2"], "K3": rows["K3"]},
                     "k1l_runs": rows["k1l_runs"],
                     "stages": rows["stages"], "k4_convs": rows["k4_convs"],
                     "card": card}))
     log(json.dumps({"kernels": kernels}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, train phase "
-        f"{tr['phase_s']:.1f} s, train and test CLIs {cli['phase_s']:.1f} s")
+        f"{tr['phase_s']:.1f} s, train and test CLIs {cli['phase_s']:.1f} s, P6 "
+        f"{six['phase_s']:.1f} s")
     log(smi())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -119,3 +119,50 @@ def jax_model(width=0.5, seed=0, size=128, candidates=150, cfg=None):
     liven(tplan, tp, ts, torch.from_numpy(x / 255.0).float(),
           candidates=candidates)
     return m.plan, to_jax_tree(tp), state
+
+
+# the P6 family (ReOrg stem, four levels; training form IAuxDetect)
+P6_MODELS = ("yolov7-w6", "yolov7-e6", "yolov7-d6", "yolov7-e6e")
+
+
+def zoo_cfg(name, kind="training", width=1.0, nc=None):
+    """The JAX package's cfg `kind/name.yaml` as a dict at `width`."""
+    return deploy_cfg(width, f"yolo_series_tpu/models/cfg/{kind}/{name}.yaml", nc)
+
+
+def port_drawn_model(cfg, seed=0, stats_seed=None):
+    """`cfg` with weights drawn by the port (`init_model`, a torch.Generator
+    seeded with `seed`): (jax plan, params_np, state_np in the JAX layout,
+    port plan, port params, port state). Drawing on the port's side takes
+    well under a second where the JAX package's eager init of a P6 model
+    takes ~25 s; both packages still get the same numbers. With
+    stats_seed, every BN running mean is N(0, 0.2) and every running var
+    U(0.5, 1.5)."""
+    import torch
+
+    from yolo_series_tpu.models.graph import compile_graph as jcompile
+    from yolo_series_tpu_torch.models.convert import to_jax_params
+    from yolo_series_tpu_torch.models.graph import compile_graph
+    from yolo_series_tpu_torch.models.model import init_model
+
+    tplan = compile_graph(cfg)
+    tp, ts = init_model(tplan, torch.Generator().manual_seed(seed))
+    if stats_seed is not None:
+        gen = torch.Generator().manual_seed(stats_seed)
+
+        def draw(tree):
+            if isinstance(tree, dict):
+                for k, v in tree.items():
+                    if k == "mean" and isinstance(v, torch.Tensor):
+                        v.normal_(0.0, 0.2, generator=gen)
+                    elif k == "var" and isinstance(v, torch.Tensor):
+                        v.uniform_(0.5, 1.5, generator=gen)
+                    else:
+                        draw(v)
+            elif isinstance(tree, (list, tuple)):
+                for v in tree:
+                    draw(v)
+
+        draw(ts)
+    params, state = to_jax_params(tplan, tp, ts)
+    return jcompile(cfg), params, state, tplan, tp, ts

@@ -91,11 +91,13 @@ def test_implicit_layers_compile_from_the_dsl():
     assert len(tp.layers) == 108
 
 
-@pytest.mark.parametrize("module", ["IAuxDetect", "BottleneckCSPA", "ReOrg"])
+@pytest.mark.parametrize("module", ["IBin", "BottleneckCSPA", "Focus"])
 def test_unported_module_raises(module):
+    """A head or block the port does not have yet (IAuxDetect and ReOrg,
+    once here, are ported: tests/test_torch_port_p6.py)."""
     cfg = deploy_cfg(1.0)
-    if module == "IAuxDetect":
-        cfg["head"][-1] = [[102, 103, 104], 1, "IAuxDetect", ["nc", "anchors"]]
+    if module == "IBin":
+        cfg["head"][-1] = [[102, 103, 104], 1, "IBin", ["nc", "anchors"]]
     else:
         cfg["backbone"][1] = [-1, 1, module, [64]]
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):

@@ -5,7 +5,8 @@
         --img-size 640 --batch-size 16 --conf-thres 0.001 --iou-thres 0.65 [--device cpu]
 
 The JAX CLI's flags and output line, plus `--device` (the card unless
-`cpu` is asked for; raises when no card is visible). The forward is fp32
+`cpu` is asked for; raises when no card is visible). `--weights` takes a
+native .ckpt, or a reference .pt with `--cfg`. The forward is fp32
 (without TF32, `evaluate`'s pin), or bf16 with `--half`. `--task speed`
 runs the timing protocol. Not ported yet, and refused: `--augment` (TTA,
 ROADMAP queue 1 item 17), `--plots` and `--task study`, whose output is a

@@ -69,8 +69,8 @@ class Detector:
     def from_checkpoint(cls, weights, cfg: Optional[str] = None,
                         fuse: bool = True, **kw):
         """Load checkpoint(s), the attempt_load equivalent
-        (experimental.py:247): native .ckpt files; a list of paths builds an
-        ensemble (experimental.py:69)."""
+        (experimental.py:247): native .ckpt files, or reference .pt files
+        with `cfg`; a list of paths builds an ensemble (experimental.py:69)."""
         from yolo_series_tpu_torch.train.checkpoints import load_checkpoint_any
 
         paths = [weights] if isinstance(weights, str) else list(weights)

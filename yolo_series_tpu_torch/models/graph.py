@@ -7,11 +7,14 @@ through each block's `stride_factor`, anchors order-checked and
 normalized, and module names resolved through an explicit registry — no
 eval(). Accepts the canonical lowercase names and the reference's names.
 
-Only the modules of the yolov7 deploy and training graphs are ported (conv,
-mp, concat, upsample, sppcspc, repconv, detect, idetect, and the implicit
-layers implicita / implicitm, which take their width from their input);
-any other module raises NotImplementedError naming the ROADMAP queue that
-ports it.
+Only the modules of the yolov7, yolov7x and P6 (w6, e6, d6, e6e) deploy
+and training graphs are ported (conv, mp, reorg, concat, shortcut,
+upsample, sppcspc, repconv, downc, the heads detect, idetect and
+iauxdetect, and the implicit layers implicita / implicitm, which take
+their width from their input); any other module raises
+NotImplementedError naming the ROADMAP queue that ports it. An
+iauxdetect row routes 2 x nl inputs, lead maps then aux maps: nl comes
+from the anchors, and the lead inputs' strides are the head's.
 """
 
 from __future__ import annotations
@@ -35,18 +38,21 @@ def make_divisible(x, divisor=8):
 _REF_NAMES = {
     "Conv": "conv", "RepConv": "repconv", "SPPCSPC": "sppcspc", "MP": "mp",
     "Concat": "concat", "nn.Upsample": "upsample", "Upsample": "upsample",
-    "Detect": "detect", "IDetect": "idetect", "ImplicitA": "implicita",
-    "ImplicitM": "implicitm",
+    "Detect": "detect", "IDetect": "idetect", "IAuxDetect": "iauxdetect",
+    "ImplicitA": "implicita", "ImplicitM": "implicitm", "ReOrg": "reorg",
+    "DownC": "downc", "Shortcut": "shortcut",
 }
 # conv-family modules: args start [c2, ...] and get width scaling
-_CONV_FAMILY = {"conv", "repconv", "sppcspc"}
+_CONV_FAMILY = {"conv", "repconv", "sppcspc", "downc"}
 # subset that takes an inner repeat count inserted at args[2]
-_TAKES_N = {"sppcspc"}
+_TAKES_N = {"sppcspc", "downc"}
 _BLOCK_CLASSES = {"conv": L.ConvBnAct, "repconv": L.RepConv,
-                  "sppcspc": L.SPPCSPC, "mp": L.MP, "implicita": L.ImplicitA,
+                  "sppcspc": L.SPPCSPC, "downc": L.DownC, "mp": L.MP,
+                  "reorg": L.ReOrg, "implicita": L.ImplicitA,
                   "implicitm": L.ImplicitM}
-_HEAD_CLASSES = {"detect": H.Detect, "idetect": H.IDetect}
-_NOT_PORTED = ("is not ported yet: ROADMAP queue 1 (items 14-16) lists the "
+_HEAD_CLASSES = {"detect": H.Detect, "idetect": H.IDetect,
+                 "iauxdetect": H.IAuxDetect}
+_NOT_PORTED = ("is not ported yet: ROADMAP queue 1 (items 15-16) lists the "
                "remaining blocks and heads")
 
 
@@ -148,11 +154,13 @@ def compile_graph(cfg: Union[str, dict], ch: int = 3,
             args = [nc_ if a == "nc" else anchors_cfg if a == "anchors" else a
                     for a in args]
             head_ch = tuple(ch_at(x) for x in f)
-            lead_strides = tuple(st_at(x) for x in f)
             anc = args[1] if len(args) > 1 else anchors_cfg
             if isinstance(anc, int):
                 anc = [list(range(anc * 2))] * len(f)
             anc_np = np.asarray(anc, np.float32).reshape(len(anc), -1, 2)
+            # IAuxDetect routes lead then aux maps: the lead's are the first nl
+            nl = len(anc) if name == "iauxdetect" else len(f)
+            lead_strides = tuple(st_at(x) for x in f[:nl])
             anc_np = check_anchor_order(anc_np, lead_strides)
             anc_norm = anc_np / np.asarray(lead_strides, np.float32)[:, None, None]
             head = _HEAD_CLASSES[name](
@@ -191,6 +199,10 @@ def compile_graph(cfg: Union[str, dict], ch: int = 3,
             block = L.Concat(cins)
             cout = block.cout
             stride = sts.pop()
+        elif name == "shortcut":
+            block = L.Shortcut(tuple(ch_at(x) for x in f))
+            cout = block.cout
+            stride = st_at(f[0])
         elif name == "upsample":
             # reference rows: [None, 2, 'nearest']
             scale = int(args[1]) if len(args) > 1 else int(args[0])

@@ -1,11 +1,11 @@
-"""Detect and IDetect heads (counterpart of `yolo_series_tpu/models/heads.py`
-Detect, IDetect).
+"""Detect, IDetect and IAuxDetect heads (counterpart of
+`yolo_series_tpu/models/heads.py` Detect, IDetect, IAuxDetect).
 
-Semantics mirror reference models/yolo.py:23-207. The decoded output
+Semantics mirror reference models/yolo.py:23-430. The decoded output
 concatenates the levels into one (B, sum(na*ny*nx), no) tensor in the
 reference's anchor-major order; the raw output per level is
-(B, na, ny, nx, no). IAuxDetect, IBin and IKeypoint (ROADMAP queue 1,
-items 14-15) are not ported yet.
+(B, na, ny, nx, no). IBin and IKeypoint (ROADMAP queue 1, item 15) are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -132,3 +132,45 @@ class IDetect(Detect):
             y = ImplicitM(self.no * self.na).apply(params["im"][i], {}, y, ctx)[0]
         b, _, ny, nx = y.shape
         return y.permute(0, 2, 3, 1).reshape(b, ny, nx, self.na, self.no)
+
+
+@dataclasses.dataclass(frozen=True)
+class IAuxDetect(Detect):
+    """The P6 training head with an auxiliary branch (reference
+    yolo.py:311-430). `ch` has 2 x nl entries: the lead convs `m` (with
+    the implicit layers `ia` / `im`) on ch[:nl], the aux convs `m2` (none)
+    on ch[nl:]. Training returns raw = the lead maps, then the aux maps
+    (2 x nl); inference decodes the lead maps only (yolo.py:334-362).
+    `reparam.fuse_head_implicit` folds ia / im into `m` and keeps `m2`."""
+
+    def _convs(self) -> List[PlainConv]:
+        return [PlainConv(c, self.no * self.na, 1) for c in self.ch[:self.nl]]
+
+    def _aux_convs(self) -> List[PlainConv]:
+        return [PlainConv(c, self.no * self.na, 1) for c in self.ch[self.nl:]]
+
+    def init(self, gen):
+        params = {"m": [cv.init(gen)[0] for cv in self._convs()],
+                  "m2": [cv.init(gen)[0] for cv in self._aux_convs()],
+                  "ia": [ImplicitA(c).init(gen)[0] for c in self.ch[:self.nl]],
+                  "im": [ImplicitM(self.no * self.na).init(gen)[0]
+                         for _ in range(self.nl)]}
+        return params, {}
+
+    _raw_level = IDetect._raw_level
+
+    def apply(self, params, state, xs: Sequence[torch.Tensor], ctx: Ctx):
+        out, state = Detect.apply(self, params, state, xs, ctx)
+        if ctx.training:
+            for i, cv in enumerate(self._aux_convs()):
+                y, _ = cv.apply(params["m2"][i], {}, xs[self.nl + i], ctx)
+                out["raw"].append(y.reshape(y.shape[0], self.na, self.no,
+                                            *y.shape[2:]).permute(0, 1, 3, 4, 2))
+        return out, state
+
+    def init_biases(self, params, cf=None):
+        params = Detect.init_biases(self, params, cf)
+        new_m2 = [{**mp, "b": mp["b"] + self._bias_prior(self.strides[i], cf)
+                   .to(mp["b"].device)}
+                  for i, mp in enumerate(params["m2"])]
+        return {**params, "m2": new_m2}

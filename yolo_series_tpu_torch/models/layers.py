@@ -8,11 +8,12 @@ transforms stay plain tree edits. Params are dicts of tensors; conv
 weights are OIHW. Activations are NCHW tensors, kept in `channels_last`
 memory by the model, so a permute gives kernels contiguous NHWC.
 
-Only what the yolov7 deploy and training graphs run is here: ConvBnAct
-(BN, fused {w, b} or int8 {wq, sw, b[, sx]} form), PlainConv (detect-head
-convs), MP, Upsample, Concat, SPPCSPC, RepConv, and the implicit-knowledge
-layers ImplicitA / ImplicitM of IDetect. The rest of the zoo is ROADMAP
-queue 1, slice 3.
+Only what the yolov7, yolov7x and P6 (w6, e6, d6, e6e) deploy and
+training graphs run is here: ConvBnAct (BN, fused {w, b} or int8 {wq, sw,
+b[, sx]} form), PlainConv (detect-head convs), MP, ReOrg, Upsample,
+Concat, Shortcut, SPPCSPC, RepConv, DownC, and the implicit-knowledge
+layers ImplicitA / ImplicitM of IDetect and IAuxDetect. The rest of the
+zoo is ROADMAP queue 1, slice 3.
 
 In training (`Ctx.training`) BN normalizes with the batch's moments and
 returns the new running stats, which every block hands back as its new
@@ -430,6 +431,29 @@ class MP(Block):
 
 
 @dataclasses.dataclass(frozen=True)
+class ReOrg(Block):
+    """Space-to-depth 2x (reference common.py:48): (B, C, H, W) -> (B, 4C,
+    H/2, W/2), the channel blocks in the reference's slice order
+    [::2, ::2], [1::2, ::2], [::2, 1::2], [1::2, 1::2] on (h, w)."""
+
+    c1: int
+
+    @property
+    def cout(self):
+        return self.c1 * 4
+
+    stride_factor = 2.0
+
+    def init(self, gen):
+        return {}, {}
+
+    def apply(self, params, state, x, ctx):
+        y = torch.cat([x[:, :, ::2, ::2], x[:, :, 1::2, ::2], x[:, :, ::2, 1::2],
+                       x[:, :, 1::2, 1::2]], dim=1)
+        return y.contiguous(memory_format=torch.channels_last), state
+
+
+@dataclasses.dataclass(frozen=True)
 class Upsample(Block):
     """nn.Upsample nearest, integer scale."""
 
@@ -466,6 +490,57 @@ class Concat(Block):
 
     def apply(self, params, state, xs, ctx):
         return torch.cat(list(xs), dim=1), state
+
+
+@dataclasses.dataclass(frozen=True)
+class Shortcut(Block):
+    """Elementwise add of two routed inputs (reference common.py:80)."""
+
+    cins: Tuple[int, ...]
+
+    @property
+    def cout(self):
+        return self.cins[0]
+
+    def init(self, gen):
+        return {}, {}
+
+    def apply(self, params, state, xs, ctx):
+        return xs[0] + xs[1], state
+
+
+@dataclasses.dataclass(frozen=True)
+class DownC(Composite):
+    """Conv + max-pool downsample pair of the P6 backbones (reference
+    common.py:181-192): cv2(cv1(x)) (1x1, then k3 stride k) beside cv3 of
+    the k x k / stride-k max pool of x, concatenated. The pool is the
+    non-overlapping one, so training takes `MaxPoolTiled`'s gradient."""
+
+    c1: int
+    c2: int
+    n: int = 1
+    k: int = 2
+
+    @property
+    def cout(self):
+        return self.c2
+
+    @property
+    def stride_factor(self):
+        return float(self.k)
+
+    def children(self):
+        return {
+            "cv1": ConvBnAct(self.c1, self.c1, 1, 1),
+            "cv2": ConvBnAct(self.c1, self.c2 // 2, 3, self.k),
+            "cv3": ConvBnAct(self.c1, self.c2 // 2, 1, 1),
+        }
+
+    def apply(self, params, state, x, ctx):
+        call, new_state = self._call(params, state, ctx)
+        a = call("cv2", call("cv1", x))
+        b = call("cv3", max_pool(x, self.k, self.k, 0))
+        return torch.cat([a, b], dim=1), new_state
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,9 +1,10 @@
 """Train -> deploy re-parameterization as param-tree transforms
 (counterpart of `yolo_series_tpu/models/reparam.py`).
 
-Conv+BN fusion (reference torch_utils.py:181-201), the RepConv 3-branch
-collapse (common.py:509-552) and the folding of IDetect's implicit layers
-into its 1x1 convs (yolo.py:178-190): (params, state) -> (params',
+Conv+BN fusion (reference torch_utils.py:181-201; composite blocks such as
+SPPCSPC and DownC child by child), the RepConv 3-branch collapse
+(common.py:509-552) and the folding of IDetect's and IAuxDetect's implicit
+layers into their lead 1x1 convs (yolo.py:178-190): (params, state) -> (params',
 state') with the same inference output and the same GraphPlan.
 """
 
@@ -53,8 +54,10 @@ def fuse_repconv(block: L.RepConv, params, state):
 
 
 def fuse_head_implicit(head, params):
-    """Fold IDetect's ia / im into its 1x1 convs (yolo.py:178-190): b += w
-    @ ia, then w and b scale by im. A head without them is returned as is."""
+    """Fold IDetect's (and IAuxDetect's lead) ia / im into the 1x1 convs
+    `m` (yolo.py:178-190): b += w @ ia, then w and b scale by im. The aux
+    convs `m2` have no implicit layers and stay as they are. A head without
+    ia / im is returned as is."""
     if "ia" not in params:
         return params
     ms = []

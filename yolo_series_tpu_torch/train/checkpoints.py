@@ -12,8 +12,8 @@ optimizer state as they are: SGD's {"v"}, Adam's {"m", "v", "t"} with `t`
 an int32 scalar, as the JAX optimizer holds them. Loading compiles the
 embedded cfg with the port's `compile_graph`, casts every float leaf of
 the weights to fp32, as the JAX loader does, and converts the trees with
-`models/convert.from_jax_tree`. A reference `.pt` needs the torch
-importer, ROADMAP queue 1 item 11(c).
+`models/convert.from_jax_tree`. `load_checkpoint_any` also reads a
+reference `.pt` through `models/torch_import.load_torch_checkpoint`.
 """
 
 from __future__ import annotations
@@ -152,14 +152,18 @@ def load_checkpoint_any(weights: str, cfg: Optional[str] = None,
     """Weights -> (plan, params, state): the port's trees on the CPU, fp32.
 
     .ckpt    native checkpoint (cfg embedded; `cfg` overrides it)
-    .pt      reference/upstream torch checkpoint: not ported yet
+    .pt      reference/upstream torch checkpoint (`cfg` required;
+             `models/torch_import.load_torch_checkpoint`)
     """
     w = str(weights)
     if w.endswith(".pt"):
-        raise NotImplementedError(
-            "reference .pt checkpoints need the torch importer, which the port "
-            "does not have yet (ROADMAP queue 1, item 11(c)); convert with the JAX "
-            "package and load the .ckpt it writes")
+        if cfg is None:
+            raise ValueError("--cfg is required to import a .pt checkpoint")
+        from yolo_series_tpu_torch.models.torch_import import load_torch_checkpoint
+
+        plan = compile_graph(cfg)
+        params, state = load_torch_checkpoint(w, plan, prefer_ema=prefer_ema)
+        return plan, params, state
     blob = load_checkpoint(w)
     plan = compile_graph(blob["cfg"] if cfg is None else cfg)
     params_np = (blob["ema_params"] if prefer_ema and blob.get("ema_params")

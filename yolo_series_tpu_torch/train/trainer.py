@@ -26,7 +26,10 @@ Not ported yet, and refused with NotImplementedError: several devices
 and `fast_stem` (item 20; the JAX trainer's `fast_stem=True` default is an
 exact reshuffle of the step's plan, `models/faststem.make_train_fast_stem`,
 so here it defaults to False and the step runs the plan as compiled), and
-the IAuxDetect / IBin heads (`compile_graph` raises, items 14-15). The
+the IBin head (`compile_graph` raises, item 15). An IAuxDetect model (the
+P6 training cfgs) trains with the aux OTA loss (`losses/aux_ota.py`), as
+the JAX trainer dispatches it. The image size is rounded up to a multiple
+of the largest stride (64 for P6; reference train.py:249-250). The
 train-batch mosaics and `plot_results` wait for item 19: the trainer says
 so once and writes none.
 """
@@ -45,8 +48,10 @@ import yaml
 from yolo_series_tpu_torch.data.datasets import DetectionDataset, create_loader
 from yolo_series_tpu_torch.device import device as _device
 from yolo_series_tpu_torch.eval.evaluator import evaluate
-from yolo_series_tpu_torch.losses import LossHyp, make_compute_loss, make_compute_loss_ota
+from yolo_series_tpu_torch.losses import (LossHyp, make_compute_loss,
+                                          make_compute_loss_aux_ota, make_compute_loss_ota)
 from yolo_series_tpu_torch.models.graph import compile_graph
+from yolo_series_tpu_torch.models.heads import IAuxDetect
 from yolo_series_tpu_torch.models.model import init_model
 from yolo_series_tpu_torch.obs.artifacts import ARTIFACT_PREFIX
 from yolo_series_tpu_torch.train.checkpoints import (
@@ -56,6 +61,7 @@ from yolo_series_tpu_torch.train.checkpoints import (
 from yolo_series_tpu_torch.train.optim import OptimConfig
 from yolo_series_tpu_torch.train.schedules import warmup_accumulate, warmup_factors
 from yolo_series_tpu_torch.train.step import init_train_state, make_train_step
+from yolo_series_tpu_torch.utils.general import check_img_size
 
 DEFAULT_TRAIN_HYP = {
     "lr0": 0.01, "lrf": 0.1, "momentum": 0.937, "weight_decay": 0.0005,
@@ -276,6 +282,7 @@ def train(tc: TrainConfig, train_ds: Optional[DetectionDataset] = None,
         names = ["item"]
 
     plan = compile_graph(tc.cfg, nc=nc)
+    tc = dataclasses.replace(tc, img_size=check_img_size(tc.img_size, int(max(plan.strides))))
     params, state = init_model(plan, torch.Generator().manual_seed(tc.seed))
     if tc.weights:
         _, params_l, state_l = load_checkpoint_any(tc.weights, tc.cfg)
@@ -312,8 +319,11 @@ def train(tc: TrainConfig, train_ds: Optional[DetectionDataset] = None,
     # quad: images arrive at 2x side, but the reference scales the hyp by
     # the base imgsz regardless (train.py:288-291)
     loss_hyp = _scaled_loss_hyp(hyp, nl, nc, tc.img_size, tc.label_smoothing)
-    loss_fn = (make_compute_loss_ota if hyp.get("loss_ota", 1)
-               else make_compute_loss)(head, loss_hyp)
+    if isinstance(head, IAuxDetect):
+        loss_fn = make_compute_loss_aux_ota(head, loss_hyp)
+    else:
+        loss_fn = (make_compute_loss_ota if hyp.get("loss_ota", 1)
+                   else make_compute_loss)(head, loss_hyp)
 
     # accumulate micro-batches to the nominal batch; weight decay scaled by
     # the effective batch (train.py:110-112, the final accumulate)
