@@ -116,9 +116,19 @@ non-zero on failure before the last line is printed:
     phase 8's set (64 + 16 images, drawn at 1280 px) with the P6 hyp, and
     `cli/test.py` on its last.ckpt, mAP equal with K1L and the plain
     keep-mask.
-10. One JSON line of per-kernel numbers (launch counts with phase 9's),
-    the card's name and power limit, and the last line `{"ok": true,
-    "device": {...}}`.
+10. Training on several ranks, on the one card (NCCL takes one rank a
+    card, so two ranks on it run gloo): (a) phase 7's bf16 step through a
+    one-rank NCCL group against the step without a group, bit-equal under
+    cuDNN's deterministic algorithms, and ms a step of both; (b) one fp32
+    step on 2 gloo ranks, 4 of the same 8 images each, against the
+    one-process fp32 step on all 8 (update, items and BN state within the
+    limits below); (c) the trainer on 2 gloo ranks, one epoch of phase 8's
+    set from its start: finite losses, rank 0 alone validates (K1L, each
+    evaluation equal with the plain keep-mask's) and writes last.ckpt,
+    which reads back; img/s, which is not a multi-GPU rate.
+11. One JSON line of per-kernel numbers (launch counts with phases 9's and
+    10's), the card's name and power limit, and the last line `{"ok":
+    true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -137,6 +147,7 @@ from types import SimpleNamespace
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
@@ -166,6 +177,9 @@ from yolo_series_tpu_torch.models.torch_export import export_state_dict
 from yolo_series_tpu_torch.ops import (_build, conv_silu, fused_elan, fused_stem,
                                        int8_mm, nms_keep)
 from yolo_series_tpu_torch.ops.boxes import box_iou
+from yolo_series_tpu_torch.parallel.dist import (TIMEOUT as DIST_TIMEOUT, free_port,
+                                                 host_local_slice, init_distributed, launch,
+                                                 sync_processes)
 from yolo_series_tpu_torch.ops.nms import batched_nms, fused_head_nms
 from yolo_series_tpu_torch.losses import (LossHyp, make_compute_loss_aux_ota,
                                           make_compute_loss_ota)
@@ -294,6 +308,38 @@ P6_TRAIN_CFG = ROOT / "yolo_series_tpu_torch/models/cfg/training/yolov7-w6.yaml"
 P6_HYP = ROOT / "data/hyp.scratch.p6.yaml"
 P6_IMG, P6_SPANS, P6_STEPS, P6_BATCHES = 1280, 11, 8, (8, 4, 2)
 P6_DATA, P6_RUNS = ROOT / "build" / "smoke_data_p6", ROOT / "build" / "smoke_runs_p6"
+# Phase 10 (training on several ranks, on the one card). (a) Phase 7's bf16
+# step through a one-rank NCCL group against the step without one, from the
+# same state: bit-equal (a one-rank sum and a division by 1 are exact),
+# under cuDNN's deterministic algorithms; the step without a group run twice
+# is the control. (b) One fp32 step on PAR_RANKS gloo ranks on the card,
+# each on its slice of the same BATCH images, against the one-process fp32
+# step on all of them, from the same state (readings of batches 5-7 by
+# tools/torch_rank_readings.py, H100 80GB HBM3, 700 W). The step's gradient
+# is discontinuous at max-pool near-ties: another fp32 summation order
+# routes some windows' gradient to another input, which moves the update of
+# every layer upstream of a pool. The updates lie 4.1e-3 to 1.9e-2 (relative
+# L2) from one process, 7.3e-3 on this batch in every run (the step run
+# again: 1.3e-5, 0 under cuDNN's deterministic algorithms); the one-process
+# step on the batch in reverse order lies 3.1e-3 to 5.4e-3; the layers
+# upstream of a pool hold > 0.9999 of the squared distance. The layers that
+# reach the head through no max pool (`pool_free_layers`) lie 1.6e-4 to
+# 2.6e-4 for both. Faults in the collective path move those layers: BN's
+# scale and bias grads summed twice 2.3e-2 (3.5e-2 in all), dx over the
+# local n 0.39 (0.49 in all). So the pool-free layers' update is held
+# within PAR_POOL_FREE_L2, and the updates of the params and of the EMA
+# params (which follow the params) within PAR_UPDATE_L2, this batch's
+# reading with room for its run-to-run spread; the loss items within
+# PAR_ITEM_RTOL (the trainer tests' limit: fp32 sums over the positives in
+# another order) and the BN state within PAR_STATE_REL relative L2 (phase
+# 7 (b)'s). (c) The trainer on PAR_RANKS
+# gloo ranks on the card, PAR_EPOCHS epoch on phase 8's set from its
+# start: rank 0 alone validates (K1L, each evaluation equal with the plain
+# keep-mask's) and writes. Every rank is joined within PAR_TIMEOUT_S.
+PAR_RANKS, PAR_EPOCHS, PAR_TIMEOUT_S = 2, 1, 600
+PAR_UPDATE_L2, PAR_ITEM_RTOL, PAR_STATE_REL = 1e-2, 1e-4, 1e-5
+PAR_POOL_FREE_L2 = 1e-3
+PAR_RUN = ROOT / "build" / "smoke_runs" / "ranks"
 
 
 def log(*a):
@@ -2281,28 +2327,11 @@ def loader_split_ms(data_dir, img, n=32):
     return {"decode": decode, "sample": (time.perf_counter() - t) * 1e3 / n}
 
 
-def train_and_test(dev, width=1.0, img=IMG, batch=BATCH, n_train=TRAIN_IMAGES,
-                   n_val=VAL_IMAGES):
-    """Phase 8: `cli/train.py` at `width` (1.0: the training form as
-    published) from a settled start (seed 1, `settle_bn` and `liven`'s
-    head on a training batch) on a synthetic set written under build/,
-    `img` px, batch
-    `batch` accumulated to CLI_NBS, bf16, CLI_EPOCHS epochs with the default
-    hyp (mosaic, mixup, paste-in), autoanchor and per-epoch validation, on
-    `dev`; then `cli/test.py` on its last.ckpt (fused, fp32), with K1L and
-    with the plain keep-mask. Held: every loss item finite; last.ckpt and
-    best.ckpt written and stripped, and read back; validation launched K1L
-    (two batches an evaluation, one evaluation an epoch and a final one)
-    and nothing else; the test CLI's mAP equal with K1L and with the plain
-    keep-mask, and so are its detections (txt). Timed on the card: img/s and ms a step an epoch, the share
-    of the trainer's time spent waiting for a batch, the loader alone with 1
-    and CLI_WORKERS threads (and, on one thread, a file's decode and a
-    whole sample), a checkpoint's bytes and seconds to write,
-    validation ms an image, the test CLI's inference and NMS ms an image,
-    and the peak allocation."""
+def smoke_set(dev, width=1.0, img=IMG, batch=BATCH, n_train=TRAIN_IMAGES, n_val=VAL_IMAGES):
+    """Phase 8's set under SMOKE_DATA (SMOKE_DATA and SMOKE_RUNS emptied
+    first) and its start: (data.yaml, model.yaml, livened.ckpt) paths."""
     import yaml
 
-    t_phase = time.perf_counter()
     for d in (SMOKE_DATA, SMOKE_RUNS):
         shutil.rmtree(d, ignore_errors=True)
     data = write_dataset(SMOKE_DATA, n_train, n_val, size=img)
@@ -2326,7 +2355,30 @@ def train_and_test(dev, width=1.0, img=IMG, batch=BATCH, n_train=TRAIN_IMAGES,
                                             train_optim.OptimConfig(), device=dev),
                     cfg=_cfg(width, TRAIN_CFG))
     label_own_detections(model, SMOKE_DATA / "val", img, batch)
-    del model
+    return data, cfg, start
+
+
+def train_and_test(dev, width=1.0, img=IMG, batch=BATCH, n_train=TRAIN_IMAGES,
+                   n_val=VAL_IMAGES):
+    """Phase 8: `cli/train.py` at `width` (1.0: the training form as
+    published) from a settled start (seed 1, `settle_bn` and `liven`'s
+    head on a training batch) on a synthetic set written under build/,
+    `img` px, batch
+    `batch` accumulated to CLI_NBS, bf16, CLI_EPOCHS epochs with the default
+    hyp (mosaic, mixup, paste-in), autoanchor and per-epoch validation, on
+    `dev`; then `cli/test.py` on its last.ckpt (fused, fp32), with K1L and
+    with the plain keep-mask. Held: every loss item finite; last.ckpt and
+    best.ckpt written and stripped, and read back; validation launched K1L
+    (two batches an evaluation, one evaluation an epoch and a final one)
+    and nothing else; the test CLI's mAP equal with K1L and with the plain
+    keep-mask, and so are its detections (txt). Timed on the card: img/s and ms a step an epoch, the share
+    of the trainer's time spent waiting for a batch, the loader alone with 1
+    and CLI_WORKERS threads (and, on one thread, a file's decode and a
+    whole sample), a checkpoint's bytes and seconds to write,
+    validation ms an image, the test CLI's inference and NMS ms an image,
+    and the peak allocation."""
+    t_phase = time.perf_counter()
+    data, cfg, start = smoke_set(dev, width, img, batch, n_train, n_val)
     on_cpu = ["--device", "cpu"] if dev.type == "cpu" else []
     cuda = dev.type == "cuda"
 
@@ -2769,6 +2821,287 @@ def profile_forwards(fn, what="profile", n=5):
                         "launches": traced}}
 
 
+# ------------------------------------------ training on several ranks ---
+
+def same_step(a, b) -> bool:
+    """Two train steps' results (new TrainState, metrics) bit-equal."""
+    (ta, ma), (tb, mb) = a, b
+    names = ("params", "state", "opt_state", "ema_params", "ema_state")
+    return (ta.step == tb.step and set(ma) == set(mb)
+            and all(torch.equal(ma[k], mb[k]) for k in ma)
+            and all(torch.equal(x, y) for n in names
+                    for x, y in zip(tree_leaves(getattr(ta, n)), tree_leaves(getattr(tb, n)))))
+
+
+def world1_step(dev, width=1.0, img=IMG, batch=BATCH):
+    """(a) Phase 7's bf16 step through a one-rank group (NCCL on the card,
+    gloo on the CPU) against the step without a group, bit for bit, then
+    ms a step of both."""
+    model = train_model(dev, width)
+    plan, opt = model.plan, train_optim.OptimConfig()
+    loss_fn = make_compute_loss_ota(plan.head, LossHyp())
+    lr, mom = lr_after_warmup(opt)
+    batch_np = train_batch(np.random.default_rng(7), batch, img)
+    ts = init_train_state(model.params, model.state, opt, device=dev)
+    del model
+    group = init_distributed(0, 1, f"tcp://localhost:{free_port()}", dev.type)
+    try:
+        backend = dist.get_backend(group)
+        steps = {"alone": make_train_step(plan, loss_fn, opt),
+                 "group": make_train_step(plan, loss_fn, opt, mesh=group)}
+        cudnn = torch.backends.cudnn
+        deterministic = cudnn.deterministic
+        cudnn.deterministic = True
+        try:
+            alone, control, grouped = (steps[k](ts, *batch_np, lr, mom)
+                                       for k in ("alone", "alone", "group"))
+        finally:
+            cudnn.deterministic = deterministic
+        control_equal, equal = same_step(alone, control), same_step(alone, grouped)
+        items = {k: float(v) for k, v in grouped[1].items()}
+        del alone, control, grouped
+        log(f"ranks (a): the bf16 step at width {width}, {img} px, batch {batch} through a "
+            f"one-rank {backend} group against the step without a group, cuDNN deterministic: "
+            f"bit-equal {equal} (the step without a group twice: {control_equal}); items "
+            f"{items}")
+        if not control_equal:
+            raise AssertionError("ranks (a): the step without a group is not deterministic")
+        if not equal:
+            raise AssertionError(f"ranks (a): the one-rank {backend} step is not bit-equal")
+        timing = {"ms_step": None, "host_ms_step": None}
+        if dev.type == "cuda":
+            timing["ms_step"], timing["host_ms_step"] = {}, {}
+            for k, fn in steps.items():
+                timing["ms_step"][k] = cuda_ms(lambda fn=fn: fn(ts, *batch_np, lr, mom),
+                                               iters=10, warmup=2)
+                host = []
+                for _ in range(5):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    fn(ts, *batch_np, lr, mom)
+                    host.append((time.perf_counter() - t) * 1e3)
+                timing["host_ms_step"][k] = statistics.median(host)
+            torch.cuda.synchronize()
+        log(f"ranks (a): ms a step (CUDA events, median of 10) {timing['ms_step']}, host ms a "
+            f"step (enqueue, median of 5) {timing['host_ms_step']}: the group's cost is two "
+            "collectives a BN layer, the loss's counts and the gradient buckets")
+    finally:
+        dist.destroy_process_group()
+    return {"backend": backend, "bit_equal": equal, "items": items, **timing}
+
+
+def pool_free_layers(plan):
+    """The layers whose params reach the head through no max pool: neither
+    a pooling block (MP, SPPCSPC, DownC) nor upstream of one. Their
+    gradient is continuous in the activations; a max pool's is not at
+    near-ties, where another fp32 summation order can route a window's
+    gradient to another input."""
+    n = len(plan.layers)
+    consumers = [[] for _ in range(n)]
+    for i, spec in enumerate(plan.layers):
+        for j in spec.frm if isinstance(spec.frm, tuple) else (spec.frm,):
+            consumers[i - 1 if j == -1 else j].append(i)
+    reaches = [False] * n
+    for j in reversed(range(n)):
+        reaches[j] = (isinstance(plan.layers[j].block, (L.MP, L.SPPCSPC, L.DownC))
+                      or any(reaches[i] for i in consumers[j]))
+    return {j for j in range(n) if not reaches[j]}
+
+
+def update_readings(plan, new, ref, old):
+    """Two updates of the params from `old` (new - old against ref - old),
+    per layer and in all (fp64, host): the relative L2 over all leaves,
+    over the pool-free layers' (`pool_free_layers`) and over the others',
+    the others' share of the squared distance, and the five layers that
+    hold most of it (index, block, share, the layer's relative L2)."""
+    per = []
+    for a, b, o in zip(new["layers"], ref["layers"], old["layers"]):
+        num = den = 0.0
+        for x, y, z in zip(tree_leaves(a), tree_leaves(b), tree_leaves(o)):
+            z = z.detach().double().cpu()
+            dr = y.detach().double().cpu() - z
+            num += float((x.detach().double().cpu() - z - dr).square().sum())
+            den += float(dr.square().sum())
+        per.append((num, den))
+    free = pool_free_layers(plan)
+
+    def rel(idx):
+        num, den = sum(per[i][0] for i in idx), sum(per[i][1] for i in idx)
+        return (num / den) ** 0.5 if den else 0.0
+
+    total = sum(p[0] for p in per) or 1.0
+    pooled = [i for i in range(len(per)) if i not in free]
+    top = sorted(range(len(per)), key=lambda i: -per[i][0])[:5]
+    return {"rel_l2": rel(range(len(per))), "pool_free_rel_l2": rel(sorted(free)),
+            "pooled_rel_l2": rel(pooled),
+            "pooled_share": sum(per[i][0] for i in pooled) / total,
+            "top_layers": [(i, type(plan.layers[i].block).__name__, per[i][0] / total,
+                            (per[i][0] / per[i][1]) ** 0.5 if per[i][1] else 0.0)
+                           for i in top]}
+
+
+def ranks_step(rank, world, group, dev, width, img, batch, batch_seed=5):
+    """(b) on one rank: the fp32 step of `make_train_step(mesh=group)` on
+    this rank's slice of the batch; rank 0 then runs the one-process fp32
+    step on the whole batch from the same state, and holds the two (the
+    other ranks wait). Two controls on rank 0 read how far the step itself
+    moves under fp32 rounding: the one-process step again, and on the
+    batch in reverse image order (the same function summed in other
+    orders)."""
+    model = train_model(torch.device("cpu"), width, seed=3)
+    plan = model.plan
+    opt = train_optim.OptimConfig()
+    lr, mom = lr_after_warmup(opt)
+    batch_np = train_batch(np.random.default_rng(batch_seed), batch, img)
+    loss_fn = make_compute_loss_ota(plan.head, LossHyp())
+    ts = init_train_state(model.params, model.state, opt, device=dev)
+    sl = host_local_slice(batch, rank, world)
+    step = make_train_step(plan, loss_fn, opt, mesh=group, compute_dtype=torch.float32)
+    with full_fp32(dev.type == "cuda"):
+        new, metrics = step(ts, *(a[sl] for a in batch_np), lr, mom)
+    res = None
+    if rank == 0:
+        one = make_train_step(plan, loss_fn, opt, compute_dtype=torch.float32)
+        with full_fp32(dev.type == "cuda"):
+            ref, ref_m = one(ts, *batch_np, lr, mom)
+            again = one(ts, *batch_np, lr, mom)[0]
+            rev = one(ts, *(a[::-1].copy() for a in batch_np), lr, mom)[0]
+        m, rm = ({k: float(v) for k, v in x.items()} for x in (metrics, ref_m))
+        de = tree_update(new.ema_params, ts.ema_params)
+        dre = tree_update(ref.ema_params, ts.ema_params)
+        res = {"ranks": update_readings(plan, new.params, ref.params, ts.params),
+               "again": update_readings(plan, again.params, ref.params, ts.params),
+               "reversed": update_readings(plan, rev.params, ref.params, ts.params),
+               "ema_update_rel_l2": float((de - dre).norm() / dre.norm()),
+               "bn_state_rel_err": tree_rel_l2(new.state, ref.state),
+               "item_rel_err": max(abs(m[k] - rm[k]) / abs(rm[k]) for k in rm),
+               "losses_ranks": m, "losses_one": rm}
+        res["update_rel_l2"] = res["ranks"]["rel_l2"]
+    sync_processes("ranks (b)", group)
+    return res
+
+
+def ranks_trainer(world, dev, img, batch):
+    """(c) on one rank: the trainer on phase 8's set from its start, one
+    process a rank; on rank 0 each validation is run again with the plain
+    keep-mask (which counts no launch) and must give the same metrics."""
+    evals = []
+    real_evaluate = trainer.evaluate
+
+    def checked_evaluate(plan, params, state, loader, **kw):
+        res = real_evaluate(plan, params, state, loader, **kw)
+        with plain_nms():
+            plain = real_evaluate(plan, params, state, loader, **kw)
+        evals.append({k: (res[k], plain[k]) for k in ("map50", "map", "mp", "mr")})
+        return res
+
+    tc = trainer.TrainConfig(
+        cfg=str(SMOKE_DATA / "model.yaml"), data=str(SMOKE_DATA / "data.yaml"),
+        weights=str(SMOKE_DATA / "livened.ckpt"), epochs=PAR_EPOCHS, batch_size=batch,
+        nominal_batch_size=CLI_NBS, warmup_accumulate=False, img_size=img,
+        workers=CLI_WORKERS, save_dir=str(PAR_RUN), device=dev.type, n_data_devices=world)
+    zero_counts()
+    trainer.evaluate = checked_evaluate
+    try:
+        out = trainer.train(tc)
+    finally:
+        trainer.evaluate = real_evaluate
+    return {"rows": out["results"], "launches": read_counts(), "evals": evals}
+
+
+def ranks_main(rank, world, init_method, dev_type, width, img, batch):
+    """One rank of (b) and (c): every rank on card 0 through gloo (NCCL
+    takes one rank a card)."""
+    if dev_type == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=init_method, rank=rank, world_size=world,
+                            timeout=DIST_TIMEOUT)
+    dev = torch.device(dev_type)
+    step = ranks_step(rank, world, dist.group.WORLD, dev, width, img, batch)
+    if dev_type == "cuda":
+        torch.cuda.empty_cache()
+    return {"step": step, "trainer": ranks_trainer(world, dev, img, batch)}
+
+
+def ranks(dev, width=1.0, img=IMG, batch=BATCH, n_train=TRAIN_IMAGES, n_val=VAL_IMAGES):
+    """Phase 10: training on several ranks. (a) in this process; (b) and (c)
+    in PAR_RANKS spawned processes, gloo on the one card (each joined
+    within PAR_TIMEOUT_S; a rank that fails or hangs fails the phase).
+    Needs phase 8's set and start under build/."""
+    t_phase = time.perf_counter()
+    a = world1_step(dev, width, img, batch)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    shutil.rmtree(PAR_RUN, ignore_errors=True)
+    outs = launch(ranks_main, PAR_RANKS, args=(dev.type, width, img, batch),
+                  timeout=PAR_TIMEOUT_S, threads=None if dev.type == "cuda" else 2)
+    b = outs[0]["step"]
+    for k in ("ranks", "again", "reversed"):
+        r = b[k]
+        log(f"ranks (b) {k}: relative L2 of the params' update from the one-process step's "
+            f"{r['rel_l2']:.3g}: pool-free layers {r['pool_free_rel_l2']:.3g}, the others "
+            f"{r['pooled_rel_l2']:.3g} ({r['pooled_share']:.4f} of the squared distance); "
+            "top layers (index, block, share, relative L2): "
+            + "; ".join(f"{i} {n} {sh:.3f} {e:.3g}" for i, n, sh, e in r["top_layers"]))
+    log(f"ranks (b): one fp32 step on {PAR_RANKS} gloo ranks on one {dev.type} device, "
+        f"{batch // PAR_RANKS} of the same {batch} images each, width {width}, {img} px, "
+        f"against the one-process step on all {batch}: relative L2 of the params' update "
+        f"{b['update_rel_l2']:.3g} and of the EMA params' {b['ema_update_rel_l2']:.3g} "
+        f"(limit {PAR_UPDATE_L2}), of the pool-free layers' {b['ranks']['pool_free_rel_l2']:.3g} "
+        f"(limit {PAR_POOL_FREE_L2}), loss items {b['item_rel_err']:.3g} (limit "
+        f"{PAR_ITEM_RTOL}), BN state {b['bn_state_rel_err']:.3g} (limit {PAR_STATE_REL}); "
+        f"losses {b['losses_ranks']}, one process {b['losses_one']}")
+    if not max(b["update_rel_l2"], b["ema_update_rel_l2"]) <= PAR_UPDATE_L2:
+        raise AssertionError(f"ranks (b): the updates lie {b['update_rel_l2']}, "
+                             f"{b['ema_update_rel_l2']} from one process")
+    if not b["ranks"]["pool_free_rel_l2"] <= PAR_POOL_FREE_L2:
+        raise AssertionError(f"ranks (b): the pool-free layers' update lies "
+                             f"{b['ranks']['pool_free_rel_l2']} from one process")
+    if not b["item_rel_err"] <= PAR_ITEM_RTOL:
+        raise AssertionError(f"ranks (b): loss items differ by {b['item_rel_err']}")
+    if not b["bn_state_rel_err"] <= PAR_STATE_REL:
+        raise AssertionError(f"ranks (b): BN state {b['bn_state_rel_err']}")
+
+    c = [o["trainer"] for o in outs]
+    rows = c[0]["rows"]
+    items = [{k: v for k, v in r.items() if k.startswith("train/")} for r in rows]
+    if any(o["rows"] != rows for o in c):
+        raise AssertionError("ranks (c): the ranks returned different rows")
+    if not all(math.isfinite(v) for r in items for v in r.values()) or len(items[0]) != 4:
+        raise AssertionError(f"ranks (c): loss items {items}")
+    evals = PAR_EPOCHS + 1
+    want = {kid: 0 for kid in COUNTED} | {"K1L": evals * -(-n_val // batch)}
+    if dev.type == "cuda" and c[0]["launches"] != want:
+        raise AssertionError(f"ranks (c): rank 0's launch counts {c[0]['launches']}, want {want}")
+    if any(c[r]["launches"]["K1L"] or c[r]["evals"] for r in range(1, PAR_RANKS)):
+        raise AssertionError("ranks (c): a rank other than 0 validated")
+    if len(c[0]["evals"]) != evals or any(k1l != plain for e in c[0]["evals"]
+                                          for k1l, plain in e.values()):
+        raise AssertionError(f"ranks (c): validations with K1L and the plain keep-mask "
+                             f"{c[0]['evals']}")
+    weights = PAR_RUN / "weights"
+    blob = load_checkpoint(weights / "last.ckpt")
+    if blob["opt_state"] is not None or blob["epoch"] != -1:
+        raise AssertionError("ranks (c): last.ckpt is not stripped")
+    load_checkpoint_any(str(weights / "last.ckpt"))
+    lines = (PAR_RUN / "results.jsonl").read_text().strip().splitlines()
+    if len(lines) != PAR_EPOCHS:
+        raise AssertionError(f"ranks (c): results.jsonl holds {len(lines)} rows")
+    img_s = [n_train // batch * batch / r["time_s"] for r in rows]
+    log(f"ranks (c): the trainer on {PAR_RANKS} gloo ranks on one {dev.type} device, "
+        f"{PAR_EPOCHS} epoch of {n_train} images, batch {batch} ({batch // PAR_RANKS} a rank) "
+        f"x {CLI_NBS // batch}: rows {rows}; rank 0 validated {len(c[0]['evals'])} times, "
+        f"launches {c[0]['launches']}, each equal with the plain keep-mask; last.ckpt "
+        f"stripped and read back; img/s {img_s} ({PAR_RANKS} ranks on one card (gloo): not a "
+        "multi-GPU rate)")
+    secs = time.perf_counter() - t_phase
+    log(f"ranks: phase {secs:.1f} s")
+    return {"world1": a, "ranks_step": b,
+            "trainer": {"rows": rows, "img_s_not_multi_gpu": img_s,
+                        "evals": c[0]["evals"]},
+            "launches": c[0]["launches"], "phase_s": secs}
+
+
 def _cfg(width, path=CFG):
     """The port's yolov7 cfg (deploy, or `path`) at `width` (1.0: the
     published one)."""
@@ -2842,6 +3175,7 @@ def main() -> int:
     tr = train(dev)
     cli = train_and_test(dev)
     six = p6(dev, rows)
+    par = ranks(dev)
 
     # host-side counts of each kernel's main path: K1-K3 as the bf16
     # engines launched them (warm-up and capture; what the replays launch
@@ -2854,6 +3188,7 @@ def main() -> int:
                 + cli["launches_train"]["K1L"] + cli["launches_test"]["K1L"]}
     for kid, n in six["launches"].items():
         launches[kid] += n
+    launches["K1L"] += par["launches"]["K1L"]
     for kid in COUNTED:
         if kid != "K4b" and launches[kid] == 0:
             raise AssertionError(f"{kid} was launched no time on its main path")
@@ -2876,7 +3211,7 @@ def main() -> int:
     log(json.dumps({"serving": {k: srv[k] for k in keys + ("ingest",)},
                     "int8_serving": {k: srv8[k] for k in keys + ("calibrate_s",)},
                     "full_int8": full, "detect": det, "eval": ev, "train": tr,
-                    "train_test_cli": cli, "p6": six,
+                    "train_test_cli": cli, "p6": six, "ranks": par,
                     "fused": {"K2": rows["K2"], "K3": rows["K3"]},
                     "k1l_runs": rows["k1l_runs"],
                     "stages": rows["stages"], "k4_convs": rows["k4_convs"],
@@ -2884,7 +3219,7 @@ def main() -> int:
     log(json.dumps({"kernels": kernels}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, train phase "
         f"{tr['phase_s']:.1f} s, train and test CLIs {cli['phase_s']:.1f} s, P6 "
-        f"{six['phase_s']:.1f} s")
+        f"{six['phase_s']:.1f} s, ranks {par['phase_s']:.1f} s")
     log(smi())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -65,6 +65,21 @@ def assert_trees_close(got, want, rel, what=""):
         assert err <= rel * scale, (what, jax.tree_util.keystr(path), err, scale)
 
 
+def rel_l2(got, want, before=None):
+    """Relative L2 distance of two trees of numpy arrays in the JAX layout
+    over all their leaves: |got - want| / |want - before|, before a tree of
+    zeros when None (with it, the distance of two updates of one tree)."""
+    import jax
+
+    g, w = ([np.asarray(a, np.float64) for a in jax.tree_util.tree_leaves(t)]
+            for t in (got, want))
+    b = ([np.asarray(a, np.float64) for a in jax.tree_util.tree_leaves(before)]
+         if before is not None else [0.0] * len(w))
+    num = sum(float(np.square(x - y).sum()) for x, y in zip(g, w))
+    den = sum(float(np.square(y - z).sum()) for y, z in zip(w, b))
+    return (num / den) ** 0.5
+
+
 def jax_training_model(width=0.25, seed=0, stats_seed=None):
     """yolov7 training form (IDetect) at `width`, weights drawn by the JAX
     package (seed), unlivened: (jax plan, params_np, state_np, port plan,

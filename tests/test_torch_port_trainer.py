@@ -447,34 +447,48 @@ def test_cli_test_matches_jax(eval_case, tmp_path, capsys, fuse):
         [w.split("=")[0] for w in jline.split()[:5]]
 
 
+# (options, exception, match). Training on several devices, --no-sync-bn
+# and --evolve are ported: their cases hold the errors those options raise
+# (a global batch that does not divide over the devices, fewer cards
+# visible than --devices asks for) or show the option reaching training,
+# which then fails on the missing data file "y".
 REFUSED_TRAIN = {
-    "n_data_devices": (dict(n_data_devices=2), "item 12"),
-    "device_aug": (dict(device_aug=True), "item 18"),
-    "bbox_interval": (dict(bbox_interval=1), "item 19"),
-    "split_concat": (dict(split_concat=True), "item 20"),
-    "fast_stem": (dict(fast_stem=True), "item 20"),
+    "n_data_devices": (dict(n_data_devices=2, batch_size=3), ValueError,
+                       "batch 3 does not divide over 2"),
+    "device_aug": (dict(device_aug=True), NotImplementedError, "item 18"),
+    "bbox_interval": (dict(bbox_interval=1), NotImplementedError, "item 19"),
+    "split_concat": (dict(split_concat=True), NotImplementedError, "item 20"),
+    "fast_stem": (dict(fast_stem=True), NotImplementedError, "item 20"),
 }
 REFUSED_CLI = {
-    "train_evolve": (cli_train, ["--cfg", "x", "--data", "y", "--evolve"], "11\\(c\\)"),
-    "train_devices": (cli_train, ["--cfg", "x", "--data", "y", "--devices", "2"], "item 12"),
-    "train_no_sync_bn": (cli_train, ["--cfg", "x", "--data", "y", "--no-sync-bn"], "item 12"),
-    "test_augment": (cli_test, ["--weights", "x", "--data", "y", "--augment"], "item 17"),
-    "test_plots": (cli_test, ["--weights", "x", "--data", "y", "--plots"], "item 19"),
-    "test_study": (cli_test, ["--weights", "x", "--data", "y", "--task", "study"], "item 19"),
+    "train_evolve": (cli_train, ["--cfg", "x", "--data", "y", "--evolve", "--device", "cpu"],
+                     FileNotFoundError, "'y'"),
+    "train_devices": (cli_train, ["--cfg", "x", "--data", "y", "--devices", "2"],
+                      RuntimeError, "needs 2 CUDA devices; 0 are visible"),
+    "train_no_sync_bn": (cli_train, ["--cfg", "x", "--data", "y", "--no-sync-bn", "--device",
+                                     "cpu", "--devices", "2", "--batch-size", "5"],
+                         ValueError, "batch 5 does not divide over 2"),
+    "test_augment": (cli_test, ["--weights", "x", "--data", "y", "--augment"],
+                     NotImplementedError, "item 17"),
+    "test_plots": (cli_test, ["--weights", "x", "--data", "y", "--plots"],
+                   NotImplementedError, "item 19"),
+    "test_study": (cli_test, ["--weights", "x", "--data", "y", "--task", "study"],
+                   NotImplementedError, "item 19"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(REFUSED_TRAIN) + sorted(REFUSED_CLI))
-def test_unported_options_raise(case, tmp_path):
+def test_unported_options_raise(case, tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     if case in REFUSED_TRAIN:
-        kw, match = REFUSED_TRAIN[case]
-        with pytest.raises(NotImplementedError, match=match):
+        kw, exc, match = REFUSED_TRAIN[case]
+        with pytest.raises(exc, match=match):
             trainer.train(trainer.TrainConfig(cfg="x", save_dir=str(tmp_path), device="cpu",
                                               **kw))
     else:
-        mod, argv, match = REFUSED_CLI[case]
-        with pytest.raises(NotImplementedError, match=match):
-            mod.main(argv)
+        mod, argv, exc, match = REFUSED_CLI[case]
+        with pytest.raises(exc, match=match):
+            mod.main(argv + (["--project", str(tmp_path)] if mod is cli_train else []))
 
 
 def test_entry_points_need_a_card_unless_cpu(shapes_set, weights, tmp_path, monkeypatch):

@@ -7,9 +7,21 @@
 The JAX CLI's flags, plus `--device` (the card unless `cpu` is asked for;
 raises when no card is visible). `--resume` with no value continues the
 newest run under `--project` (`get_latest_run`), in its own directory with
-its recorded options. Not ported yet, and refused: `--evolve` (ROADMAP
-queue 1 item 11(c)), `--devices` above 1 and `--no-sync-bn` (item 12),
-`--device-aug` (item 18), `--bbox_interval` (item 19).
+its recorded options (`--devices` and `--no-sync-bn` given again override
+them: a run may resume on another number of devices).
+
+Several devices, one process each (`train/trainer.py`):
+
+    python -m yolo_series_tpu_torch.cli.train ... --devices 4 [--no-sync-bn]
+    torchrun --nproc_per_node 4 -m yolo_series_tpu_torch.cli.train ...
+
+`--devices N` spawns N workers (rank r on card r; raises when fewer than N
+cards are visible; `--device cpu --devices 2` runs two gloo ranks on the
+CPU); under torchrun (RANK, WORLD_SIZE, LOCAL_RANK set) this process is one
+rank of the group. `--batch-size` is the global batch. `--no-sync-bn`:
+per-replica BatchNorm. `--evolve [--evolve-gens G]`: hyperparameter
+evolution (`train/evolve.py`). Not ported yet, and refused: `--device-aug`
+(ROADMAP queue 1 item 18), `--bbox_interval` (item 19).
 """
 
 from __future__ import annotations
@@ -18,8 +30,11 @@ import argparse
 import dataclasses
 from pathlib import Path
 
+import torch.distributed as dist
 import yaml
 
+from yolo_series_tpu_torch.parallel.dist import (broadcast_object, env_rank,
+                                                 init_distributed)
 from yolo_series_tpu_torch.utils.general import increment_path
 
 
@@ -74,10 +89,9 @@ def make_parser():
     p.add_argument("--save-period", "--save_period", type=int, default=25,
                    dest="save_period")
     p.add_argument("--devices", type=int, default=None,
-                   help="data-parallel device count (above 1: not ported yet)")
+                   help="data-parallel device count: one process a device")
     p.add_argument("--no-sync-bn", action="store_true",
-                   help="per-replica BatchNorm on several devices (not ported "
-                        "yet: raises)")
+                   help="per-replica BatchNorm on several devices")
     p.add_argument("--project", default="runs/train")
     p.add_argument("--name", default="exp")
     p.add_argument("--exist-ok", action="store_true")
@@ -85,7 +99,7 @@ def make_parser():
     p.add_argument("--no-warmup-accumulate", action="store_true",
                    help="disable the warmup accumulate ramp (train.py:352)")
     p.add_argument("--evolve", action="store_true",
-                   help="hyperparameter evolution (not ported yet: raises)")
+                   help="hyperparameter evolution (--evolve-gens generations)")
     p.add_argument("--evolve-gens", type=int, default=300)
     p.add_argument("--entity", default=None, help="W&B entity")
     p.add_argument("--upload_dataset", "--upload-dataset",
@@ -104,17 +118,17 @@ def make_parser():
 
 
 def main(argv=None):
-    """Parse `argv` (sys.argv when None), train, and return `train`'s dict."""
+    """Parse `argv` (sys.argv when None), train (or evolve), and return
+    `train`'s dict (`evolve`'s (fitness, hyp) with --evolve)."""
     opt = make_parser().parse_args(argv)
     from yolo_series_tpu_torch.train.checkpoints import get_latest_run
     from yolo_series_tpu_torch.train.trainer import TrainConfig, train
 
-    if opt.evolve:
-        raise NotImplementedError("--evolve is not ported yet (ROADMAP queue 1, "
-                                  "item 11(c))")
-    if (opt.devices or 1) > 1 or opt.no_sync_bn:
-        raise NotImplementedError("several devices (--devices, --no-sync-bn) are not "
-                                  "ported yet (ROADMAP queue 1, item 12)")
+    launched = env_rank()
+    if launched is not None and not dist.is_initialized():
+        # started by torchrun: this process is one rank of the group
+        rank, world, local = launched
+        init_distributed(rank, world, "env://", opt.device or "cuda", local_rank=local)
     resume = opt.resume
     if resume == "auto":
         resume = get_latest_run(opt.project)
@@ -135,11 +149,18 @@ def main(argv=None):
         kw["save_dir"] = str(opt_yaml.parent)
         if opt.device is not None:
             kw["device"] = opt.device
+        if opt.devices is not None:
+            kw["n_data_devices"] = opt.devices
+        if opt.no_sync_bn:
+            kw["sync_bn"] = False
         tc = TrainConfig(**kw)
     else:
         if not (opt.cfg and opt.data):
             raise SystemExit("--cfg and --data are required (no --resume)")
-        save_dir = increment_path(Path(opt.project) / opt.name, opt.exist_ok)
+        # rank 0's choice on every rank of a torchrun group
+        save_dir = broadcast_object(
+            increment_path(Path(opt.project) / opt.name, opt.exist_ok),
+            0, dist.group.WORLD if dist.is_initialized() else None)
         tc = TrainConfig(
             cfg=opt.cfg, data=opt.data, hyp=opt.hyp, epochs=opt.epochs,
             batch_size=opt.batch_size, img_size=opt.img_size,
@@ -159,6 +180,9 @@ def main(argv=None):
             upload_dataset=opt.upload_dataset,
             bbox_interval=opt.bbox_interval,
             artifact_alias=opt.artifact_alias, device=opt.device)
+    if opt.evolve:
+        from yolo_series_tpu_torch.train.evolve import evolve
+        return evolve(tc, generations=opt.evolve_gens)
     return train(tc)
 
 

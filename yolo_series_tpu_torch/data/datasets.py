@@ -46,6 +46,7 @@ from yolo_series_tpu_torch.data.parsers import (
     crowdhuman_labels, img2label_paths, parse_crowdhuman_odgt, parse_shel_xml,
     parse_yolo_txt, shel_labels,
 )
+from yolo_series_tpu_torch.parallel.dist import host_local_slice
 from yolo_series_tpu_torch.utils.general import (labels_to_class_weights,
                                                  labels_to_image_weights)
 
@@ -516,18 +517,28 @@ class create_loader:
     `images` is a pooled buffer: it stays valid while the consumer holds
     at most `hold` batches it has not consumed (`_pooled`); a consumer
     that keeps a batch longer copies it.
+
+    shard=(rank, world): DistributedSampler's semantics. `batch_size` is
+    the global batch; every rank draws the same epoch order (`_order`) and
+    loads only its contiguous slice of each global batch
+    (`parallel/dist.host_local_slice`), batch_size / world samples.
     """
 
     def __init__(self, dataset: DetectionDataset, batch_size=16,
                  shuffle=True, max_labels=256, drop_last=True, seed=0,
                  prefetch=2, image_weights=False, class_weights=None,
-                 hold=1, quad=False, workers=1):
+                 hold=1, quad=False, workers=1, shard=(0, 1)):
         self.ds = dataset
         self.bs = batch_size
         self.quad = quad
+        self.shard = shard
+        world = shard[1]
+        if world > 1 and (batch_size % world or not drop_last):
+            raise ValueError(f"a loader sharded over {world} ranks needs drop_last and a "
+                             f"batch that divides by {world}, not {batch_size}")
         if quad:
-            if batch_size % 4:
-                raise ValueError("quad collate needs batch_size % 4 == 0")
+            if (batch_size // world) % 4:
+                raise ValueError("quad collate needs batch_size / world % 4 == 0")
             if getattr(dataset, "rect", False):
                 raise ValueError("quad needs uniform square batches")
         self.shuffle = shuffle
@@ -653,6 +664,8 @@ class create_loader:
         self.epoch += 1
         nb = len(self)
         batches = [order[i * self.bs:(i + 1) * self.bs] for i in range(nb)]
+        if self.shard[1] > 1:
+            batches = [b[host_local_slice(len(b), *self.shard)] for b in batches]
         if self.quad and batches and len(batches[-1]) % 4:
             # trim a drop_last=False tail to whole quad groups, and say so
             keep = 4 * (len(batches[-1]) // 4)

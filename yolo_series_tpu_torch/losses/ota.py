@@ -16,6 +16,13 @@ JAX package's per-image vmap as batched tensors):
 Ties resolve as the JAX package's: argmax and argmin return the first
 index in both libraries, and `_top_k_iter` takes the first index at each
 of its k passes.
+
+Under a process group the assignment needs nothing from the other ranks:
+every quantity in it (candidates, pairwise IoU and cost, dynamic k, the
+top-k and the contested-column argmin over the gts) is one image's, as in
+the JAX package's per-image vmap (`yolo_series_tpu/losses/ota.py:178-201`);
+the image size comes from the maps' shape. Only the loss's normalizers are
+global (`losses/yolo_loss.py`).
 """
 
 from __future__ import annotations
@@ -28,9 +35,11 @@ import torch.nn.functional as F
 
 from yolo_series_tpu_torch.losses.targets import find_positive
 from yolo_series_tpu_torch.losses.yolo_loss import (LossHyp, _masked_mean, balance_for,
-                                                    bce_logits, focal_scale,
-                                                    objectness_target, smooth_bce)
+                                                    bce_logits, focal_scale, global_items,
+                                                    objectness_target, positive_count,
+                                                    smooth_bce)
 from yolo_series_tpu_torch.ops.boxes import bbox_iou, box_iou, xywh2xyxy
+from yolo_series_tpu_torch.parallel.dist import world_size
 
 K_OFFSETS = 5
 
@@ -135,9 +144,10 @@ def ota_assign_batch(raw: Sequence[torch.Tensor], labels, label_mask,
 
 
 def ota_level_loss(pi, labels, label_mask, fg_l, mg_l, anchors_l,
-                   hyp: LossHyp, g: float):
+                   hyp: LossHyp, g: float, group=None):
     """(lbox, mean objectness BCE, lcls) of one level given assignments.
-    pi: (B, na, ny, nx, no), the maps the loss is applied to."""
+    pi: (B, na, ny, nx, no), the maps the loss is applied to. Under a
+    group, this rank's shares of the global batch's means."""
     bs, na = pi.shape[0], anchors_l.shape[0]
     ny, nx = pi.shape[2], pi.shape[3]
     m = labels.shape[1]
@@ -162,14 +172,15 @@ def ota_level_loss(pi, labels, label_mask, fg_l, mg_l, anchors_l,
     pxy = torch.sigmoid(ps[..., 0:2]) * 2.0 - 0.5
     pwh = torch.square(torch.sigmoid(ps[..., 2:4]) * 2.0) * anc
     iou = bbox_iou(torch.cat([pxy, pwh], -1), tb, xywh=True, ciou=True)
-    lbox = _masked_mean(1.0 - iou, fg_l)
+    count = positive_count(fg_l, group)
+    lbox = _masked_mean(1.0 - iou, fg_l, count)
 
     tobj_val = (1.0 - hyp.gr) + hyp.gr * torch.clamp(iou.detach(), min=0.0)
     tobj = objectness_target(pi.shape[:4], bi, ai, gj, gi, tobj_val, fg_l)
     obj_bce = bce_logits(pi[..., 4], tobj, hyp.obj_pw)
     if hyp.fl_gamma > 0:
         obj_bce = obj_bce * focal_scale(pi[..., 4], tobj, hyp.fl_gamma)
-    lobj = obj_bce.mean()
+    lobj = obj_bce.mean() / world_size(group)
 
     nc = pi.shape[-1] - 5
     if nc > 1:
@@ -179,7 +190,7 @@ def ota_level_loss(pi, labels, label_mask, fg_l, mg_l, anchors_l,
         cls_bce = bce_logits(ps[..., 5:], t, hyp.cls_pw)
         if hyp.fl_gamma > 0:
             cls_bce = cls_bce * focal_scale(ps[..., 5:], t, hyp.fl_gamma)
-        lcls = _masked_mean(cls_bce.mean(-1), fg_l)
+        lcls = _masked_mean(cls_bce.mean(-1), fg_l, count)
     else:
         lcls = torch.zeros((), dtype=torch.float32, device=dev)
     return lbox, lobj, lcls
@@ -192,16 +203,16 @@ def make_compute_loss_ota(head, hyp: LossHyp, g: float = 0.5, topk: int = 10):
     anchors = np.asarray(head.anchors, np.float32).reshape(nl, head.na, 2)
     strides = np.asarray(head.strides, np.float32)
 
-    def compute_loss(raw: Sequence[torch.Tensor], labels, label_mask):
+    def compute_loss(raw: Sequence[torch.Tensor], labels, label_mask, group=None):
         raw = [r.float() for r in raw[:nl]]
-        bs = raw[0].shape[0]
+        bs = raw[0].shape[0] * world_size(group)
         fg, mg, offs = ota_assign_batch(raw, labels, label_mask, anchors, strides,
                                         hyp, g, topk)
         lbox = lobj = lcls = 0.0
         for li in range(nl):
             sl = slice(offs[li], offs[li + 1])
             lb, lo, lc = ota_level_loss(raw[li], labels, label_mask, fg[:, sl],
-                                        mg[:, sl], anchors[li], hyp, g)
+                                        mg[:, sl], anchors[li], hyp, g, group)
             lbox = lbox + lb
             lobj = lobj + lo * balance[li]
             lcls = lcls + lc
@@ -209,6 +220,6 @@ def make_compute_loss_ota(head, hyp: LossHyp, g: float = 0.5, topk: int = 10):
         lobj = lobj * hyp.obj
         lcls = lcls * hyp.cls
         total = (lbox + lobj + lcls) * bs
-        return total, {"box": lbox, "obj": lobj, "cls": lcls}
+        return total, global_items(lbox, lobj, lcls, group)
 
     return compute_loss

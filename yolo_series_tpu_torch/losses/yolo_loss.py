@@ -10,6 +10,15 @@ Inputs: raw head maps [(B, na, ny, nx, no)], padded labels (B, M, 5)
 [cls, x, y, w, h] normalized, and the label mask (B, M). Returns
 (total, {box, obj, cls}), total already multiplied by the batch size
 (reference loss.py:498).
+
+Under a process group (`group=`, each rank holding an equal contiguous
+slice of the global batch) every loss here normalizes over the GLOBAL
+batch: a masked mean divides by the all-reduced count of positives (no
+gradient flows through a count), the objectness mean by the global element
+count, and `total` takes the global batch size. Each rank's total is then
+its share of the global batch's loss, so the SUM of the ranks' gradients
+is the global batch's gradient (the train step all-reduces with SUM). The
+returned items are the global ones (summed over the ranks, detached).
 """
 
 from __future__ import annotations
@@ -19,10 +28,12 @@ from typing import Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from yolo_series_tpu_torch.losses.targets import find_positive
 from yolo_series_tpu_torch.ops.boxes import bbox_iou
+from yolo_series_tpu_torch.parallel.dist import world_size
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,9 +76,30 @@ def focal_scale(logits, targets, gamma, alpha=0.25):
     return alpha_t * (1.0 - p_t) ** gamma
 
 
-def _masked_mean(x, mask):
+def positive_count(mask, group=None):
+    """The number of True entries of mask (fp32), over the whole global
+    batch under a group (all-reduced; no gradient flows through it)."""
+    n = mask.to(torch.float32).sum()
+    if group is not None:
+        dist.all_reduce(n, group=group)
+    return n
+
+
+def _masked_mean(x, mask, count):
+    """The mean of x where mask, over `count` positives (`positive_count`:
+    the global batch's under a group)."""
     num = torch.where(mask, x, torch.zeros((), dtype=x.dtype, device=x.device)).sum()
-    return num / torch.clamp(mask.to(x.dtype).sum(), min=1.0)
+    return num / torch.clamp(count, min=1.0)
+
+
+def global_items(lbox, lobj, lcls, group=None):
+    """The loss items {box, obj, cls}; under a group, summed over the ranks
+    in one all-reduce (each rank's are its share of the global batch's)."""
+    if group is None:
+        return {"box": lbox, "obj": lobj, "cls": lcls}
+    t = torch.stack([lbox, lobj, lcls]).detach()
+    dist.all_reduce(t, group=group)
+    return dict(zip(("box", "obj", "cls"), t))
 
 
 def balance_for(nl: int):
@@ -99,7 +131,7 @@ def make_compute_loss(head, hyp: LossHyp):
     anchors = np.asarray(head.anchors, np.float32).reshape(nl, na, 2)
     cp, cn = smooth_bce(hyp.label_smoothing)
 
-    def per_level(pi, labels, label_mask, li):
+    def per_level(pi, labels, label_mask, li, group):
         """pi: (B, na, ny, nx, no)."""
         ny, nx = pi.shape[2], pi.shape[3]
         cand = find_positive(labels, label_mask, anchors[li], (ny, nx),
@@ -122,7 +154,8 @@ def make_compute_loss(head, hyp: LossHyp):
         pwh = torch.square(torch.sigmoid(ps[:, 2:4]) * 2.0) * anc
         pbox = torch.cat([pxy, pwh], dim=-1)
         iou = bbox_iou(pbox, tbox, xywh=True, ciou=True)
-        lbox = _masked_mean(1.0 - iou, valid)
+        count = positive_count(valid, group)
+        lbox = _masked_mean(1.0 - iou, valid, count)
 
         # objectness target map: the max IoU among candidates of a cell
         tobj_val = (1.0 - hyp.gr) + hyp.gr * torch.clamp(iou.detach(), min=0.0)
@@ -132,7 +165,7 @@ def make_compute_loss(head, hyp: LossHyp):
         obj_bce = bce_logits(pi[..., 4], tobj, hyp.obj_pw)
         if hyp.fl_gamma > 0:
             obj_bce = obj_bce * focal_scale(pi[..., 4], tobj, hyp.fl_gamma)
-        lobj = obj_bce.mean()
+        lobj = obj_bce.mean() / world_size(group)
 
         if nc > 1:
             t = torch.full((ps.shape[0], nc), cn, dtype=ps.dtype, device=dev)
@@ -140,23 +173,23 @@ def make_compute_loss(head, hyp: LossHyp):
             cls_bce = bce_logits(ps[:, 5:], t, hyp.cls_pw)
             if hyp.fl_gamma > 0:
                 cls_bce = cls_bce * focal_scale(ps[:, 5:], t, hyp.fl_gamma)
-            lcls = _masked_mean(cls_bce.mean(-1), valid)
+            lcls = _masked_mean(cls_bce.mean(-1), valid, count)
         else:
             lcls = torch.zeros((), dtype=torch.float32, device=dev)
         return lbox, lobj, lcls
 
-    def compute_loss(raw: Sequence[torch.Tensor], labels, label_mask):
+    def compute_loss(raw: Sequence[torch.Tensor], labels, label_mask, group=None):
         lbox = lobj = lcls = 0.0
         for li in range(nl):
-            lb, lo, lc = per_level(raw[li].float(), labels, label_mask, li)
+            lb, lo, lc = per_level(raw[li].float(), labels, label_mask, li, group)
             lbox = lbox + lb
             lobj = lobj + lo * balance[li]
             lcls = lcls + lc
-        bs = raw[0].shape[0]
+        bs = raw[0].shape[0] * world_size(group)
         lbox = lbox * hyp.box
         lobj = lobj * hyp.obj
         lcls = lcls * hyp.cls
         total = (lbox + lobj + lcls) * bs
-        return total, {"box": lbox, "obj": lobj, "cls": lcls}
+        return total, global_items(lbox, lobj, lcls, group)
 
     return compute_loss

@@ -18,8 +18,10 @@ zoo is ROADMAP queue 1, slice 3.
 In training (`Ctx.training`) BN normalizes with the batch's moments and
 returns the new running stats, which every block hands back as its new
 state; BN and the non-overlapping max pool have the JAX package's custom
-gradients (`BnTrainCore`, `MaxPoolTiled`). Cross-replica (`axis_name`)
-SyncBN is ROADMAP queue 1 item 12 and is not accepted here.
+gradients (`BnTrainCore`, `MaxPoolTiled`). Under a process group
+(`Ctx.group`, the counterpart of `Ctx.axis_name`) BN is SyncBN: its moments
+and its backward's sums are the global batch's (`torch.distributed`
+all-reduces), so N ranks normalize as one process does on the whole batch.
 """
 
 from __future__ import annotations
@@ -29,7 +31,10 @@ import math
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+
+from yolo_series_tpu_torch.parallel.dist import world_size
 
 BN_EPS = 1e-3       # layers.BN_EPS of the JAX package
 BN_MOMENTUM = 0.03  # layers.BN_MOMENTUM of the JAX package
@@ -42,15 +47,20 @@ class Ctx:
     the conv's param path (set only while an observer is given).
 
     training: BN takes the batch's moments and updates its running stats.
-    bn_shards > 1: per-replica BN, the batch split into this many
+    bn_shards > 1: per-replica BN, the global batch split into this many
     contiguous groups, each normalized with its own moments; the running
-    stats follow group 0 (`_batch_norm_per_replica`)."""
+    stats follow group 0 (`_batch_norm_per_replica`).
+    group: the `torch.distributed` process group whose ranks each hold an
+    equal contiguous slice of the global batch (the JAX `axis_name`): BN's
+    moments are synced over it (SyncBN), unless bn_shards > 1, and then
+    each rank holds bn_shards / world of the groups."""
 
     dtype: torch.dtype = torch.float32
     observer: Any = None
     path: str = ""
     training: bool = False
     bn_shards: int = 1
+    group: Any = None
 
 
 ACTIVATIONS = {"silu": F.silu, "identity": lambda x: x}
@@ -111,19 +121,32 @@ def _c(v):
 _AXES = (0, 2, 3)   # the N, H, W axes of NCHW
 
 
-def _bn_train_moments(x, m0):
+def _pmean(t, group):
+    """The mean of t over the group's ranks (their slices are equally
+    large, so the mean of their means is the global batch's): t itself
+    with no group, and t bit for bit at world 1."""
+    if group is None:
+        return t
+    t = t.contiguous()
+    dist.all_reduce(t, group=group)
+    return t / world_size(group)
+
+
+def _bn_train_moments(x, m0, group=None):
     """Training batch moments of NCHW x in fp32 (`_bn_train_moments` of the
     JAX package): the shifted one-pass form, centred on the running mean m0,
     for C >= 64, the two-pass form below. The two round differently, so the
-    port takes the JAX package's form at each C."""
+    port takes the JAX package's form at each C. Under a group the moments
+    are the global batch's: the one-pass form's (mc, msq) averaged over the
+    ranks in one all-reduce; the two-pass form's mean, then the variance
+    about that global mean, in two."""
     xf = x.float()
     if x.shape[1] >= 64:
         xc = xf - _c(m0)
-        mc = xc.mean(_AXES)
-        msq = xc.square().mean(_AXES)
+        mc, msq = _pmean(torch.stack([xc.mean(_AXES), xc.square().mean(_AXES)]), group)
         return m0 + mc, torch.clamp(msq - mc.square(), min=0.0)
-    mean = xf.mean(_AXES)
-    return mean, (xf - _c(mean)).square().mean(_AXES)
+    mean = _pmean(xf.mean(_AXES), group)
+    return mean, _pmean((xf - _c(mean)).square().mean(_AXES), group)
 
 
 class BnTrainCore(torch.autograd.Function):
@@ -132,11 +155,20 @@ class BnTrainCore(torch.autograd.Function):
     (x, mean, var, scale), x in its own dtype, and its backward recomputes
     x-hat, the classic BN training backward, plus the exact cotangents of
     the mean and var outputs (zero in the train step, where they only feed
-    the running stats). Returns (y in x's dtype, mean, var)."""
+    the running stats). Returns (y in x's dtype, mean, var).
+
+    Under a process group (SyncBN) the moments are the global batch's, and
+    the backward all-reduces its channel sums (sg, sgx), with the mean's
+    and var's cotangents when they are given, in one collective and
+    divides by the global n, as the JAX `_bn_train_core_bwd` does with
+    `axis_name`. It returns this rank's own sums as the scale and bias
+    grads, though: the train step sums the ranks' grads once more, where
+    under pjit JAX has no second reduction."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, m0):
-        mean, var = _bn_train_moments(x, m0)
+    def forward(ctx, x, scale, bias, m0, group=None):
+        mean, var = _bn_train_moments(x, m0, group)
+        ctx.group = group
         inv = torch.rsqrt(var + BN_EPS) * scale
         y = (x.float() - _c(mean)) * _c(inv) + _c(bias)
         ctx.save_for_backward(x, mean, var, scale)
@@ -156,12 +188,25 @@ class BnTrainCore(torch.autograd.Function):
         sg = gyf.sum(_AXES)
         sgx = (gyf * xhat).sum(_AXES)
         n = x.shape[0] * x.shape[2] * x.shape[3]
+        dscale, dbias = sgx, sg
+        if ctx.group is not None:
+            # the mean and var are the global batch's: every rank's
+            # cotangents of them reach every rank's x, like the sums
+            cots = [g for g in (gm, gv) if g is not None]
+            sums = torch.stack([sg, sgx, *(g.float() for g in cots)])
+            dist.all_reduce(sums, group=ctx.group)
+            sg, sgx = sums[0], sums[1]
+            if gm is not None:
+                gm = sums[2]
+            if gv is not None:
+                gv = sums[-1]
+            n = n * world_size(ctx.group)
         dx = _c(scale * inv) * (gyf - _c(sg / n) - xhat * _c(sgx / n))
         if gm is not None:
             dx = dx + _c(gm / n)
         if gv is not None:
             dx = dx + _c(gv * (2.0 / n)) * xc
-        return dx.to(x.dtype), sgx, sg, None
+        return dx.to(x.dtype), dscale, dbias, None, None
 
 
 def _running(bn_state, mean, var, n):
@@ -177,13 +222,19 @@ def batch_norm(bn_params, bn_state, x, ctx: Optional[Ctx] = None):
     """BatchNorm over NCHW channels in fp32 -> (y in x's dtype, new state).
     In inference the running stats, unchanged; in training the batch's
     moments and the updated running stats (`layers.batch_norm` of the JAX
-    package)."""
+    package). Under `ctx.group`, SyncBN: the moments and the running stats'
+    n are the global batch's; with bn_shards > 1 as well, this rank
+    normalizes its bn_shards / world groups alone."""
     scale, bias = bn_params["scale"], bn_params["bias"]
     if ctx is not None and ctx.training:
+        world = world_size(ctx.group)
         if ctx.bn_shards > 1:
-            return _batch_norm_per_replica(bn_params, bn_state, x, ctx.bn_shards)
-        y, mean, var = BnTrainCore.apply(x, scale, bias, bn_state["mean"].detach())
-        return y, _running(bn_state, mean, var, x.shape[0] * x.shape[2] * x.shape[3])
+            if ctx.bn_shards % world:
+                raise ValueError(f"{ctx.bn_shards} BN groups do not split over {world} ranks")
+            return _batch_norm_per_replica(bn_params, bn_state, x, ctx.bn_shards // world)
+        y, mean, var = BnTrainCore.apply(x, scale, bias, bn_state["mean"].detach(), ctx.group)
+        n = x.shape[0] * x.shape[2] * x.shape[3] * world
+        return y, _running(bn_state, mean, var, n)
     inv = torch.rsqrt(bn_state["var"] + BN_EPS) * scale
     y = (x.float() - _c(bn_state["mean"])) * _c(inv) + _c(bias)
     return y.to(x.dtype), bn_state

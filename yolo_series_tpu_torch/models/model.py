@@ -96,7 +96,7 @@ def _run_layer(ctx, spec, p, s, inp, idx=0):
 def apply_model(plan: GraphPlan, params, state, x, *, training: bool = False,
                 dtype: torch.dtype = torch.float32, observer=None,
                 return_head_inputs: bool = False, bn_shards: int = 1,
-                remat_prefix: int = 0):
+                remat_prefix: int = 0, group=None):
     """Run the graph. x: (B, H, W, C) NHWC in [0, 1].
 
     Returns (out, new_state): the head's {"pred": (B, A, no), "raw": [...]}
@@ -109,14 +109,17 @@ def apply_model(plan: GraphPlan, params, state, x, *, training: bool = False,
     observer(path, x): fired at every conv input with the paths of
     `infer/quant.quantize_tree` ("l3", "l51/cv1", "l7.0"; the head's convs
     with path "", as in the JAX package), for int8 calibration.
-    bn_shards > 1: per-replica BN in training (`layers.Ctx`).
+    bn_shards > 1: per-replica BN in training (`layers.Ctx`). group: the
+    process group over whose ranks the global batch is split (SyncBN in
+    training, `layers.Ctx.group`).
     remat_prefix > 0 (recompute the first layers in the backward, a TPU
     memory-for-FLOPs lever) is ROADMAP queue 1 item 21 and raises.
     """
     if remat_prefix > 0:
         raise NotImplementedError(
             "remat_prefix is not ported yet: ROADMAP queue 1, item 21")
-    ctx = Ctx(dtype=dtype, observer=observer, training=training, bn_shards=bn_shards)
+    ctx = Ctx(dtype=dtype, observer=observer, training=training, bn_shards=bn_shards,
+              group=group)
     lp, ls = params["layers"], state["layers"]
     new_state = list(ls)
     saved: Dict[int, torch.Tensor] = {}

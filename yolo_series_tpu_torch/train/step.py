@@ -11,8 +11,19 @@ train.py:344-389).
     (train.py:389).
 
 The step runs eagerly on the params' device; its metrics are 0-d tensors
-on that device, so it makes no host sync. A multi-GPU `mesh` is ROADMAP
-queue 1 item 12.
+on that device, so it makes no host sync.
+
+Data parallel (`mesh=` a `torch.distributed` process group, the JAX
+argument's name for the port's group handle): every rank holds a replica
+of the TrainState (broadcast from rank 0 by the caller, `parallel/dist.
+broadcast_tensors`) and its contiguous slice of the global batch. The forward
+and loss run on the slice with SyncBN and globally normalized losses, so
+the SUM of the ranks' gradients is the global batch's gradient: the
+micro-batches' grads are summed locally and all-reduced once a step, in
+buckets of a flat buffer (`parallel/dist.allreduce_grads`). The optimizer
+and EMA then run alike on every rank. The metrics are the global batch's.
+With bn_shards > 1 (per-replica BN, `--no-sync-bn`) the new BN state is
+rank 0's, broadcast, as the JAX package's replicated state is shard 0's.
 """
 
 from __future__ import annotations
@@ -20,6 +31,7 @@ from __future__ import annotations
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from yolo_series_tpu_torch.device import device as _device
@@ -28,6 +40,7 @@ from yolo_series_tpu_torch.train.ema import ema_update
 from yolo_series_tpu_torch.train.optim import OptimConfig, make_optimizer
 from yolo_series_tpu_torch.models.model import tree_leaves as leaves
 from yolo_series_tpu_torch.models.model import tree_rebuild as rebuild
+from yolo_series_tpu_torch.parallel.dist import allreduce_grads, broadcast_tensors
 
 
 class TrainState(NamedTuple):
@@ -87,13 +100,19 @@ def make_train_step(plan, loss_fn: Callable, opt_cfg: OptimConfig,
     losses are their mean. loss_scale scales the gradient only. freeze > 0
     keeps the params and the optimizer's "v" slot of the first `freeze`
     layers as they were (for Adam that is the second moment; "m" moves, as
-    in the JAX package). bn_shards > 1: per-replica BN. metrics {"box",
-    "obj", "cls", "total"}: 0-d tensors on the device. The step builds new
-    trees and leaves `ts` as it was.
+    in the JAX package). bn_shards > 1: per-replica BN over that many
+    groups of the global batch. metrics {"box", "obj", "cls", "total"}: 0-d
+    tensors on the device. The step builds new trees and leaves `ts` as it
+    was.
+
+    mesh: a process group: the batch arguments are this rank's slice of
+    the global batch (the micro-batch axis leading, as above), loss_fn
+    takes `group=` (the port's losses do), and the step is the global
+    batch's (module docstring).
     """
-    if mesh is not None:
-        raise NotImplementedError("a device mesh is not ported yet: ROADMAP queue 1, "
-                                  "item 12 (multi-GPU)")
+    if mesh is not None and not isinstance(mesh, dist.ProcessGroup):
+        raise TypeError(f"mesh must be a torch.distributed process group, not "
+                        f"{type(mesh).__name__}")
     if remat_prefix > 0:
         raise NotImplementedError("remat_prefix is not ported yet: ROADMAP queue 1, item 21")
     built = {}
@@ -103,8 +122,8 @@ def make_train_step(plan, loss_fn: Callable, opt_cfg: OptimConfig,
         ps = [t.detach().requires_grad_() for t in leaves(params)]
         out, new_state = apply_model(plan, rebuild(params, ps), state, images,
                                      training=True, dtype=compute_dtype,
-                                     bn_shards=bn_shards)
-        total, items = loss_fn(out["raw"], labels, mask)
+                                     bn_shards=bn_shards, group=mesh)
+        total, items = loss_fn(out["raw"], labels, mask, group=mesh)
         scaled = total * loss_scale
         grads = torch.autograd.grad(scaled, ps, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(ps, grads)]
@@ -134,6 +153,13 @@ def make_train_step(plan, loss_fn: Callable, opt_cfg: OptimConfig,
         else:
             total, items, new_state, grads = loss_and_grad(ts.params, ts.state, images,
                                                            labels, mask)
+        if mesh is not None:
+            # this rank's total is its share of the global batch's
+            total = total.clone()
+            dist.all_reduce(total, group=mesh)
+            grads = allreduce_grads(grads, mesh)
+            if bn_shards > 1:
+                broadcast_tensors(leaves(new_state), 0, mesh)
 
         new_params, new_opt = opt_update(ts.opt_state, ts.params,
                                          rebuild(ts.params, grads), lr_groups, momentum)

@@ -20,9 +20,33 @@ Randomness: the training dataset owns a `random.Random` and a numpy
 `RandomState` before the first batch, as the JAX trainer draws from the
 global `np.random` (see `data/datasets.py`).
 
-Not ported yet, and refused with NotImplementedError: several devices
-(`n_data_devices > 1`, with or without `sync_bn`; ROADMAP queue 1 item
-12), `device_aug` (item 18), `bbox_interval > 0` (item 19), `split_concat`
+Several devices (`n_data_devices` N > 1): one process a device, the
+counterpart of the JAX trainer's one-process mesh. `train` spawns N workers
+(`parallel/dist.launch`), each of which joins the group (NCCL on the card,
+card = rank; gloo on the CPU) and runs `train` again; a process started by
+torchrun, or any caller that has joined a group already, runs as its rank.
+  * `batch_size` is the global batch (as in the JAX trainer) and must
+    divide by N. Every rank draws the same epoch order and loads only its
+    slice of each global batch (`create_loader(shard=...)`,
+    DistributedSampler's semantics), so N ranks decode N times as fast.
+    Decoding the whole global batch on every rank and slicing it would
+    cap N cards at one card's loader rate, which already paces one card.
+  * Each rank's dataset generators are seeded by (seed, rank)
+    (`parallel/dist.rank_seed`; rank 0's by seed alone): with augmentation
+    off the global batch is the one-process batch bit for bit; with it on,
+    its indices are.
+  * The step is the global batch's (`train/step.py`: SyncBN unless
+    `sync_bn=False`, which is per-replica BN over N groups; gradients
+    all-reduced); the state starts as rank 0's, broadcast, and resume
+    loads on every rank. The multi-scale size comes from one seeded
+    generator on every rank, so all ranks take the same size.
+  * Rank 0 alone builds the label cache first (the others wait, then read
+    it), runs autoanchor (the anchors broadcast), writes the logs, hyp,
+    opt and artifacts, validates each epoch (the epoch's row broadcast to
+    every rank) and writes the checkpoints, in the JAX format as always.
+
+Not ported yet, and refused with NotImplementedError: `device_aug` (ROADMAP
+queue 1 item 18), `bbox_interval > 0` (item 19), `split_concat`
 and `fast_stem` (item 20; the JAX trainer's `fast_stem=True` default is an
 exact reshuffle of the step's plan, `models/faststem.make_train_fast_stem`,
 so here it defaults to False and the step runs the plan as compiled), and
@@ -43,6 +67,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import yaml
 
 from yolo_series_tpu_torch.data.datasets import DetectionDataset, create_loader
@@ -52,8 +77,11 @@ from yolo_series_tpu_torch.losses import (LossHyp, make_compute_loss,
                                           make_compute_loss_aux_ota, make_compute_loss_ota)
 from yolo_series_tpu_torch.models.graph import compile_graph
 from yolo_series_tpu_torch.models.heads import IAuxDetect
-from yolo_series_tpu_torch.models.model import init_model
+from yolo_series_tpu_torch.models.model import init_model, tree_leaves
 from yolo_series_tpu_torch.obs.artifacts import ARTIFACT_PREFIX
+from yolo_series_tpu_torch.parallel.dist import (broadcast_object, broadcast_tensors,
+                                                 init_distributed, launch, rank_of,
+                                                 rank_seed, sync_processes, world_size)
 from yolo_series_tpu_torch.train.checkpoints import (
     load_checkpoint, load_checkpoint_any, restore_train_state, save_checkpoint,
     strip_checkpoint,
@@ -93,7 +121,7 @@ class TrainConfig:
     eval_every: int = 1
     save_period: int = 25
     seed: int = 0
-    n_data_devices: Optional[int] = None   # > 1: item 12, refused
+    n_data_devices: Optional[int] = None   # > 1: one process a device
     rect: bool = False
     compute_dtype: Any = torch.bfloat16
     label_smoothing: float = 0.0
@@ -118,7 +146,7 @@ class TrainConfig:
     single_cls: bool = False      # treat data as one class (train.py:78-79)
     v5_metric: bool = False       # yolov5 AP convention in the evals
     nosave: bool = False          # only save the final checkpoint (train.py:464)
-    sync_bn: bool = True          # False on several devices: item 12, refused
+    sync_bn: bool = True          # False: per-replica BN on several devices
     entity: Optional[str] = None  # W&B entity
     upload_dataset: bool = False  # snapshot the dataset into the artifact
     # store and train from the snapshot (wandb_utils.py:193-218)
@@ -150,9 +178,6 @@ def load_hyp(hyp) -> dict:
 
 
 def _refuse_unported(tc: TrainConfig):
-    if (tc.n_data_devices or 1) > 1:
-        raise NotImplementedError("training on several devices (and --no-sync-bn "
-                                  "there) is not ported yet: ROADMAP queue 1, item 12")
     if tc.device_aug:
         raise NotImplementedError("the device-augment tail is not ported yet: "
                                   "ROADMAP queue 1, item 18")
@@ -232,32 +257,94 @@ def _dataset(tc, data_cfg, split, hyp=None, **kw):
         single_cls=tc.single_cls, **kw)
 
 
+def _rank_main(rank: int, world: int, init_method: str, tc: TrainConfig) -> Dict:
+    """One spawned rank of `train`: join the group and train; returns what
+    crosses back to the parent (host data)."""
+    init_distributed(rank, world, init_method, tc.device or "cuda")
+    out = train(tc)
+    return {k: out[k] for k in ("best_fitness", "results", "final_results", "save_dir")}
+
+
+# a test seam, None in use (a training run takes as long as it takes): a
+# spawned run is failed, and its workers killed, when it outlasts this, so
+# that a hung rank fails a test instead of hanging it
+SPAWN_TIMEOUT_S = None
+
+
+def _spawn(tc: TrainConfig, n: int) -> Dict:
+    """`train` on n devices, one spawned process each (rank r on card r);
+    rank 0's result, without the train state and plan, which stay in the
+    workers (read them from the checkpoints)."""
+    dev = torch.device(tc.device or "cuda")
+    if dev.type == "cuda":
+        visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if visible < n:
+            raise RuntimeError(f"training on {n} devices needs {n} CUDA devices; "
+                               f"{visible} {'is' if visible == 1 else 'are'} visible "
+                               "(pass device='cpu' to run the ranks on the CPU)")
+    if tc.batch_size % n:
+        raise ValueError(f"the global batch {tc.batch_size} does not divide over {n} devices")
+    # the CPU's threads shared among the ranks
+    threads = max(torch.get_num_threads() // n, 1) if dev.type == "cpu" else None
+    out = launch(_rank_main, n, args=(tc,), timeout=SPAWN_TIMEOUT_S, threads=threads)[0]
+    return {**out, "train_state": None, "plan": None}
+
+
 def train(tc: TrainConfig, train_ds: Optional[DetectionDataset] = None,
           val_ds: Optional[DetectionDataset] = None,
           callbacks: Optional[Dict[str, Any]] = None) -> Dict:
     """Run training; returns {best_fitness, results, final_results,
     save_dir, train_state, plan}. callbacks["on_epoch_end"](epoch, row,
-    train_state) runs after each epoch's checkpoints."""
+    train_state) runs after each epoch's checkpoints, on every rank.
+
+    With `n_data_devices` N > 1 and no process group joined yet, spawns N
+    ranks (module docstring) and returns rank 0's result with train_state
+    and plan None. In a process that has joined a group (a spawned rank,
+    torchrun), runs as its rank of the group."""
     _refuse_unported(tc)
+    n_dev = tc.n_data_devices or 1
+    if not dist.is_initialized():
+        if n_dev > 1:
+            if train_ds is not None or val_ds is not None or callbacks:
+                raise ValueError("datasets and callbacks cannot cross to spawned ranks: "
+                                 "join a process group and call train on each rank")
+            return _spawn(tc, n_dev)
+        group = None
+    else:
+        group = dist.group.WORLD
+        if tc.n_data_devices is not None and n_dev != world_size(group):
+            raise ValueError(f"n_data_devices {n_dev}, but the process group has "
+                             f"{world_size(group)} ranks")
+    rank, world = rank_of(group), world_size(group)
+    main = rank == 0
+    if tc.batch_size % world:
+        raise ValueError(f"the global batch {tc.batch_size} does not divide over {world} ranks")
     dev = _device(tc.device)
+    if dev.type == "cuda":   # this rank's own card
+        dev = torch.device("cuda", torch.cuda.current_device())
+    say = print if main else (lambda *a, **k: None)
     hyp = load_hyp(tc.hyp)
     save_dir = Path(tc.save_dir)
-    (save_dir / "weights").mkdir(parents=True, exist_ok=True)
-    with open(save_dir / "hyp.yaml", "w") as f:
-        yaml.dump(hyp, f)
-    with open(save_dir / "opt.yaml", "w") as f:  # resume re-reads this
-        yaml.dump({k: v for k, v in dataclasses.asdict(tc).items()
-                   if isinstance(v, (int, float, str, bool, type(None)))}, f)
-    from yolo_series_tpu_torch.obs.loggers import ExperimentLogger
-    logger = ExperimentLogger(save_dir, entity=tc.entity)
-    print("train: the train-batch mosaics and the results plots are not ported yet "
-          "(ROADMAP queue 1, item 19): none is written")
+    logger = None
+    if main:
+        (save_dir / "weights").mkdir(parents=True, exist_ok=True)
+        with open(save_dir / "hyp.yaml", "w") as f:
+            yaml.dump(hyp, f)
+        with open(save_dir / "opt.yaml", "w") as f:  # resume re-reads this
+            yaml.dump({k: v for k, v in dataclasses.asdict(tc).items()
+                       if isinstance(v, (int, float, str, bool, type(None)))}, f)
+        from yolo_series_tpu_torch.obs.loggers import ExperimentLogger
+        logger = ExperimentLogger(save_dir, entity=tc.entity)
+    say("train: the train-batch mosaics and the results plots are not ported yet "
+        "(ROADMAP queue 1, item 19): none is written")
 
     # dataset artifacts (reference wandb_utils.py:159-218): --upload_dataset
     # snapshots the dataset into the project-level store and trains from the
     # snapshot's data.yaml; an artifact:// ref resolves an existing snapshot
+    # (rank 0 alone; the path it trains from is broadcast)
     data_path = tc.data
-    if data_path and (tc.upload_dataset or str(data_path).startswith(ARTIFACT_PREFIX)):
+    if main and data_path and (tc.upload_dataset
+                               or str(data_path).startswith(ARTIFACT_PREFIX)):
         from yolo_series_tpu_torch.obs.artifacts import (
             ArtifactStore, download_dataset_artifact, log_dataset_artifact)
         store = ArtifactStore(Path(tc.save_dir).parent / "artifacts")
@@ -271,6 +358,7 @@ def train(tc: TrainConfig, train_ds: Optional[DetectionDataset] = None,
                 ref = f"{ref}:{tc.artifact_alias}"
             data_path = str(download_dataset_artifact(store, ref))
             print(f"dataset artifact resolved: {ref} -> {data_path}")
+    data_path = broadcast_object(data_path, 0, group)
 
     data_cfg: dict = {}
     if data_path:
@@ -289,31 +377,38 @@ def train(tc: TrainConfig, train_ds: Optional[DetectionDataset] = None,
         try:   # partial load: the leaves whose shapes match
             params, state = _merge(params, params_l), _merge(state, state_l)
         except ValueError:
-            print("WARNING: weight tree mismatch; training from scratch")
+            say("WARNING: weight tree mismatch; training from scratch")
 
     head = plan.head
     # dataset + autoanchor before the loss and step are built, so new
     # anchors reach the step (the reference checks before training, :278)
     if train_ds is None:
+        if not main:   # rank 0 writes the label cache; the others then read it
+            sync_processes("label cache", group)
         train_ds = _dataset(tc, data_cfg, "train", hyp=hyp, augment=True, rect=tc.rect,
                             stride=int(max(head.strides)), cache_images=tc.cache_images,
-                            fast_decode=tc.fast_decode, seed=tc.seed)
+                            fast_decode=tc.fast_decode, seed=rank_seed(tc.seed, rank))
+        if main:
+            sync_processes("label cache", group)
     anchors_override = None
     if tc.autoanchor and not tc.resume:
-        try:
-            from yolo_series_tpu_torch.utils.autoanchor import check_anchors
-            apx = head.anchors_grid()
-            _, new_anchors = check_anchors(
-                train_ds.labels, train_ds.shapes, apx, head.strides,
-                thr=hyp["anchor_t"], imgsz=tc.img_size, rng=train_ds.np_rng)
-            if new_anchors is not None:
-                nl_, na_ = apx.shape[0], apx.shape[1]
-                anchors_override = new_anchors.reshape(nl_, na_ * 2).round(2).tolist()
-                plan = compile_graph(tc.cfg, nc=nc, anchors=anchors_override)
-                head = plan.head
-                print("autoanchor: anchors updated")
-        except Exception as e:  # noqa: BLE001 — the JAX trainer's boundary: train on
-            print(f"autoanchor skipped: {e!r}")
+        if main:
+            try:
+                from yolo_series_tpu_torch.utils.autoanchor import check_anchors
+                apx = head.anchors_grid()
+                _, new_anchors = check_anchors(
+                    train_ds.labels, train_ds.shapes, apx, head.strides,
+                    thr=hyp["anchor_t"], imgsz=tc.img_size, rng=train_ds.np_rng)
+                if new_anchors is not None:
+                    nl_, na_ = apx.shape[0], apx.shape[1]
+                    anchors_override = new_anchors.reshape(nl_, na_ * 2).round(2).tolist()
+            except Exception as e:  # noqa: BLE001 — the JAX trainer's boundary: train on
+                print(f"autoanchor skipped: {e!r}")
+        anchors_override = broadcast_object(anchors_override, 0, group)
+        if anchors_override is not None:
+            plan = compile_graph(tc.cfg, nc=nc, anchors=anchors_override)
+            head = plan.head
+            say("autoanchor: anchors updated")
 
     nl = len(head.strides)
     # quad: images arrive at 2x side, but the reference scales the hyp by
@@ -348,7 +443,8 @@ def train(tc: TrainConfig, train_ds: Optional[DetectionDataset] = None,
         ts = restore_train_state(blob, opt_cfg, device=dev)
         start_epoch = blob["epoch"] + 1
         best_fitness = blob.get("best_fitness", 0.0)
-        print(f"resumed from {resume_path} at epoch {start_epoch}")
+        say(f"resumed from {resume_path} at epoch {start_epoch}")
+    broadcast_tensors(tree_leaves(ts), 0, group)   # every rank starts from rank 0's state
 
     gs = int(max(head.strides))
     if tc.multi_scale:
@@ -368,19 +464,23 @@ def train(tc: TrainConfig, train_ds: Optional[DetectionDataset] = None,
     def get_step(accum: int, size: Optional[int] = None):
         if (accum, size) not in step_cache:
             step_cache[(accum, size)] = make_train_step(
-                plan, loss_fn, opt_cfg, accumulate=accum,
+                plan, loss_fn, opt_cfg, mesh=group, accumulate=accum,
                 compute_dtype=tc.compute_dtype, freeze=tc.freeze,
-                resize_to=size, loss_scale=4.0 if tc.quad else 1.0)
+                resize_to=size, loss_scale=4.0 if tc.quad else 1.0,
+                bn_shards=world if not tc.sync_bn else 1)
         return step_cache[(accum, size)]
 
     loader = create_loader(train_ds, batch_size=tc.batch_size,
                            max_labels=tc.max_labels, seed=tc.seed,
                            image_weights=tc.image_weights,
-                           hold=accumulate, quad=tc.quad, workers=tc.workers)
+                           hold=accumulate, quad=tc.quad, workers=tc.workers,
+                           shard=(rank, world))
     nb = len(loader)
     warmup_steps = max(round(hyp["warmup_epochs"] * nb), tc.warmup_min_steps)
 
-    if val_ds is None and not tc.noval and data_cfg.get("val"):
+    if not main:   # rank 0 alone validates
+        val_ds = None
+    elif val_ds is None and not tc.noval and data_cfg.get("val"):
         # the reference always builds a test loader from data['val']
         # (train.py:430-437: rect, pad 0.5)
         try:
@@ -465,6 +565,7 @@ def train(tc: TrainConfig, train_ds: Optional[DetectionDataset] = None,
                            names=names, v5_metric=tc.v5_metric, device=dev)
             row.update({f"val/{k}": res[k] for k in ("mp", "mr", "map50", "map")})
             fi = res["fitness"]
+        row, fi = broadcast_object((row, fi), 0, group)   # rank 0's row on every rank
         best_fitness = max(best_fitness, fi)
         results_rows.append(row)
 
@@ -472,7 +573,7 @@ def train(tc: TrainConfig, train_ds: Optional[DetectionDataset] = None,
                        results=results_rows, hyp=hyp)
         weights = save_dir / "weights"
         # --nosave: only the final epoch writes a checkpoint (train.py:464)
-        do_save = (not tc.nosave) or epoch == tc.epochs - 1
+        do_save = main and ((not tc.nosave) or epoch == tc.epochs - 1)
         if do_save:
             save_checkpoint(weights / "last.ckpt", ts, **ckpt_kw)
         if do_save and fi > 0 and fi >= best_fitness:
@@ -485,10 +586,11 @@ def train(tc: TrainConfig, train_ds: Optional[DetectionDataset] = None,
                         or (tc.save_period > 0 and (epoch + 1) % tc.save_period == 0)
                         or epoch >= tc.epochs - 5):
             save_checkpoint(weights / f"epoch_{epoch:03d}.ckpt", ts, **ckpt_kw)
-        print(f"epoch {epoch}: " + " ".join(f"{k}={v:.4f}" if isinstance(v, float)
-                                            else f"{k}={v}" for k, v in row.items()))
-        logger.log_scalars({k: v for k, v in row.items()
-                            if isinstance(v, (int, float))}, step)
+        say(f"epoch {epoch}: " + " ".join(f"{k}={v:.4f}" if isinstance(v, float)
+                                          else f"{k}={v}" for k, v in row.items()))
+        if logger is not None:
+            logger.log_scalars({k: v for k, v in row.items()
+                                if isinstance(v, (int, float))}, step)
         if callbacks and "on_epoch_end" in callbacks:
             callbacks["on_epoch_end"](epoch, row, ts)
 
@@ -498,17 +600,19 @@ def train(tc: TrainConfig, train_ds: Optional[DetectionDataset] = None,
     best_path = save_dir / "weights" / "best.ckpt"
     last_path = save_dir / "weights" / "last.ckpt"
     final_path = best_path if best_path.exists() else last_path
-    if val_ds is not None and not tc.noval and final_path.exists():
+    if main and val_ds is not None and not tc.noval and final_path.exists():
         _, params_f, state_f = load_checkpoint_any(str(final_path))
         final_results = evaluate(plan, params_f, state_f, val_loader(), names=names,
                                  verbose=True, v5_metric=tc.v5_metric, device=dev)
         print(f"final {final_path.name}: "
               + " ".join(f"{k}={final_results[k]:.4f}" for k in ("mp", "mr", "map50", "map")))
-    for p in (last_path, best_path):
-        if p.exists():
-            strip_checkpoint(p)
-    logger.finish()
-    (save_dir / "DONE").write_text("ok")  # resume scanner marker
+    if main:
+        for p in (last_path, best_path):
+            if p.exists():
+                strip_checkpoint(p)
+        logger.finish()
+        (save_dir / "DONE").write_text("ok")  # resume scanner marker
+    sync_processes("train end", group)
     return {"best_fitness": best_fitness, "results": results_rows,
             "final_results": final_results, "save_dir": str(save_dir),
             "train_state": ts, "plan": plan}
