@@ -126,9 +126,26 @@ non-zero on failure before the last line is printed:
     set from its start: finite losses, rank 0 alone validates (K1L, each
     evaluation equal with the plain keep-mask's) and writes last.ckpt,
     which reads back; img/s, which is not a multi-GPU rate.
-11. One JSON line of per-kernel numbers (launch counts with phases 9's and
-    10's), the card's name and power limit, and the last line `{"ok":
-    true, "device": {...}}`.
+11. The rest of the zoo (`zoo`): (a) yolov7-tiny deploy (LeakyReLU) at
+    640 px through the bf16 graph engines and `DynamicBatcher` at batch 8
+    and 1 as phase 4 drives yolov7's (no fused stem or span: K1 once a
+    forward, no `conv_silu_kernel` in a replay's trace; head inputs and
+    detections against the cuDNN references; img/s, busy share, host ms,
+    p50 at batch 8 and 1); (b) yolov7-tiny-silu the same; (c) tiny's
+    training form (IDetect): the Detector (K1L at 4096), fp32 `evaluate`
+    (K1L at 8192), a fp32 step card against CPU and bf16 steps with
+    hyp.scratch.tiny's loss weights (ms, host ms, peak, busy share), the
+    train (1 epoch) and test CLIs on a set drawn as phase 8's (K1L, mAP
+    and detections equal with the plain keep-mask, last/best stripped);
+    (d) the 11 baselines (yolov3, yolov3-spp, yolov4-csp, yolor-csp,
+    yolor-csp-x, r50-csp, x50-csp at 640 px; yolor-p6/w6/d6/e6 at 1280)
+    fused and served by the graph engine at batch 8 (K1; each replay
+    bit-equal to eager; img/s, busy share; one of each block group held
+    against the fp32 reference); (e) `nms_padded` against its plain
+    version at 400 rows (K1) and 4096 (K1L).
+12. One JSON line of per-kernel numbers (launch counts with phases 9's,
+    10's and 11's), the card's name and power limit, and the last line
+    `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -180,7 +197,7 @@ from yolo_series_tpu_torch.ops.boxes import box_iou
 from yolo_series_tpu_torch.parallel.dist import (TIMEOUT as DIST_TIMEOUT, free_port,
                                                  host_local_slice, init_distributed, launch,
                                                  sync_processes)
-from yolo_series_tpu_torch.ops.nms import batched_nms, fused_head_nms
+from yolo_series_tpu_torch.ops.nms import batched_nms, fused_head_nms, nms_padded
 from yolo_series_tpu_torch.losses import (LossHyp, make_compute_loss_aux_ota,
                                           make_compute_loss_ota)
 from yolo_series_tpu_torch.losses.ota import ota_assign_batch
@@ -340,6 +357,39 @@ PAR_RANKS, PAR_EPOCHS, PAR_TIMEOUT_S = 2, 1, 600
 PAR_UPDATE_L2, PAR_ITEM_RTOL, PAR_STATE_REL = 1e-2, 1e-4, 1e-5
 PAR_POOL_FREE_L2 = 1e-3
 PAR_RUN = ROOT / "build" / "smoke_runs" / "ranks"
+# Phase 11 (the rest of the zoo). yolov7-tiny's three cfgs at IMG px: the
+# deploy forms (LeakyReLU, and SiLU) served as phase 4 serves yolov7, the
+# training form (IDetect) through the Detector, `evaluate`, TINY_STEPS bf16
+# steps with hyp.scratch.tiny's loss weights and the train and test CLIs
+# (one epoch on a set drawn as phase 8's under ZOO_DATA). Then the 11
+# baselines at their published sizes, each fused and served by the graph
+# engine at batch BATCH, those of ZOO_AGREE (one a block group) held
+# against the fp32 reference as phase 4 holds yolov7. Last, `nms_padded`
+# on the card against its plain version at NMS_PADDED_CASES (rows, slots,
+# IoU threshold): tests/test_nms.py's case (K1) and a large one (K1L).
+ZOO_CFGS = ROOT / "yolo_series_tpu_torch/models/cfg"
+TINY_DEPLOY_CFG = ZOO_CFGS / "deploy/yolov7-tiny.yaml"
+TINY_SILU_CFG = ZOO_CFGS / "deploy/yolov7-tiny-silu.yaml"
+TINY_TRAIN_CFG = ZOO_CFGS / "training/yolov7-tiny.yaml"
+TINY_HYP = ROOT / "data/hyp.scratch.tiny.yaml"
+TINY_STEPS = 4
+# tiny's fp32 step on the card against the CPU (phase 7 (b)'s check): its
+# gradient jumps where LeakyReLU's slope does (1 to 0.1 at 0). A
+# BN-centred pre-activation within fp32 rounding of 0 takes the other
+# slope in another summation order, and BN's backward spreads that over its
+# channel: params nudged by 1e-7 relative move the gradient of the step's
+# configuration (width 0.25, 320 px, batch 2) by 1.4e-2, 1.5e-3 and 4.3e-3
+# on the CPU, and that of width 0.5 by 1.6e-3-1.1e-2, against 1.5e-5-2.9e-5
+# with SiLU in its place (CPU runs; the H100 reads 1.37e-2, the
+# BN stats 1.8e-8 and the loss items 2e-6 from the CPU's). So its updates
+# within TINY_UPDATE_L2, its BN stats within STEP_STATE_REL as yolov7's.
+TINY_UPDATE_L2 = 5e-2
+ZOO_DATA, ZOO_RUNS = ROOT / "build" / "smoke_data_zoo", ROOT / "build" / "smoke_runs_zoo"
+BASELINES = (("yolov3", 640), ("yolov3-spp", 640), ("yolov4-csp", 640), ("yolor-csp", 640),
+             ("yolor-csp-x", 640), ("r50-csp", 640), ("x50-csp", 640), ("yolor-p6", 1280),
+             ("yolor-w6", 1280), ("yolor-d6", 1280), ("yolor-e6", 1280))
+ZOO_AGREE = ("yolov3-spp", "yolor-csp-x", "x50-csp", "yolor-p6")
+NMS_PADDED_CASES = ((400, 100, 0.5), (4096, 300, 0.45))
 
 
 def log(*a):
@@ -1951,10 +2001,10 @@ def train_batch(rng, batch, img, nc=80):
     return images, labels, mask
 
 
-def train_model(dev, width, seed=2):
-    """yolov7 training form (IDetect) at `width`, the port's seeded init
-    with the Detect bias prior, on `dev`."""
-    return Model.from_yaml(_cfg(width, TRAIN_CFG), seed=seed, device=dev)
+def train_model(dev, width, seed=2, cfg=TRAIN_CFG):
+    """The training form of `cfg` (yolov7's, IDetect, unless given) at
+    `width`, the port's seeded init with the Detect bias prior, on `dev`."""
+    return Model.from_yaml(_cfg(width, cfg), seed=seed, device=dev)
 
 
 def lr_after_warmup(opt):
@@ -2012,17 +2062,24 @@ def check_ota(dev, plan, raw, labels, mask):
             "fg": int(fg_c.sum())}
 
 
-def check_fp32_step(dev, width=0.25, img=320, batch=2):
-    """(b) One fp32 step (OTA, SGD) on the card, TF32 off, against the same
-    step on the CPU from the same state on the same batch."""
-    model = train_model(torch.device("cpu"), width, seed=3)
+def check_fp32_step(dev, width=0.25, img=320, batch=2, cfg=TRAIN_CFG, hyp=None,
+                    what="train (b)", update_l2=None):
+    """(b) One fp32 step (OTA with `hyp`, `LossHyp()` unless given; SGD) of
+    the training form of `cfg` on the card, TF32 off, against the same
+    step on the CPU from the same state on the same batch. The updates of
+    the params within STEP_UPDATE_L2, the new BN stats and EMA trees within
+    STEP_STATE_REL; with `update_l2` (a model whose step is discontinuous,
+    TINY_UPDATE_L2), the updates of the params and of the EMA params
+    within it instead, the BN stats and the EMA's within STEP_STATE_REL."""
+    hyp = LossHyp() if hyp is None else hyp
+    model = train_model(torch.device("cpu"), width, seed=3, cfg=cfg)
     opt = train_optim.OptimConfig()
     lr, mom = lr_after_warmup(opt)
     batch_np = train_batch(np.random.default_rng(5), batch, img)
     res = {}
     for where in (dev, torch.device("cpu")):
         ts = init_train_state(model.params, model.state, opt, device=where)
-        step = make_train_step(model.plan, make_compute_loss_ota(model.plan.head, LossHyp()),
+        step = make_train_step(model.plan, make_compute_loss_ota(model.plan.head, hyp),
                                opt, compute_dtype=torch.float32)
         with full_fp32(where.type == "cuda"):
             new, metrics = step(ts, *batch_np, lr, mom)
@@ -2033,16 +2090,57 @@ def check_fp32_step(dev, width=0.25, img=320, batch=2):
     state_err = tree_rel_l2(new_c.state, new_h.state)
     ema_err = max(tree_rel_l2(new_c.ema_params, new_h.ema_params),
                   tree_rel_l2(new_c.ema_state, new_h.ema_state))
-    log(f"train (b): one fp32 step, width {width}, {img} px, batch {batch}: losses card "
-        f"{m_c}, CPU {m_h}; parameter updates' relative L2 distance {l2:.3g} (limit "
-        f"{STEP_UPDATE_L2}); BN stats {state_err:.3g}, EMA {ema_err:.3g} (limit "
-        f"{STEP_STATE_REL})")
-    if not l2 <= STEP_UPDATE_L2:
-        raise AssertionError(f"train (b): fp32 updates differ by {l2} (relative L2)")
-    if not max(state_err, ema_err) <= STEP_STATE_REL:
-        raise AssertionError(f"train (b): BN stats {state_err}, EMA {ema_err}")
-    return {"update_rel_l2": l2, "bn_state_rel_err": state_err, "ema_rel_err": ema_err,
-            "losses_card": m_c, "losses_cpu": m_h}
+    # the step's gradient before the params take it (the momentum slot,
+    # zero before the step), and the update's fp32 resolution: half an ulp
+    # of each new param over the update's norm
+    v_l2 = tree_rel_l2(new_c.opt_state["v"], new_h.opt_state["v"])
+    ulp = torch.cat([(torch.nextafter(t, torch.tensor(math.inf)) - t).reshape(-1)
+                     for t in (x.detach().cpu().abs() for x in tree_leaves(new_h.params))])
+    floor = float(ulp.double().norm() / 2 / du_h.norm())
+    log(f"{what}: one fp32 step of {Path(cfg).stem}, width {width}, {img} px, batch {batch}: "
+        f"losses card {m_c}, CPU {m_h}; parameter updates' relative L2 distance {l2:.3g} "
+        f"(limit {STEP_UPDATE_L2}; their fp32 resolution {floor:.3g}), the momentum slot's "
+        f"{v_l2:.3g}; BN stats {state_err:.3g}, EMA {ema_err:.3g} (params "
+        f"{tree_rel_l2(new_c.ema_params, new_h.ema_params):.3g}, state "
+        f"{tree_rel_l2(new_c.ema_state, new_h.ema_state):.3g}; limit {STEP_STATE_REL})")
+    if update_l2 is not None:
+        ema_l2 = float((tree_update(new_c.ema_params, ts_c.ema_params)
+                        - tree_update(new_h.ema_params, ts_h.ema_params)).norm()
+                       / tree_update(new_h.ema_params, ts_h.ema_params).norm())
+        ema_state = tree_rel_l2(new_c.ema_state, new_h.ema_state)
+        log(f"{what}: the EMA params' updates {ema_l2:.3g} apart; updates held within "
+            f"{update_l2}, BN stats and the EMA's within {STEP_STATE_REL}")
+        if not max(l2, ema_l2) <= update_l2:
+            raise AssertionError(f"{what}: fp32 updates differ by {l2}, the EMA's by {ema_l2}")
+        if not max(state_err, ema_state) <= STEP_STATE_REL:
+            raise AssertionError(f"{what}: BN stats {state_err}, EMA BN stats {ema_state}")
+    elif not l2 <= STEP_UPDATE_L2:
+        raise AssertionError(f"{what}: fp32 updates differ by {l2} (relative L2)")
+    elif not max(state_err, ema_err) <= STEP_STATE_REL:
+        raise AssertionError(f"{what}: BN stats {state_err}, EMA {ema_err}")
+    return {"update_rel_l2": l2, "update_fp32_floor": floor, "momentum_rel_l2": v_l2,
+            "bn_state_rel_err": state_err, "ema_rel_err": ema_err, "losses_card": m_c,
+            "losses_cpu": m_h}
+
+
+def step_timing(fn, batch, iters=5, warmup=1, host_reps=3):
+    """A train step `fn` (the card only): ms a step (median of `iters`
+    between CUDA events), img/s at `batch`, the peak allocation from there,
+    and the host's ms a step (median of `host_reps` enqueues between
+    synchronises)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(fn, iters=iters, warmup=warmup)
+    peak = torch.cuda.max_memory_allocated()
+    host = []
+    for _ in range(host_reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        host.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    return {"ms_step": ms, "img_s": batch / ms * 1e3, "host_ms_step": statistics.median(host),
+            "peak_bytes": peak}
 
 
 def step_profile(dev, plan, step, ts, batch_np, lr, mom, loss_fn, opt):
@@ -2206,19 +2304,8 @@ def train(dev, width=1.0, img=IMG, batch=BATCH):
     timing = {"ms_step": None, "img_s": None, "host_ms_step": None, "peak_bytes": None,
               "profile": None}
     if dev.type == "cuda":
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        timing["ms_step"] = cuda_ms(lambda: step(cur, *batch_np, lr, mom), iters=10, warmup=2)
-        timing["peak_bytes"] = torch.cuda.max_memory_allocated()
-        timing["img_s"] = batch / timing["ms_step"] * 1e3
-        host = []
-        for _ in range(5):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            step(cur, *batch_np, lr, mom)
-            host.append((time.perf_counter() - t) * 1e3)
-        torch.cuda.synchronize()
-        timing["host_ms_step"] = statistics.median(host)
+        timing.update(step_timing(lambda: step(cur, *batch_np, lr, mom), batch, iters=10,
+                                  warmup=2, host_reps=5))
         timing["profile"] = step_profile(dev, plan, step, cur, batch_np, lr, mom, loss_fn, opt)
     secs = time.perf_counter() - t_phase
     log(f"train (e): bf16 step at batch {batch}, {img} px: {timing['ms_step']} ms a step "
@@ -2327,16 +2414,19 @@ def loader_split_ms(data_dir, img, n=32):
     return {"decode": decode, "sample": (time.perf_counter() - t) * 1e3 / n}
 
 
-def smoke_set(dev, width=1.0, img=IMG, batch=BATCH, n_train=TRAIN_IMAGES, n_val=VAL_IMAGES):
-    """Phase 8's set under SMOKE_DATA (SMOKE_DATA and SMOKE_RUNS emptied
-    first) and its start: (data.yaml, model.yaml, livened.ckpt) paths."""
+def smoke_set(dev, width=1.0, img=IMG, batch=BATCH, n_train=TRAIN_IMAGES, n_val=VAL_IMAGES,
+              root=SMOKE_DATA, runs=SMOKE_RUNS, train_cfg=TRAIN_CFG, hyp=None):
+    """Phase 8's set under `root` (`root` and `runs` emptied first) and its
+    start, the training form of `train_cfg` (yolov7's unless given), its
+    BN settled on a batch augmented with `hyp` (the default hyp unless
+    given): (data.yaml, model.yaml, livened.ckpt) paths."""
     import yaml
 
-    for d in (SMOKE_DATA, SMOKE_RUNS):
+    for d in (root, runs):
         shutil.rmtree(d, ignore_errors=True)
-    data = write_dataset(SMOKE_DATA, n_train, n_val, size=img)
-    cfg = SMOKE_DATA / "model.yaml"
-    cfg.write_text(yaml.safe_dump(_cfg(width, TRAIN_CFG)))
+    data = write_dataset(root, n_train, n_val, size=img)
+    cfg = root / "model.yaml"
+    cfg.write_text(yaml.safe_dump(_cfg(width, train_cfg)))
     # the start: the training form (seed 1) with its BN state set on a
     # training batch and its head made to pass candidates (a random init
     # passes none at conf 0.001, where mAP and the NMS would check
@@ -2344,17 +2434,17 @@ def smoke_set(dev, width=1.0, img=IMG, batch=BATCH, n_train=TRAIN_IMAGES, n_val=
     # of its own batches a step moves it by a little: livened as phase 5's,
     # one step takes its mAP to 0.
     model = Model.from_yaml(str(cfg), seed=1, device=dev)
-    ds = DetectionDataset(str(SMOKE_DATA / "train" / "images"), img_size=img, augment=True,
-                          hyp=trainer.load_hyp(None), seed=SMOKE_SEED)
+    ds = DetectionDataset(str(root / "train" / "images"), img_size=img, augment=True,
+                          hyp=trainer.load_hyp(hyp), seed=SMOKE_SEED)
     calib = next(iter(create_loader(ds, batch_size=batch)))["images"]
     calib = torch.from_numpy(calib.copy()).to(dev).float() / 255.0
     settle_bn(model.plan, model.params, model.state, calib)
     liven(model.plan, model.params, model.state, calib, act_rms=None, head_gain=1.0)
-    start = SMOKE_DATA / "livened.ckpt"
+    start = root / "livened.ckpt"
     save_checkpoint(start, init_train_state(model.params, model.state,
                                             train_optim.OptimConfig(), device=dev),
-                    cfg=_cfg(width, TRAIN_CFG))
-    label_own_detections(model, SMOKE_DATA / "val", img, batch)
+                    cfg=_cfg(width, train_cfg))
+    label_own_detections(model, root / "val", img, batch)
     return data, cfg, start
 
 
@@ -2600,19 +2690,7 @@ def train_aux(dev, width=1.0, img=P6_IMG):
         raise AssertionError(f"p6 (d): the step launched a kernel of the port: {counts}")
     timing = {"ms_step": None, "img_s": None, "host_ms_step": None, "peak_bytes": None}
     if dev.type == "cuda":
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        timing["ms_step"] = cuda_ms(lambda: step(cur, *batch_np, lr, mom), iters=5, warmup=1)
-        timing["peak_bytes"] = torch.cuda.max_memory_allocated()
-        timing["img_s"] = batch / timing["ms_step"] * 1e3
-        host = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            step(cur, *batch_np, lr, mom)
-            host.append((time.perf_counter() - t) * 1e3)
-        torch.cuda.synchronize()
-        timing["host_ms_step"] = statistics.median(host)
+        timing.update(step_timing(lambda: step(cur, *batch_np, lr, mom), batch))
     secs = time.perf_counter() - t_phase
     log(f"p6 (d): bf16 aux step at batch {batch}, {img} px: {timing['ms_step']} ms a step "
         f"(median of 5, CUDA events), {timing['img_s']} img/s, host {timing['host_ms_step']} "
@@ -2664,30 +2742,52 @@ def bridge(dev, width=1.0, img=P6_IMG, batch=BATCH, n_train=TRAIN_IMAGES,
     log(f"p6 (e): {pt.name}: {len(sd)} keys, {pt.stat().st_size} bytes (fp16), read back "
         f"bit-equal with the fp16-rounded trees")
     del model, params, state
+    res = cli_pair(dev, "p6 (e)", cfg, data, pt, P6_HYP, P6_RUNS, width, img, batch, n_train,
+                   n_val)
+    secs = time.perf_counter() - t_phase
+    log(f"p6 (e): phase {secs:.1f} s")
+    return {**res, "pt_bytes": pt.stat().st_size, "phase_s": secs}
+
+
+def cli_pair(dev, what, cfg, data, weights, hyp, runs, width, img, batch, n_train, n_val,
+             stripped=False):
+    """`cli/train.py --weights weights --hyp hyp` for one epoch (no
+    accumulation) on the set of `data`, then `cli/test.py` on its
+    last.ckpt (fused, fp32) with K1L and with the plain keep-mask: every
+    loss item finite, validation launches K1L only (two evaluations), the
+    test CLI's mAP and detections equal with either keep-mask; with
+    `stripped`, last.ckpt and best.ckpt written stripped and read back."""
     on_cpu = ["--device", "cpu"] if dev.type == "cpu" else []
     cuda = dev.type == "cuda"
     zero_counts()
-    out = cli_train.main(["--cfg", str(cfg), "--data", data, "--weights", str(pt),
-                          "--hyp", str(P6_HYP), "--epochs", "1", "--batch-size", str(batch),
+    out = cli_train.main(["--cfg", str(cfg), "--data", data, "--weights", str(weights),
+                          "--hyp", str(hyp), "--epochs", "1", "--batch-size", str(batch),
                           "--nbs", str(batch), "--img-size", str(img),
-                          "--workers", str(CLI_WORKERS), "--project", str(P6_RUNS),
+                          "--workers", str(CLI_WORKERS), "--project", str(runs),
                           "--name", "exp"] + on_cpu)
     train_counts = read_counts()
     rows = out["results"]
     items = [{k: v for k, v in r.items() if k.startswith("train/")} for r in rows]
-    log(f"p6 (e) train CLI from the .pt: width {width}, {img} px, batch {batch}, 1 epoch of "
-        f"{n_train} images: rows {rows}")
+    log(f"{what} train CLI from {Path(weights).name}: width {width}, {img} px, batch {batch}, "
+        f"1 epoch of {n_train} images, hyp {Path(hyp).name}: rows {rows}")
     if not all(math.isfinite(v) for r in items for v in r.values()) or len(items[0]) != 4:
-        raise AssertionError(f"p6 (e) train CLI: loss items {items}")
+        raise AssertionError(f"{what} train CLI: loss items {items}")
     want = {kid: 0 for kid in COUNTED} | {"K1L": 2 * -(-n_val // batch)}
     if cuda and train_counts != want:
-        raise AssertionError(f"p6 (e) train CLI: launch counts {train_counts}, want {want}")
-    last = Path(out["save_dir"]) / "weights" / "last.ckpt"
+        raise AssertionError(f"{what} train CLI: launch counts {train_counts}, want {want}")
+    weights_dir = Path(out["save_dir"]) / "weights"
+    if stripped:
+        for name in ("last.ckpt", "best.ckpt"):
+            blob = load_checkpoint(weights_dir / name)
+            if blob["opt_state"] is not None or blob["epoch"] != -1:
+                raise AssertionError(f"{what} train CLI: {name} is not stripped")
+            load_checkpoint_any(str(weights_dir / name))
+    last = weights_dir / "last.ckpt"
 
     def test_cli(name):
         return cli_test.main(["--weights", str(last), "--data", data, "--img-size", str(img),
                               "--batch-size", str(batch), "--save-txt", "--save-conf",
-                              "--project", str(P6_RUNS), "--name", name] + on_cpu)
+                              "--project", str(runs), "--name", name] + on_cpu)
 
     zero_counts()
     test = test_cli("test_k1l")
@@ -2696,25 +2796,23 @@ def bridge(dev, width=1.0, img=P6_IMG, batch=BATCH, n_train=TRAIN_IMAGES,
         plain = test_cli("test_plain")
     want = {kid: 0 for kid in COUNTED} | {"K1L": -(-n_val // batch)}
     if cuda and test_counts != want:
-        raise AssertionError(f"p6 (e) test CLI: launch counts {test_counts}, want {want}")
+        raise AssertionError(f"{what} test CLI: launch counts {test_counts}, want {want}")
     for key in ("map50", "map", "mp", "mr"):
         if test[key] != plain[key]:
-            raise AssertionError(f"p6 (e) test CLI: {key} {test[key]} with K1L, {plain[key]} "
+            raise AssertionError(f"{what} test CLI: {key} {test[key]} with K1L, {plain[key]} "
                                  "with the plain keep-mask")
-    txt = {name: {p.name: p.read_text() for p in (P6_RUNS / name / "labels").glob("*.txt")}
+    txt = {name: {p.name: p.read_text() for p in (runs / name / "labels").glob("*.txt")}
            for name in ("test_k1l", "test_plain")}
     n_dets = sum(t.count("\n") for t in txt["test_k1l"].values())
     if txt["test_k1l"] != txt["test_plain"] or not n_dets:
-        raise AssertionError(f"p6 (e) test CLI: {n_dets} detections, the txts equal with K1L "
+        raise AssertionError(f"{what} test CLI: {n_dets} detections, the txts equal with K1L "
                              f"and the plain keep-mask: {txt['test_k1l'] == txt['test_plain']}")
-    secs = time.perf_counter() - t_phase
-    log(f"p6 (e) test CLI: last.ckpt, fused, fp32: map50 {test['map50']:.6f}, map "
+    log(f"{what} test CLI: last.ckpt, fused, fp32: map50 {test['map50']:.6f}, map "
         f"{test['map']:.6f} (plain keep-mask map50 {plain['map50']:.6f}, map "
         f"{plain['map']:.6f}); {n_dets} detections on {n_val} images, equal with the plain "
-        f"keep-mask; launches {test_counts}; ms an image {test['speed_ms']}; phase {secs:.1f} s")
+        f"keep-mask; launches {test_counts}; ms an image {test['speed_ms']}")
     return {"rows": rows, "launches_train": train_counts, "launches_test": test_counts,
-            "test": {k: test[k] for k in ("map50", "map", "mp", "mr", "speed_ms")},
-            "pt_bytes": pt.stat().st_size, "phase_s": secs}
+            "test": {k: test[k] for k in ("map50", "map", "mp", "mr", "speed_ms")}}
 
 
 def p6(dev, rows, width=1.0, img=P6_IMG, batch=BATCH, requests=12):
@@ -2757,6 +2855,233 @@ def p6(dev, rows, width=1.0, img=P6_IMG, batch=BATCH, requests=12):
     return {"launches": launches, "serving": {k: srv.get(k) for k in keys},
             "k3_spans": rows.get("K3_p6_spans"), "k3": rows.get("K3_p6"), "detect": det,
             "eval": ev, "train": tr, "bridge": br, "phase_s": secs}
+
+
+# ----------------------------------------------------- the rest of the zoo ---
+
+def serve_baseline(dev, m, batch=BATCH, agree=False, what="zoo (d)"):
+    """Phase 11 (d): one baseline's fused deploy form through the bf16 graph
+    engine at `batch` (no fused stem or span: the baselines hold none; the
+    fast stem folds where it matches). Counted: K1 once at the warm-up and
+    once at the capture, every forward after them a replay, each replay
+    bit-equal to the eager `end2end`; img/s of one `infer_async` between
+    events and the busy share of the graph's profile, whose trace must show
+    one `nms_keep_kernel` a replay and no other kernel of the port. With
+    `agree`, the head inputs and detections held against the fp32 and
+    cuDNN bf16 references as phase 4 holds yolov7's."""
+    engine = ServingEngine(m.plan, m.params, m.state, batch_size=batch, img_size=m.img,
+                           dtype=torch.bfloat16, device=dev)
+    folded = [type(s.block).__name__ for s in engine.plan.layers].count("PhasedConv")
+    if plan_names(engine) != (0, 0):
+        raise AssertionError(f"{what}: a fused stem or span matched: {plan_names(engine)}")
+    batches = [m.rng.integers(0, 256, (batch, m.img, m.img, 3), np.uint8) for _ in range(3)]
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    zero_counts()
+    outs = [engine.infer(b) for b in batches]
+    counts = read_counts()
+    check_path_counts(what, counts, (engine,), {"K1": 1})
+    graph_equals_eager(what, engine, outs, batches)
+    res = {"launches": counts, "params": m.n_params, "img": m.img, "phased_convs": folded}
+    if agree:
+        normalized, reference = make_reference(m)
+        with torch.inference_mode():
+            feats, _ = apply_model(engine.plan, engine._params, engine._state,
+                                   normalized(batches[0]), dtype=torch.bfloat16,
+                                   return_head_inputs=True)
+        f32, want = reference(batches[0], torch.float32)
+        f16, cudnn = reference(batches[0], torch.bfloat16)
+        err_eng, err_bf16 = feature_error(feats, f32), feature_error(f16, f32)
+        agree_eng = agreement(what, outs[0], want)
+        agree_bf16 = agreement(f"{what} cuDNN bf16", cudnn, want)
+        log(f"{what}: head inputs {err_eng:.4f} relative RMS from the fp32 reference (cuDNN "
+            f"bf16 {err_bf16:.4f}); detections agree {agree_eng:.3f} with it (cuDNN bf16 "
+            f"{agree_bf16:.3f}); {int(outs[0]['num_dets'].sum())} / "
+            f"{int(want['num_dets'].sum())} detections")
+        if not err_eng <= FEAT_RATIO * err_bf16:
+            raise AssertionError(f"{what}: head inputs {err_eng} relative RMS from the fp32 "
+                                 f"reference, cuDNN bf16 {err_bf16}")
+        if not agree_eng >= agree_bf16 - MATCH_MARGIN:
+            raise AssertionError(f"{what}: detections agree {agree_eng:.3f}, cuDNN bf16's "
+                                 f"{agree_bf16:.3f}")
+        res.update(feature_rms_err=err_eng, feature_rms_err_cudnn_bf16=err_bf16,
+                   agreement=agree_eng, agreement_cudnn_bf16=agree_bf16)
+    if dev.type == "cuda":
+        fwd_ms = cuda_ms(lambda: engine.infer_async(batches[0]), iters=10)
+        prof = profile_forwards(lambda: engine.infer_async(batches[0]), f"{what} (graph)",
+                                n=3)["profile"]
+        got = prof and prof["launches"]
+        want = {k: float(k == "nms_keep_kernel") for k in TRACED}
+        if got is not None and got != want:
+            raise AssertionError(f"{what}: a replay launched {got} in the trace, want {want}")
+        res.update(img_s=batch / fwd_ms * 1e3, device_ms_bs8=fwd_ms, profile=prof)
+        log(f"{what}: {res['img_s']:.1f} img/s (one batch-{batch} infer_async {fwd_ms:.3f} ms "
+            f"between events), busy {prof and prof['busy_share']}")
+    return res
+
+
+def train_tiny(dev, width=1.0, img=IMG, batch=BATCH):
+    """Phase 11 (c): yolov7-tiny's training form (IDetect, LeakyReLU) at
+    `img` px, batch `batch`, bf16, the OTA loss with hyp.scratch.tiny's
+    weights scaled as the trainer scales them, SGD past warmup: a fp32 step
+    on the card against the CPU (phase 7 (b), width 0.25, 320 px), then
+    TINY_STEPS bf16 steps on one batch (finite; params, BN stats and EMA
+    move; a few steps of a random init need not lower the loss), ms a step
+    (CUDA events), host ms a step, peak allocation and the busy share of a
+    profiled step. No kernel of the port is on this path."""
+    t_phase = time.perf_counter()
+    hyp_of = lambda size: trainer._scaled_loss_hyp(  # noqa: E731
+        trainer.load_hyp(str(TINY_HYP)), 3, 80, size)
+    fp32 = check_fp32_step(dev, cfg=TINY_TRAIN_CFG, hyp=hyp_of(320), what="zoo (c) train",
+                           update_l2=TINY_UPDATE_L2)
+    model = train_model(dev, width, cfg=TINY_TRAIN_CFG)
+    plan, hyp = model.plan, hyp_of(img)
+    opt = train_optim.OptimConfig()
+    lr, mom = lr_after_warmup(opt)
+    step = make_train_step(plan, make_compute_loss_ota(plan.head, hyp), opt,
+                           compute_dtype=torch.bfloat16)
+    batch_np = train_batch(np.random.default_rng(7), batch, img)
+    zero_counts()
+    ts = init_train_state(model.params, model.state, opt, device=dev)
+    cur, totals = ts, []
+    for _ in range(TINY_STEPS):
+        cur, metrics = step(cur, *batch_np, lr, mom)
+        totals.append(metrics["total"])
+    totals = [float(t) for t in torch.stack(totals).cpu()]
+    finite = all(math.isfinite(t) for t in totals) and all(
+        bool(torch.isfinite(t).all()) for t in
+        tree_leaves(cur.params) + tree_leaves(cur.state) + tree_leaves(cur.ema_params))
+    moved = {name: tree_rel_l2(getattr(cur, name), getattr(ts, name)) > 0
+             for name in ("params", "state", "ema_params")}
+    log(f"zoo (c) train: yolov7-tiny training form ({type(plan.head).__name__}), width {width}, "
+        f"{model.num_params()} params, {img} px, batch {batch}, bf16, OTA loss {hyp}: "
+        f"{TINY_STEPS} steps on one batch, total loss {[round(t, 5) for t in totals]}; "
+        f"losses, params, BN stats and EMA finite {finite}; moved {moved}")
+    if not (finite and all(moved.values())):
+        raise AssertionError(f"zoo (c) train: finite {finite}, moved {moved}, losses {totals}")
+    counts = read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"zoo (c) train: the step launched a kernel of the port: {counts}")
+    timing = {"ms_step": None, "img_s": None, "host_ms_step": None, "peak_bytes": None,
+              "profile": None}
+    if dev.type == "cuda":
+        timing.update(step_timing(lambda: step(cur, *batch_np, lr, mom), batch))
+        timing["profile"] = profile_forwards(lambda: step(cur, *batch_np, lr, mom),
+                                             "zoo (c) train step", n=2)["profile"]
+    secs = time.perf_counter() - t_phase
+    log(f"zoo (c) train: bf16 step at batch {batch}, {img} px: {timing['ms_step']} ms a step "
+        f"(median of 5, CUDA events), {timing['img_s']} img/s, host {timing['host_ms_step']} "
+        f"ms a step (median of 3), peak allocation {timing['peak_bytes']} bytes; "
+        f"{secs:.1f} s")
+    return {"fp32_card_cpu": fp32, "losses": totals, **timing, "launches": counts,
+            "phase_s": secs}
+
+
+def clustered_boxes(rng, n, size=640):
+    """tests/test_nms.py's boxes: n boxes in clusters of ~8 (overlapping,
+    so suppression chains form), scores uniform in [0.01, 1)."""
+    centers = rng.uniform(100, size - 100, (max(n // 8, 1), 2))
+    cxy = centers[rng.integers(0, len(centers), n)] + rng.normal(0, 20, (n, 2))
+    wh = rng.uniform(20, 120, (n, 2))
+    boxes = np.concatenate([cxy - wh / 2, cxy + wh / 2], 1).astype(np.float32)
+    return boxes, rng.uniform(0.01, 1.0, n).astype(np.float32)
+
+
+def check_nms_padded(dev):
+    """Phase 11 (e): `ops/nms.nms_padded` on the card against the same call
+    with the plain keep-mask: indices and count equal, at each of
+    NMS_PADDED_CASES (rows 7 of tests/test_nms.py's generator at 400 rows;
+    at 4096 a tenth of the rows invalid, -inf). Counted: K1 once at 400
+    rows, K1L once at 4096. Timed: one call between events, kernel and
+    plain keep-mask."""
+    out, launches = [], {kid: 0 for kid in COUNTED}
+    for n, slots, thr in NMS_PADDED_CASES:
+        boxes, scores = clustered_boxes(np.random.default_rng(7 if n == 400 else n), n)
+        if n > 400:
+            scores[::10] = -np.inf
+        b, sc = torch.from_numpy(boxes).to(dev), torch.from_numpy(scores).to(dev)
+        zero_counts()
+        idx, valid = nms_padded(b, sc, thr, max_output=slots)
+        counts = read_counts()
+        with plain_nms():
+            pidx, pvalid = nms_padded(b, sc, thr, max_output=slots)
+        kid = "K1" if n <= nms_keep.MAX_K else "K1L"
+        want = {k: int(k == kid) for k in COUNTED}
+        if dev.type == "cuda" and counts != want:
+            raise AssertionError(f"zoo (e): nms_padded at {n} rows launched {counts}, "
+                                 f"want {want}")
+        if not (torch.equal(idx, pidx) and int(valid) == int(pvalid) > 0):
+            raise AssertionError(f"zoo (e): nms_padded at {n} rows: {int(valid)} kept with "
+                                 f"{kid}, {int(pvalid)} with the plain keep-mask, indices "
+                                 f"equal {torch.equal(idx, pidx)}")
+        for k, v in counts.items():
+            launches[k] += v
+        row = {"rows": n, "slots": slots, "kept": int(valid), "keep_mask": kid}
+        if dev.type == "cuda":
+            row["ms"] = cuda_ms(lambda: nms_padded(b, sc, thr, max_output=slots), iters=10)
+            with plain_nms():
+                row["plain_ms"] = cuda_ms(lambda: nms_padded(b, sc, thr, max_output=slots),
+                                          iters=3, warmup=1)
+        log(f"zoo (e): nms_padded at {n} rows, {slots} slots, IoU {thr}: {int(valid)} kept, "
+            f"indices and count equal with {kid} and with the plain keep-mask; one call "
+            f"{row.get('ms')} ms ({kid}), {row.get('plain_ms')} ms (plain)")
+        out.append(row)
+    return {"cases": out, "launches": launches}
+
+
+def zoo(dev, img=IMG, batch=BATCH, requests=12, baselines=BASELINES, width=1.0,
+        n_train=TRAIN_IMAGES, n_val=VAL_IMAGES):
+    """Phase 11: the rest of the zoo on the card. (a) yolov7-tiny deploy
+    (LeakyReLU) through the bf16 graph engines at batch `batch` and 1 as
+    phase 4 drives yolov7's (no fused stem or span: every conv is cuDNN's,
+    each replay's trace one `nms_keep_kernel` and no `conv_silu_kernel`);
+    (b) tiny-silu deploy the same; (c) tiny's training form (IDetect):
+    the Detector (K1L at 4096), fp32 `evaluate` (K1L at 8192), the train
+    step (`train_tiny`) and the train and test CLIs (`cli_pair`, K1L);
+    (d) the baselines (`serve_baseline`); (e) `nms_padded` (K1, K1L).
+    Returns the numbers, with the launches of the counted main paths."""
+    t_phase = time.perf_counter()
+    m = make_model(dev, width, img, TINY_DEPLOY_CFG)
+    tiny = serving(dev, m, batch, requests, what="zoo (a) tiny", transforms=(0, 0),
+                   with_ingest=False)
+    m = make_model(dev, width, img, TINY_SILU_CFG)
+    silu = serving(dev, m, batch, 4, what="zoo (b) tiny-silu", transforms=(0, 0),
+                   with_ingest=False)
+    del m
+    det = detect(dev, width, TINY_TRAIN_CFG, img, transforms=(0, 0), what="zoo (c) detect")
+    m = make_model(dev, width, img, TINY_TRAIN_CFG)
+    ev = evaluation(dev, m, batch, 16, what="zoo (c) eval")
+    del m
+    tr = train_tiny(dev, width, img, batch)
+    data, cfg, start = smoke_set(dev, width, img, batch, n_train, n_val, root=ZOO_DATA,
+                                 runs=ZOO_RUNS, train_cfg=TINY_TRAIN_CFG, hyp=str(TINY_HYP))
+    clis = cli_pair(dev, "zoo (c)", cfg, data, start, TINY_HYP, ZOO_RUNS, width, img, batch,
+                    n_train, n_val, stripped=True)
+    base = {}
+    for name, size in baselines:
+        t = time.perf_counter()
+        m = make_model(dev, width, size, ZOO_CFGS / f"baseline/{name}.yaml")
+        base[name] = serve_baseline(dev, m, batch, name in ZOO_AGREE, f"zoo (d) {name}")
+        base[name]["s"] = time.perf_counter() - t
+        del m
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    nms_res = check_nms_padded(dev)
+    launches = {"K1": tiny["launches"]["K1"] + silu["launches"]["K1"] + nms_res["launches"]["K1"]
+                + sum(r["launches"]["K1"] for r in base.values()),
+                "K1L": det["launches"]["K1L"] + ev["launches"]["K1L"]
+                + clis["launches_train"]["K1L"] + clis["launches_test"]["K1L"]
+                + nms_res["launches"]["K1L"]}
+    secs = time.perf_counter() - t_phase
+    log(f"zoo: launches of its main paths {launches}; phase {secs:.1f} s")
+    keys = ("replays", "img_s", "device_ms_bs8", "replay_ms_bs8", "eager_ms_bs8", "p50_ms_bs8",
+            "p50_ms_bs1", "host_ms_infer_async", "enqueue_ms_bs8", "profile",
+            "feature_rms_err", "feature_rms_err_cudnn_bf16", "agreement",
+            "agreement_cudnn_bf16")
+    return {"launches": launches, "tiny": {k: tiny.get(k) for k in keys},
+            "tiny_silu": {k: silu.get(k) for k in keys}, "detect": det, "eval": ev,
+            "train": tr, "clis": clis, "baselines": base, "nms_padded": nms_res["cases"],
+            "phase_s": secs}
 
 
 # substrings of the names of cuDNN's convolution kernels
@@ -2890,9 +3215,14 @@ def world1_step(dev, width=1.0, img=IMG, batch=BATCH):
     return {"backend": backend, "bit_equal": equal, "items": items, **timing}
 
 
+# the blocks that hold a max pool
+POOLING = (L.MP, L.SP, L.SPP, L.SPPCSPC, L.DownC, L.Stem)
+
+
 def pool_free_layers(plan):
     """The layers whose params reach the head through no max pool: neither
-    a pooling block (MP, SPPCSPC, DownC) nor upstream of one. Their
+    a pooling block (MP, SP, SPP, SPPCSPC, DownC, Stem) nor upstream of
+    one. Their
     gradient is continuous in the activations; a max pool's is not at
     near-ties, where another fp32 summation order can route a window's
     gradient to another input."""
@@ -2903,7 +3233,7 @@ def pool_free_layers(plan):
             consumers[i - 1 if j == -1 else j].append(i)
     reaches = [False] * n
     for j in reversed(range(n)):
-        reaches[j] = (isinstance(plan.layers[j].block, (L.MP, L.SPPCSPC, L.DownC))
+        reaches[j] = (isinstance(plan.layers[j].block, POOLING)
                       or any(reaches[i] for i in consumers[j]))
     return {j for j in range(n) if not reaches[j]}
 
@@ -3176,6 +3506,7 @@ def main() -> int:
     cli = train_and_test(dev)
     six = p6(dev, rows)
     par = ranks(dev)
+    rest = zoo(dev)
 
     # host-side counts of each kernel's main path: K1-K3 as the bf16
     # engines launched them (warm-up and capture; what the replays launch
@@ -3189,6 +3520,8 @@ def main() -> int:
     for kid, n in six["launches"].items():
         launches[kid] += n
     launches["K1L"] += par["launches"]["K1L"]
+    for kid, n in rest["launches"].items():
+        launches[kid] += n
     for kid in COUNTED:
         if kid != "K4b" and launches[kid] == 0:
             raise AssertionError(f"{kid} was launched no time on its main path")
@@ -3211,7 +3544,7 @@ def main() -> int:
     log(json.dumps({"serving": {k: srv[k] for k in keys + ("ingest",)},
                     "int8_serving": {k: srv8[k] for k in keys + ("calibrate_s",)},
                     "full_int8": full, "detect": det, "eval": ev, "train": tr,
-                    "train_test_cli": cli, "p6": six, "ranks": par,
+                    "train_test_cli": cli, "p6": six, "ranks": par, "zoo": rest,
                     "fused": {"K2": rows["K2"], "K3": rows["K3"]},
                     "k1l_runs": rows["k1l_runs"],
                     "stages": rows["stages"], "k4_convs": rows["k4_convs"],
@@ -3219,7 +3552,7 @@ def main() -> int:
     log(json.dumps({"kernels": kernels}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, train phase "
         f"{tr['phase_s']:.1f} s, train and test CLIs {cli['phase_s']:.1f} s, P6 "
-        f"{six['phase_s']:.1f} s, ranks {par['phase_s']:.1f} s")
+        f"{six['phase_s']:.1f} s, ranks {par['phase_s']:.1f} s, zoo {rest['phase_s']:.1f} s")
     log(smi())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

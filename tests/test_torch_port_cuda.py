@@ -673,6 +673,23 @@ def test_int8_conv_on_card_equals_cpu(cuda, k, s, c, n):
     assert torch.equal(got.cpu(), want)
 
 
+@pytest.mark.parametrize("k,s,c,n,g", [(3, 1, 64, 64, 32), (3, 2, 256, 256, 32),
+                                       (1, 1, 128, 128, 32), (3, 1, 48, 96, 3)])
+def test_grouped_int8_conv_on_card_equals_cpu(cuda, k, s, c, n, g):
+    """`quant.int8_conv` with groups on the card (one torch._int_mm a group;
+    x50-csp's ResX 3 x 3s have 2-16 channels a group) gives the CPU's
+    result bit for bit."""
+    rng = np.random.default_rng(k * 10 + c + g)
+    x = torch.from_numpy(rng.normal(size=(2, c, 20, 20)).astype(np.float32)).contiguous(
+        memory_format=torch.channels_last)
+    w = torch.from_numpy(rng.normal(size=(n, c // g, k, k)).astype(np.float32))
+    wq, sw = quant.quantize_weight(w)
+    b = torch.from_numpy(rng.normal(size=n).astype(np.float32))
+    want = quant.int8_conv(x, wq, sw, b, s, k // 2, g)
+    got = quant.int8_conv(x.to(cuda), wq.to(cuda), sw.to(cuda), b.to(cuda), s, k // 2, g)
+    assert torch.equal(got.cpu(), want)
+
+
 # last in the file: a failed capture should leave the card usable, but
 # nothing else runs after it in this process if it does not
 def test_graph_capture_failure_raises(cuda, graph_engine):

@@ -9,7 +9,8 @@ Quantization is a tree transform on the FUSED deploy params
   input) or, without one, a dynamic absmax scale computed on the device;
 - convs run int8 x int8 with exact int32 sums, then acc * (sx * sw) + b in
   fp32: the K4-eligible 1x1 convs (`pallas_1x1_eligible`) through
-  `ops/int8_mm.int8_conv1x1`, every other one as an im2col product.
+  `ops/int8_mm.int8_conv1x1`, every other one as an im2col product (a
+  grouped conv, ResX's 32 groups, as one product a group).
 
 A quantized conv leaf is {wq (OIHW int8), sw (O,), b (O,)[, sx ()]}, all
 but wq fp32; the blocks of `models/layers.py` take their int8 branch when
@@ -138,6 +139,22 @@ def _im2col_int_mm(xq: torch.Tensor, wq: torch.Tensor, stride, padding) -> torch
     return acc[:, :n].reshape(bsz, oh, ow, n)
 
 
+def _grouped_int_mm(xq: torch.Tensor, wq: torch.Tensor, stride, padding,
+                    groups: int) -> torch.Tensor:
+    """Exact int32 grouped conv (the JAX package's `feature_group_count`):
+    group j's output channels are the product of its slice of the input
+    channels with its slice of the filters, each group one `_im2col_int_mm`."""
+    if groups == 1:
+        return _im2col_int_mm(xq, wq, stride, padding)
+    n, cg = wq.shape[0], wq.shape[1]
+    if xq.shape[-1] != cg * groups or n % groups:
+        raise ValueError(f"{groups} groups do not split {xq.shape[-1]} input and {n} "
+                         "output channels")
+    ng = n // groups
+    return torch.cat([_im2col_int_mm(xq[..., j * cg:(j + 1) * cg], wq[j * ng:(j + 1) * ng],
+                                     stride, padding) for j in range(groups)], dim=-1)
+
+
 def int8_conv(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor, b: torch.Tensor,
               stride, padding, groups: int, sx: Optional[torch.Tensor] = None):
     """Quantized conv of NCHW fp32 x (channels-last memory) with OIHW int8
@@ -147,20 +164,17 @@ def int8_conv(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor, b: torch.Tens
     one, max(max|x| / 127, 1e-8), computed on the device. x / sx is
     rounded half to even and clipped to +-127. K4-eligible 1x1 convs go to
     `ops/int8_mm.int8_conv1x1` (on the CPU its plain version)."""
-    if groups != 1:
-        raise NotImplementedError("grouped int8 convs are not ported (yolov7 "
-                                  "deploy has none; ROADMAP queue 1, item 16)")
     if sx is None:
         sx = torch.clamp_min(x.abs().amax() / 127.0, 1e-8)
     xq = torch.clamp(torch.round(x / sx), -127, 127).to(torch.int8)
     xh = xq.permute(0, 2, 3, 1)          # NHWC view of channels-last memory
     n, c, kh, kw = wq.shape
     scale = sx * sw
-    if (kh == 1 and kw == 1 and stride in (1, (1, 1))
+    if (kh == 1 and kw == 1 and groups == 1 and stride in (1, (1, 1))
             and c % int8_mm.ALIGN == 0 and n % int8_mm.ALIGN == 0):
         y = int8_mm.int8_conv1x1(xh.contiguous(), wq, scale, b)
     else:
-        y = _im2col_int_mm(xh, wq, stride, padding).float() * scale + b
+        y = _grouped_int_mm(xh, wq, stride, padding, groups).float() * scale + b
     return y.permute(0, 3, 1, 2)
 
 

@@ -5,8 +5,10 @@ Layer 0 (k3/s1, C -> c0) becomes a k4/s2 conv that emits the 4 output
 phases stacked in channels (C -> 4*c0), and layer 1 (k3/s2, c0 -> c1) a
 k2 conv over that phase layout with asymmetric (1, 0) padding. The fold
 is an exact reshuffle of the weights; downstream layers are untouched.
-Apply after `reparam.fuse_model` (it needs {w, b} conv forms). The
-training-side blocks of the JAX module are ROADMAP queue 1, slice 3.
+`PhasedConv` applies the folded convs' own activation (SiLU, LeakyReLU or
+any other of `layers.get_activation`). Apply after `reparam.fuse_model`
+(it needs {w, b} conv forms). The training-side blocks of the JAX module
+(`make_train_fast_stem`) are ROADMAP queue 1, item 20.
 """
 
 from __future__ import annotations

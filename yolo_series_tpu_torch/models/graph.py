@@ -7,12 +7,13 @@ through each block's `stride_factor`, anchors order-checked and
 normalized, and module names resolved through an explicit registry — no
 eval(). Accepts the canonical lowercase names and the reference's names.
 
-Only the modules of the yolov7, yolov7x and P6 (w6, e6, d6, e6e) deploy
-and training graphs are ported (conv, mp, reorg, concat, shortcut,
-upsample, sppcspc, repconv, downc, the heads detect, idetect and
+The modules of every shipped cfg are ported: conv, mp, sp, reorg,
+concat, shortcut, upsample, spp, sppcspc, repconv, downc, stem,
+bottleneck, res, resx, the CSP wrappers bottleneckcsp{a,b,c},
+rescsp{a,b,c} and resxcsp{a,b,c}, the heads detect, idetect and
 iauxdetect, and the implicit layers implicita / implicitm, which take
-their width from their input); any other module raises
-NotImplementedError naming the ROADMAP queue that ports it. An
+their width from their input. Any other module raises
+NotImplementedError naming the ROADMAP queue 1 item that ports it. An
 iauxdetect row routes 2 x nl inputs, lead maps then aux maps: nl comes
 from the anchors, and the lead inputs' strides are the head's.
 """
@@ -36,24 +37,72 @@ def make_divisible(x, divisor=8):
 
 # name normalization: reference DSL name -> canonical
 _REF_NAMES = {
-    "Conv": "conv", "RepConv": "repconv", "SPPCSPC": "sppcspc", "MP": "mp",
-    "Concat": "concat", "nn.Upsample": "upsample", "Upsample": "upsample",
+    "Conv": "conv", "RepConv": "repconv", "DownC": "downc", "SPP": "spp",
+    "SPPCSPC": "sppcspc", "Stem": "stem", "Bottleneck": "bottleneck",
+    "BottleneckCSPA": "bottleneckcspa", "BottleneckCSPB": "bottleneckcspb",
+    "BottleneckCSPC": "bottleneckcspc",
+    "Res": "res", "ResCSPA": "rescspa", "ResCSPB": "rescspb", "ResCSPC": "rescspc",
+    "ResX": "resx", "ResXCSPA": "resxcspa", "ResXCSPB": "resxcspb",
+    "ResXCSPC": "resxcspc",
+    "MP": "mp", "SP": "sp", "ReOrg": "reorg", "Concat": "concat",
+    "Shortcut": "shortcut", "nn.Upsample": "upsample", "Upsample": "upsample",
     "Detect": "detect", "IDetect": "idetect", "IAuxDetect": "iauxdetect",
-    "ImplicitA": "implicita", "ImplicitM": "implicitm", "ReOrg": "reorg",
-    "DownC": "downc", "Shortcut": "shortcut",
+    "ImplicitA": "implicita", "ImplicitM": "implicitm",
+    "nn.Conv2d": "conv2d", "nn.BatchNorm2d": "batchnorm2d",
 }
 # conv-family modules: args start [c2, ...] and get width scaling
-_CONV_FAMILY = {"conv", "repconv", "sppcspc", "downc"}
+_CONV_FAMILY = {
+    "conv", "repconv", "downc", "spp", "sppcspc", "stem", "bottleneck",
+    "bottleneckcspa", "bottleneckcspb", "bottleneckcspc",
+    "res", "rescspa", "rescspb", "rescspc", "resx", "resxcspa", "resxcspb",
+    "resxcspc",
+}
 # subset that takes an inner repeat count inserted at args[2]
-_TAKES_N = {"sppcspc", "downc"}
-_BLOCK_CLASSES = {"conv": L.ConvBnAct, "repconv": L.RepConv,
-                  "sppcspc": L.SPPCSPC, "downc": L.DownC, "mp": L.MP,
-                  "reorg": L.ReOrg, "implicita": L.ImplicitA,
-                  "implicitm": L.ImplicitM}
+_TAKES_N = {
+    "downc", "sppcspc", "bottleneckcspa", "bottleneckcspb", "bottleneckcspc",
+    "rescspa", "rescspb", "rescspc", "resxcspa", "resxcspb", "resxcspc",
+}
+_BLOCK_CLASSES = {
+    "conv": L.ConvBnAct, "repconv": L.RepConv, "downc": L.DownC, "spp": L.SPP,
+    "sppcspc": L.SPPCSPC, "stem": L.Stem, "bottleneck": L.Bottleneck,
+    "bottleneckcspa": L.BottleneckCSPA, "bottleneckcspb": L.BottleneckCSPB,
+    "bottleneckcspc": L.BottleneckCSPC,
+    "res": L.Res, "rescspa": L.ResCSPA, "rescspb": L.ResCSPB, "rescspc": L.ResCSPC,
+    "resx": L.ResX, "resxcspa": L.ResXCSPA, "resxcspb": L.ResXCSPB,
+    "resxcspc": L.ResXCSPC,
+    "mp": L.MP, "sp": L.SP, "reorg": L.ReOrg, "implicita": L.ImplicitA,
+    "implicitm": L.ImplicitM,
+}
 _HEAD_CLASSES = {"detect": H.Detect, "idetect": H.IDetect,
                  "iauxdetect": H.IAuxDetect}
-_NOT_PORTED = ("is not ported yet: ROADMAP queue 1 (items 15-16) lists the "
-               "remaining blocks and heads")
+# the ROADMAP queue 1 item of each module the port does not compile: the
+# zoo blocks no shipped cfg uses (16 (c)), those of the JAX package's
+# models/extra.py and models/attention.py (16 (d)), the other heads (15)
+_ITEMS = {
+    "16 (c)": ("conv2d", "dwconv", "ghostconv", "sppf", "focus", "ghost",
+               "ghostcspa", "ghostcspb", "ghostcspc", "chuncat", "foldcut",
+               "batchnorm2d", "contract", "expand"),
+    "16 (d)": ("ghostsppcspc", "ghoststem", "robustconv", "robustconv2",
+               "crossconv", "mixconv2d", "repconv_orepa", "classify", "frelu",
+               "sum", "swintransformerblock", "swintransformer2block", "stcspa",
+               "stcspb", "stcspc", "st2cspa", "st2cspb", "st2cspc",
+               "transformerblock"),
+    "15": ("ibin", "ikeypoint"),
+}
+_NAME_ITEM = {name: item for item, names in _ITEMS.items() for name in names}
+
+
+def roadmap_item(module: str) -> Optional[str]:
+    """The ROADMAP queue 1 item that ports a module of the reference DSL
+    (its reference or canonical name), None for a name no package knows."""
+    return _NAME_ITEM.get(_norm_module(module))
+
+
+def _not_ported(m: str, i: int) -> NotImplementedError:
+    item = roadmap_item(m)
+    where = (f"ROADMAP queue 1, item {item}" if item is not None
+             else "no ROADMAP item: neither package knows it")
+    return NotImplementedError(f"module {m!r} (layer {i}) is not ported yet: {where}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,7 +144,7 @@ def _norm_act(a):
             return None
         if a in ("True", "False"):
             return a == "True"
-        if a.startswith("nn.") or a in L.ACTIVATIONS:
+        if a.startswith("nn.") or a in L.ACTIVATIONS or a.startswith("leaky_relu"):
             return L.get_activation(a)[0]
     return a
 
@@ -216,7 +265,7 @@ def compile_graph(cfg: Union[str, dict], ch: int = 3,
             cout = block.cout
             stride = st_at(f) * block.stride_factor
         else:
-            raise NotImplementedError(f"module {m!r} (layer {i}) {_NOT_PORTED}")
+            raise _not_ported(m, i)
 
         if isinstance(f, list):
             frm = tuple(j if j == -1 else (i + j if j < 0 else j) for j in f)

@@ -8,12 +8,16 @@ transforms stay plain tree edits. Params are dicts of tensors; conv
 weights are OIHW. Activations are NCHW tensors, kept in `channels_last`
 memory by the model, so a permute gives kernels contiguous NHWC.
 
-Only what the yolov7, yolov7x and P6 (w6, e6, d6, e6e) deploy and
-training graphs run is here: ConvBnAct (BN, fused {w, b} or int8 {wq, sw,
-b[, sx]} form), PlainConv (detect-head convs), MP, ReOrg, Upsample,
-Concat, Shortcut, SPPCSPC, RepConv, DownC, and the implicit-knowledge
-layers ImplicitA / ImplicitM of IDetect and IAuxDetect. The rest of the
-zoo is ROADMAP queue 1, slice 3.
+The blocks of every shipped cfg are here: ConvBnAct (BN, fused {w, b}
+or int8 {wq, sw, b[, sx]} form), PlainConv (detect-head convs), MP, SP,
+ReOrg, Upsample, Concat, Shortcut, SPP, SPPCSPC, RepConv, DownC, Stem,
+Bottleneck, Res (and ResX, a grouped Res), the CSP wrappers
+BottleneckCSPA/B/C, ResCSPA/B/C and ResXCSPA/B/C, and the
+implicit-knowledge layers ImplicitA / ImplicitM of IDetect and IAuxDetect,
+with every activation of the JAX package's table. The blocks that no
+shipped cfg uses (Ghost*, SPPF, Focus, Contract / Expand, Chuncat /
+Foldcut, BatchNorm2d, DWConv) are ROADMAP queue 1 item 16 (c), those of
+`models/extra.py` and `models/attention.py` item 16 (d).
 
 In training (`Ctx.training`) BN normalizes with the batch's moments and
 returns the new running stats, which every block hands back as its new
@@ -27,6 +31,7 @@ all-reduces), so N ranks normalize as one process does on the whole batch.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Optional, Sequence, Tuple
 
@@ -63,23 +68,72 @@ class Ctx:
     group: Any = None
 
 
-ACTIVATIONS = {"silu": F.silu, "identity": lambda x: x}
+class _LeakyReLU(torch.autograd.Function):
+    """F.leaky_relu with JAX's gradient at 0 (`jax.nn.leaky_relu` is
+    where(x >= 0, x, slope * x), so x = 0 takes slope 1; torch's takes
+    the negative side's)."""
+
+    @staticmethod
+    def forward(ctx, x, slope):
+        ctx.save_for_backward(x)
+        ctx.slope = slope
+        return F.leaky_relu(x, slope)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.where(x >= 0, g, g * ctx.slope), None
+
+
+def _leaky(slope):
+    return lambda x: _LeakyReLU.apply(x, slope)
+
+
+ACTIVATIONS = {
+    "silu": F.silu,
+    "relu": F.relu,
+    "relu6": F.relu6,
+    "hardswish": F.hardswish,
+    "mish": lambda x: x * torch.tanh(F.softplus(x)),
+    "sigmoid": torch.sigmoid,
+    "identity": lambda x: x,
+}
+# the reference's torch module names (lowercased) -> canonical names
+_MODULE_NAMES = {"silu": "silu", "relu": "relu", "relu6": "relu6",
+                 "hardswish": "hardswish", "mish": "mish", "identity": "identity"}
+
+
+@functools.lru_cache(maxsize=None)
+def _resolve(s: str) -> Tuple[str, Any]:
+    if s.startswith("nn."):  # reference-format module string
+        low = s[3:].split("(")[0].lower()
+        if low in _MODULE_NAMES:
+            return _MODULE_NAMES[low], ACTIVATIONS[_MODULE_NAMES[low]]
+        if low == "leakyrelu":
+            inner = s[s.index("(") + 1:s.rindex(")")]
+            slope = float(inner) if inner else 0.01
+            return f"leaky_relu:{slope}", _leaky(slope)
+        raise ValueError(f"unsupported activation spec {s!r}")
+    if s.startswith("leaky_relu"):
+        slope = float(s.split(":")[1]) if ":" in s else 0.01
+        return f"leaky_relu:{slope}", _leaky(slope)
+    if s in ACTIVATIONS:
+        return s, ACTIVATIONS[s]
+    raise ValueError(f"unsupported activation spec {s!r}")
 
 
 def get_activation(spec) -> Tuple[str, Any]:
-    """Resolve an activation spec to (canonical_name, fn). True -> silu,
-    False/None -> identity (the reference Conv's `act=True` default)."""
+    """Resolve an activation spec to (canonical_name, fn), as the JAX
+    package's `get_activation` does: the canonical strings ('silu',
+    'leaky_relu:0.1'; a bare 'leaky_relu' has slope 0.01), booleans (True
+    -> silu, False/None -> identity: the reference Conv's `act=True`
+    default) and the reference YAML's module strings ('nn.LeakyReLU(0.1)',
+    'nn.SiLU()'). An unknown spec raises ValueError."""
     if spec is True:
         return "silu", ACTIVATIONS["silu"]
     if spec is False or spec is None:
         return "identity", ACTIVATIONS["identity"]
-    s = str(spec).strip()
-    if s in ("nn.SiLU()", "nn.SiLU"):
-        s = "silu"
-    if s in ACTIVATIONS:
-        return s, ACTIVATIONS[s]
-    raise NotImplementedError(
-        f"activation {spec!r} is not ported yet (ROADMAP queue 1, slice 3)")
+    return _resolve(str(spec).strip())
 
 
 def autopad(k, p=None):
@@ -482,6 +536,27 @@ class MP(Block):
 
 
 @dataclasses.dataclass(frozen=True)
+class SP(Block):
+    """Stride-1 same-padded max pool (reference common.py:39). In training
+    its gradient goes to the first maximum of a tied window in both
+    libraries."""
+
+    c1: int
+    k: int = 3
+    s: int = 1
+
+    @property
+    def cout(self):
+        return self.c1
+
+    def init(self, gen):
+        return {}, {}
+
+    def apply(self, params, state, x, ctx):
+        return max_pool(x, self.k, self.s, self.k // 2), state
+
+
+@dataclasses.dataclass(frozen=True)
 class ReOrg(Block):
     """Space-to-depth 2x (reference common.py:48): (B, C, H, W) -> (B, 4C,
     H/2, W/2), the channel blocks in the reference's slice order
@@ -629,6 +704,292 @@ class SPPCSPC(Composite):
         y1 = call("cv6", call("cv5", torch.cat([x1] + pools, dim=1)))
         y2 = call("cv2", x)
         return call("cv7", torch.cat([y1, y2], dim=1)), new_state
+
+
+@dataclasses.dataclass(frozen=True)
+class SPP(Composite):
+    """Spatial pyramid pooling (reference common.py:195-206)."""
+
+    c1: int
+    c2: int
+    k: Tuple[int, ...] = (5, 9, 13)
+
+    @property
+    def cout(self):
+        return self.c2
+
+    def children(self):
+        c_ = self.c1 // 2
+        return {
+            "cv1": ConvBnAct(self.c1, c_, 1, 1),
+            "cv2": ConvBnAct(c_ * (len(self.k) + 1), self.c2, 1, 1),
+        }
+
+    def apply(self, params, state, x, ctx):
+        call, new_state = self._call(params, state, ctx)
+        x = call("cv1", x)
+        pools = max_pool_pyramid(x, self.k)
+        return call("cv2", torch.cat([x] + pools, dim=1)), new_state
+
+
+@dataclasses.dataclass(frozen=True)
+class Stem(Composite):
+    """4x-downsampling stem of r50/x50-csp (reference common.py:165-178):
+    cv1 (k3/s2), then cv3(cv2(.)) beside a 2x2/2 max pool of cv1's output,
+    concatenated, then cv4. The pool is the non-overlapping one, so
+    training takes `MaxPoolTiled`'s gradient."""
+
+    c1: int
+    c2: int
+    k: int = 1
+    s: int = 1
+    p: Optional[int] = None
+    g: int = 1
+    act: Any = True
+
+    @property
+    def cout(self):
+        return self.c2
+
+    stride_factor = 4.0
+
+    def children(self):
+        c_ = int(self.c2 / 2)
+        return {
+            "cv1": ConvBnAct(self.c1, c_, 3, 2),
+            "cv2": ConvBnAct(c_, c_, 1, 1),
+            "cv3": ConvBnAct(c_, c_, 3, 2),
+            "cv4": ConvBnAct(2 * c_, self.c2, 1, 1),
+        }
+
+    def apply(self, params, state, x, ctx):
+        call, new_state = self._call(params, state, ctx)
+        x = call("cv1", x)
+        pooled = max_pool(x, 2, 2, 0)
+        return call("cv4", torch.cat([call("cv3", call("cv2", x)), pooled], dim=1)), new_state
+
+
+@dataclasses.dataclass(frozen=True)
+class Bottleneck(Composite):
+    """Darknet bottleneck (reference common.py:209-219): a 1x1 then a 3x3
+    (grouped by g), plus x when shortcut and c1 == c2."""
+
+    c1: int
+    c2: int
+    shortcut: bool = True
+    g: int = 1
+    e: float = 0.5
+
+    @property
+    def cout(self):
+        return self.c2
+
+    def children(self):
+        c_ = int(self.c2 * self.e)
+        return {
+            "cv1": ConvBnAct(self.c1, c_, 1, 1),
+            "cv2": ConvBnAct(c_, self.c2, 3, 1, None, self.g),
+        }
+
+    def apply(self, params, state, x, ctx):
+        call, new_state = self._call(params, state, ctx)
+        y = call("cv2", call("cv1", x))
+        if self.shortcut and self.c1 == self.c2:
+            y = x + y
+        return y, new_state
+
+
+@dataclasses.dataclass(frozen=True)
+class Res(Composite):
+    """ResNet bottleneck (reference common.py:222-234): 1x1, 3x3 (grouped
+    by g), 1x1, plus x when shortcut and c1 == c2."""
+
+    c1: int
+    c2: int
+    shortcut: bool = True
+    g: int = 1
+    e: float = 0.5
+
+    @property
+    def cout(self):
+        return self.c2
+
+    def children(self):
+        c_ = int(self.c2 * self.e)
+        return {
+            "cv1": ConvBnAct(self.c1, c_, 1, 1),
+            "cv2": ConvBnAct(c_, c_, 3, 1, None, self.g),
+            "cv3": ConvBnAct(c_, self.c2, 1, 1),
+        }
+
+    def apply(self, params, state, x, ctx):
+        call, new_state = self._call(params, state, ctx)
+        y = call("cv3", call("cv2", call("cv1", x)))
+        if self.shortcut and self.c1 == self.c2:
+            y = x + y
+        return y, new_state
+
+
+def ResX(c1, c2, shortcut=True, g=32, e=0.5):
+    """ResNeXt bottleneck (reference common.py:237-241): a Res with 32
+    groups."""
+    return Res(c1, c2, shortcut, g, e)
+
+
+# The CSP wrappers: the A/B/C variants differ in the stem and route
+# topology (reference common.py:307-354), and the families in their inner
+# block (ResCSP* common.py:357-398, ResXCSP* common.py:401-426). The inner
+# blocks are children m0 .. m{n-1} (the reference's nn.Sequential `m`).
+
+
+@dataclasses.dataclass(frozen=True)
+class _CSPBase(Composite):
+    c1: int
+    c2: int
+    n: int = 1
+    shortcut: bool = True
+    g: int = 1
+    e: float = 0.5
+
+    @property
+    def cout(self):
+        return self.c2
+
+    def inner(self, c_) -> Sequence[Block]:
+        raise NotImplementedError
+
+    def _stems(self, c_) -> Dict[str, Block]:
+        raise NotImplementedError
+
+    def children(self):
+        c_ = self._hidden()
+        kids = self._stems(c_)
+        kids.update({f"m{i}": b for i, b in enumerate(self.inner(c_))})
+        return kids
+
+    def _chain(self, call, y):
+        for i in range(self.n):
+            y = call(f"m{i}", y)
+        return y
+
+
+class _CSPA(_CSPBase):
+    """Topology A: two parallel 1x1 stems on x, the inner chain on the
+    first."""
+
+    def _hidden(self):
+        return int(self.c2 * self.e)
+
+    def _stems(self, c_):
+        return {"cv1": ConvBnAct(self.c1, c_, 1, 1), "cv2": ConvBnAct(self.c1, c_, 1, 1),
+                "cv3": ConvBnAct(2 * c_, self.c2, 1, 1)}
+
+    def apply(self, params, state, x, ctx):
+        call, new_state = self._call(params, state, ctx)
+        y1 = self._chain(call, call("cv1", x))
+        y2 = call("cv2", x)
+        return call("cv3", torch.cat([y1, y2], dim=1)), new_state
+
+
+class _CSPB(_CSPBase):
+    """Topology B: one 1x1 stem, split after it; the hidden width is c2,
+    not c2 * e."""
+
+    def _hidden(self):
+        return int(self.c2)
+
+    def _stems(self, c_):
+        return {"cv1": ConvBnAct(self.c1, c_, 1, 1), "cv2": ConvBnAct(c_, c_, 1, 1),
+                "cv3": ConvBnAct(2 * c_, self.c2, 1, 1)}
+
+    def apply(self, params, state, x, ctx):
+        call, new_state = self._call(params, state, ctx)
+        x1 = call("cv1", x)
+        y1 = self._chain(call, x1)
+        y2 = call("cv2", x1)
+        return call("cv3", torch.cat([y1, y2], dim=1)), new_state
+
+
+class _CSPC(_CSPBase):
+    """Topology C: as A, with a transition 1x1 (cv3) after the chain."""
+
+    def _hidden(self):
+        return int(self.c2 * self.e)
+
+    def _stems(self, c_):
+        return {"cv1": ConvBnAct(self.c1, c_, 1, 1), "cv2": ConvBnAct(self.c1, c_, 1, 1),
+                "cv3": ConvBnAct(c_, c_, 1, 1), "cv4": ConvBnAct(2 * c_, self.c2, 1, 1)}
+
+    def apply(self, params, state, x, ctx):
+        call, new_state = self._call(params, state, ctx)
+        y1 = call("cv3", self._chain(call, call("cv1", x)))
+        y2 = call("cv2", x)
+        return call("cv4", torch.cat([y1, y2], dim=1)), new_state
+
+
+def _bottlenecks(b, c_):
+    return [Bottleneck(c_, c_, b.shortcut, b.g, e=1.0) for _ in range(b.n)]
+
+
+def _res(b, c_, e):
+    return [Res(c_, c_, b.shortcut, b.g, e=e) for _ in range(b.n)]
+
+
+class BottleneckCSPA(_CSPA):
+    def inner(self, c_):
+        return _bottlenecks(self, c_)
+
+
+class BottleneckCSPB(_CSPB):
+    def __init__(self, c1, c2, n=1, shortcut=False, g=1, e=0.5):
+        super().__init__(c1, c2, n, shortcut, g, e)
+
+    def inner(self, c_):
+        return _bottlenecks(self, c_)
+
+
+class BottleneckCSPC(_CSPC):
+    def inner(self, c_):
+        return _bottlenecks(self, c_)
+
+
+class ResCSPA(_CSPA):
+    def inner(self, c_):
+        return _res(self, c_, 0.5)
+
+
+class ResCSPB(_CSPB):
+    def inner(self, c_):
+        return _res(self, c_, 0.5)
+
+
+class ResCSPC(_CSPC):
+    def inner(self, c_):
+        return _res(self, c_, 0.5)
+
+
+class ResXCSPA(_CSPA):
+    def __init__(self, c1, c2, n=1, shortcut=True, g=32, e=0.5):
+        super().__init__(c1, c2, n, shortcut, g, e)
+
+    def inner(self, c_):
+        return _res(self, c_, 1.0)
+
+
+class ResXCSPB(_CSPB):
+    def __init__(self, c1, c2, n=1, shortcut=True, g=32, e=0.5):
+        super().__init__(c1, c2, n, shortcut, g, e)
+
+    def inner(self, c_):
+        return _res(self, c_, 1.0)
+
+
+class ResXCSPC(_CSPC):
+    def __init__(self, c1, c2, n=1, shortcut=True, g=32, e=0.5):
+        super().__init__(c1, c2, n, shortcut, g, e)
+
+    def inner(self, c_):
+        return _res(self, c_, 1.0)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -24,7 +24,7 @@ import torch
 from yolo_series_tpu_torch.models import heads as H
 from yolo_series_tpu_torch.models import layers as L
 from yolo_series_tpu_torch.models.graph import GraphPlan
-from yolo_series_tpu_torch.models.torch_import import _STATELESS, unported
+from yolo_series_tpu_torch.models.torch_import import _STATELESS, child_torch_name, unported
 
 
 def _np(t) -> np.ndarray:
@@ -75,9 +75,10 @@ def export_block(block, out: Dict[str, np.ndarray], prefix: str, p, s):
     if isinstance(block, (L.ImplicitA, L.ImplicitM)):
         out[f"{prefix}.implicit"] = _np(p["v"]).reshape(1, -1, 1, 1)
         return None
-    if isinstance(block, (L.SPPCSPC, L.DownC)):
+    if isinstance(block, L.Composite):
         for name, child in block.children().items():
-            export_block(child, out, f"{prefix}.{name}", p[name], s.get(name, {}))
+            export_block(child, out, f"{prefix}.{child_torch_name(name)}", p[name],
+                         s.get(name, {}))
         return None
     if isinstance(block, _STATELESS):
         return None

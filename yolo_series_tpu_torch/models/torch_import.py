@@ -10,13 +10,17 @@ flat state dict (`model.{i}.<...>` keys, numpy or torch values) onto a
 tensor on the CPU (copied, never aliased: an in-place update of the
 source cannot reach the imported trees).
 
-Scope: the blocks the port compiles (ConvBnAct, RepConv, SPPCSPC, MP,
-DownC, ReOrg, Shortcut, Concat, Upsample, ImplicitA / ImplicitM) and the
+Scope: the blocks the port compiles (ConvBnAct, RepConv, the composite
+blocks SPP, SPPCSPC, DownC, Stem, Bottleneck, Res and the
+BottleneckCSP / ResCSP / ResXCSP A/B/C wrappers, the stateless MP, SP,
+ReOrg, Shortcut, Concat and Upsample, ImplicitA / ImplicitM) and the
 Detect, IDetect and IAuxDetect heads, in their training (BN, RepConv
 branches, implicit layers) and fused deploy forms. The JAX importer's
 other branches raise NotImplementedError naming their ROADMAP queue 1
-item: OREPA, Swin, Transformer, RobustConv, MixConv2d, Focus and the rest
-of the zoo are item 16; the IBin and IKeypoint heads item 15.
+item (`graph.roadmap_item`): Ghost*, Focus and BatchNorm2d are item 16 (c);
+OREPA, Swin, Transformer, RobustConv, MixConv2d and the rest of
+`models/extra.py` and `models/attention.py` item 16 (d); the IBin and
+IKeypoint heads item 15.
 """
 
 from __future__ import annotations
@@ -28,18 +32,29 @@ import torch
 
 from yolo_series_tpu_torch.models import heads as H
 from yolo_series_tpu_torch.models import layers as L
-from yolo_series_tpu_torch.models.graph import GraphPlan
+from yolo_series_tpu_torch.models.graph import GraphPlan, roadmap_item
 
-# the ROADMAP queue 1 item that ports each head of the reference
-_HEAD_ITEMS = {"IBin": 15, "IKeypoint": 15}
 # stateless blocks: no keys in the state dict
-_STATELESS = (L.MP, L.ReOrg, L.Concat, L.Upsample, L.Shortcut)
+_STATELESS = (L.MP, L.SP, L.ReOrg, L.Concat, L.Upsample, L.Shortcut)
 
 
 def unported(kind: str, name: str) -> NotImplementedError:
-    item = _HEAD_ITEMS.get(name, 16)
+    """The error for a head or block of the reference the port does not
+    hold, naming its ROADMAP queue 1 item (`graph.roadmap_item`; a class of
+    the JAX package's models/extra.py or models/attention.py that the DSL
+    does not name, such as OREPA3x3, is item 16 (d))."""
+    item = roadmap_item(name) or "16 (d)"
     return NotImplementedError(
         f"{kind} {name} is not ported yet: ROADMAP queue 1, item {item}")
+
+
+def child_torch_name(name: str) -> str:
+    """A composite block's child name -> its attribute path in the
+    reference module: the CSP wrappers' inner blocks m0, m1, ... are the
+    reference's nn.Sequential `m` (m.0, m.1, ...)."""
+    if name[0] == "m" and name[1:].isdigit():
+        return f"m.{name[1:]}"
+    return name
 
 
 class _SD:
@@ -107,10 +122,11 @@ def import_block(block, sd: _SD, prefix: str) -> Tuple[Any, Any]:
         return {"w": sd.get(f"{prefix}.weight"), "b": sd.get(f"{prefix}.bias")}, {}
     if isinstance(block, (L.ImplicitA, L.ImplicitM)):
         return {"v": sd.get(f"{prefix}.implicit").reshape(-1)}, {}
-    if isinstance(block, (L.SPPCSPC, L.DownC)):
+    if isinstance(block, L.Composite):
         params, state = {}, {}
         for name, child in block.children().items():
-            params[name], state[name] = import_block(child, sd, f"{prefix}.{name}")
+            params[name], state[name] = import_block(child, sd,
+                                                     f"{prefix}.{child_torch_name(name)}")
         return params, state
     if isinstance(block, _STATELESS):
         return {}, {}

@@ -1,6 +1,7 @@
 """Batched NMS on decoded predictions, and the fused head + NMS of serving
-(counterpart of `yolo_series_tpu/ops/nms.py`: `NMSOutput`, `batched_nms`,
-`_single_image_nms`, `_nms_tail`, `nms_output_to_dets`, `fused_head_nms`).
+(counterpart of `yolo_series_tpu/ops/nms.py`: `NMSOutput`, `nms_padded`,
+`batched_nms`, `_single_image_nms`, `_nms_tail`, `nms_output_to_dets`,
+`fused_head_nms`).
 
 Candidate selection is a stable descending sort over the (anchor) or
 (anchor x class) scores, cut to `max_nms`: at ties the lower index comes
@@ -64,6 +65,33 @@ def _nms_tail(cand_boxes, top_scores, cand_cls, iou_thres, agnostic, max_det,
     num = torch.clamp(keep.sum(dim=1), max=max_det).int()
     return NMSOutput(num, out_boxes[:, :max_det], out_scores[:, :max_det],
                      out_cls[:, :max_det])
+
+
+def nms_padded(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float = 0.45,
+               max_output: int = 300, tile: int = 256):
+    """Single-image NMS with a padded static-shape output (`nms_padded` of
+    the JAX package). boxes (N, 4) xyxy, need not be sorted; scores (N,),
+    a row whose score is -inf is invalid padding. Returns (indices, valid):
+    (max_output,) int32 indices into the input in descending score order
+    (0 past `valid`), and the scalar int32 count. The sort is stable, as
+    `jnp.argsort(-scores)` is: at equal scores the lower index comes
+    first. The keep-mask is `ops/nms_keep.nms_keep_mask`'s (K1 up to 1024
+    rows, K1L above, on the card). `tile` sizes the JAX function's tiled
+    keep-mask and has no effect here."""
+    del tile
+    order = torch.argsort(-scores.float(), stable=True)
+    boxes_s = boxes.float()[order]
+    valid_in = torch.isfinite(scores.float()[order])
+    boxes_s = torch.where(valid_in[:, None], boxes_s, torch.zeros((), device=boxes.device))
+    keep = nms_keep.nms_keep_mask(boxes_s[None], valid_in[None], iou_threshold)[0] & valid_in
+    pos = torch.cumsum(keep.int(), 0) - 1
+    writable = keep & (pos < max_output)
+    # rows that are not written go to the extra slot max_output, dropped below
+    slot = torch.where(writable, pos, torch.full_like(pos, max_output)).long()
+    out = torch.zeros((max_output + 1,), dtype=torch.int32, device=boxes.device)
+    out.scatter_(0, slot, order.int())
+    valid = torch.clamp(keep.sum(), max=max_output).int()
+    return out[:max_output], valid
 
 
 def _top_k(scores: torch.Tensor, k: int):
