@@ -143,9 +143,33 @@ non-zero on failure before the last line is printed:
     bit-equal to eager; img/s, busy share; one of each block group held
     against the fp32 reference); (e) `nms_padded` against its plain
     version at 400 rows (K1) and 4096 (K1L).
-12. One JSON line of per-kernel numbers (launch counts with phases 9's,
-    10's and 11's), the card's name and power limit, and the last line
-    `{"ok": true, "device": {...}}`.
+12. The entry points (`entry_points`), phase 5's and 8's models at full
+    width, 640 px: (a) the bf16 Detector with augment=True (TTA) on phase
+    5's model and images, which keeps the serving rewrites: K2 and K3 at
+    each of the 640, 544 and 448 px passes (conv_silu launches counted by
+    scale, each held against the plain conv on its own slices as it runs;
+    K2 and K3 whole against their plain versions at the 544 and 448 px
+    passes' shapes), K1L once (4096 candidates); bit-equal with the plain
+    keep-mask,
+    agreement with the fp32 cuDNN TTA Detector as phase 5's; ms a call
+    beside the Detector without TTA; (b) `evaluate(augment=True)` in fp32
+    on phase 6's batches: K1L at 8192 once a batch, mAP equal with the plain
+    keep-mask and with TF32 on; (e) `cli/export.py` on phase 8's start,
+    plain and --int8 calibrated on phase 8's val JPEGs, each with --pt2
+    and --bench: the program loaded in a fresh process (K4 41 times a
+    forward under int8, none without) and its `pred` bit-equal with the
+    eager forward of the exported checkpoint under deterministic cuDNN;
+    the K4 op's added host ms per eager int8 forward; (c) `cli/test.py
+    --augment` on the exported deploy checkpoint (K1L, mAP equal with the
+    plain keep-mask); (d) `hub.yolov7()` and `hub.yolov7_tiny()` on the
+    card; (f) the device-augment tail: `make_device_augment` on the card
+    against the CPU (within two levels), the loader's img/s with the device
+    and the host tail at 1 and 4 threads, and `cli/train.py --device-aug`
+    for one epoch on phase 8's set (finite losses, img/s, the share spent
+    waiting for a batch) beside phase 8's host-tail epochs.
+13. One JSON line of per-kernel numbers (launch counts with phases 9's,
+    10's, 11's and 12's), the card's name and power limit, and the last
+    line `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -176,10 +200,12 @@ import yolo_series_tpu_torch  # noqa: E402
 if Path(yolo_series_tpu_torch.__file__).resolve().parent != ROOT / "yolo_series_tpu_torch":
     raise ImportError(f"yolo_series_tpu_torch is not the one beside {__file__}")
 
+from yolo_series_tpu_torch.cli import export as cli_export
 from yolo_series_tpu_torch.cli import test as cli_test
 from yolo_series_tpu_torch.cli import train as cli_train
 from yolo_series_tpu_torch.data.augment import letterbox
 from yolo_series_tpu_torch.data.datasets import DetectionDataset, create_loader
+from yolo_series_tpu_torch.data.device_aug import MOSAIC_KEYS, make_device_augment
 from yolo_series_tpu_torch.device import full_fp32
 from yolo_series_tpu_torch.eval import evaluator
 from yolo_series_tpu_torch.eval.evaluator import evaluate, scale_coords_np
@@ -733,14 +759,23 @@ def _cudnn_conv_silu(x, w, b, stride, pad):
 
 
 @contextlib.contextmanager
-def recorded_launches():
+def recorded_launches(errs=None):
     """Inside: each conv_silu.launch also appends its (args, kwargs) to the
-    list yielded, so that the launches timed alone are the path's own."""
+    list yielded, so that the launches timed alone are the path's own.
+    With a list `errs`, each launch is also held against the plain version
+    on its own slices as soon as it has run (before a later launch may
+    write over its input), its max abs error appended to `errs`."""
     real, calls = conv_silu.launch, []
 
     def record(*args, **kw):
         calls.append((args, kw))
         real(*args, **kw)
+        if errs is not None:
+            torch.cuda.synchronize()
+            st = launch_stage((args, kw))
+            errs.append(_close(f"conv_silu launch {len(calls)} {tuple(st.y.shape)}", st.y,
+                               conv_silu.conv_silu_plain(st.x, st.w, st.b, st.stride,
+                                                         st.pad)))
 
     conv_silu.launch = record
     try:
@@ -798,6 +833,15 @@ def check_launches(kid, names, calls):
     return out
 
 
+def unchecked_stages(kid, names, calls):
+    """The operations and staged bound of each recorded launch, not timed
+    alone."""
+    if len(calls) != len(names):
+        raise AssertionError(f"{kid}: {len(calls)} conv_silu launches, want {len(names)}")
+    return [{"ops": st.ops, "bound_ms": bound_ms(st.ops, PEAK_BF16, st.nbytes)[0]}
+            for st in map(launch_stage, calls)]
+
+
 def stages_total(kid, stages):
     log(f"stages {kid}: {len(stages)} launches, {sum(r['ms'] for r in stages):.3f} ms "
         f"alone (graph replay) against a staged floor of "
@@ -809,22 +853,24 @@ STEM_LAUNCHES = ("s1 k2", "s2 k3", "s3 k3/s2")
 SPAN_LAUNCHES = ("x45", "c1", "c2", "c3", "c4", "out")   # x4 and x5 in one launch
 
 
-def check_k2(dev, rows):
-    """K2 at its serving shape against its plain version. `ms` and
+def check_k2(dev, rows, side=IMG, batch=BATCH, key="K2", stages_alone=True):
+    """K2 at its serving shape (a `side` px input: phase-folded maps of
+    side / 2 rows) against its plain version, into rows[key]. `ms` and
     `library_ms` are one call between two events, as they have been since
     the port began; the CUDA-graph replay of the same call (no host launch
-    cost) goes beside them. Then each of its launches alone."""
+    cost) goes beside them. Then (stages_alone) each of its launches
+    alone."""
     gen = torch.Generator().manual_seed(2)
-    c1, cm, c2, hx, wid = 128, 64, 128, IMG // 2, IMG // 2
+    c1, cm, c2, hx, wid = 128, 64, 128, side // 2, side // 2
     p = {"wk2": _conv_w(gen, 2, 2, c1, cm, dev), "b1": _bf16(gen, (cm,), 0.1, dev),
          "ws2": _conv_w(gen, 3, 3, cm, cm, dev), "b2": _bf16(gen, (cm,), 0.1, dev),
          "ws3": _conv_w(gen, 3, 3, cm, c2, dev), "b3": _bf16(gen, (c2,), 0.1, dev)}
-    x = _bf16(gen, (BATCH, hx + 2 * fused_stem._PAD, wid, c1), 1.0, dev)
+    x = _bf16(gen, (batch, hx + 2 * fused_stem._PAD, wid, c1), 1.0, dev)
     with recorded_launches() as calls:
         got = fused_stem.fused_stem(x, p)
     torch.cuda.synchronize()
     want = fused_stem.fused_stem_plain(x, p)
-    err = _close("K2 fused_stem", got, want)
+    err = _close(f"{key} fused_stem", got, want)
     ms = cuda_ms(lambda: fused_stem.fused_stem(x, p))
     g_ms = graph_ms(lambda: fused_stem.fused_stem(x, p))
     plain_ms = cuda_ms(lambda: fused_stem.fused_stem_plain(x, p), iters=5)
@@ -836,21 +882,23 @@ def check_k2(dev, rows):
         return _cudnn_conv_silu(s2, p["ws3"], p["b3"], 2, (1, 1, 1, 1))
 
     lib_ms, lib_g_ms = cuda_ms(library), graph_ms(library)
-    stages = check_launches("K2", STEM_LAUNCHES, calls)
+    stages = (check_launches(key, STEM_LAUNCHES, calls) if stages_alone
+              else unchecked_stages(key, STEM_LAUNCHES, calls))
     del calls
     ops = sum(r["ops"] for r in stages)
     b_ms, b_by = bound_ms(ops, PEAK_BF16, nbytes(x, got, *p.values()))
     floor = sum(r["bound_ms"] for r in stages)
-    log(f"K2 fused_stem x {tuple(x.shape)} -> {tuple(got.shape)}: max abs err "
+    log(f"{key} fused_stem x {tuple(x.shape)} -> {tuple(got.shape)}: max abs err "
         f"{err:.4g}; one call {ms:.3f} ms (graph replay {g_ms:.3f}), plain "
         f"{plain_ms:.3f} ms, cuDNN one call {lib_ms:.3f} ms (graph replay "
         f"{lib_g_ms:.3f}), bound {b_ms:.4f} ms ({b_by}, {ops / 1e9:.1f} GFLOP), "
         f"staged floor {floor:.4f} ms")
-    stages_total("K2", stages)
-    rows["K2"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                      bound_by=b_by, library_ms=lib_ms, staged_floor_ms=floor,
-                      graph_ms=g_ms, library_graph_ms=lib_g_ms)
-    rows["stages"] = stages
+    rows[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                     bound_by=b_by, library_ms=lib_ms, staged_floor_ms=floor,
+                     graph_ms=g_ms, library_graph_ms=lib_g_ms)
+    if stages_alone:
+        stages_total(key, stages)
+        rows["stages"] = stages
 
 
 def span_params(gen, cin, ct, cc, cout, order, dev):
@@ -900,13 +948,8 @@ def check_k3(dev, rows, spans=SPANS, batch=BATCH, key="K3", stages_alone=True):
             return _cudnn_conv_silu(cat, p["w11"], p["b11"], 1, (0, 0, 0, 0))
 
         lib_ms, lib_g_ms = cuda_ms(library), graph_ms(library)
-        if stages_alone:
-            span = check_launches(f"{key} {order[:4]}{h}", SPAN_LAUNCHES, calls)
-        else:   # the launches' operations and bytes, not timed alone
-            if len(calls) != len(SPAN_LAUNCHES):
-                raise AssertionError(f"{key}: {len(calls)} conv_silu launches a span")
-            span = [{"ops": st.ops, "bound_ms": bound_ms(st.ops, PEAK_BF16, st.nbytes)[0]}
-                    for st in map(launch_stage, calls)]
+        span = (check_launches(f"{key} {order[:4]}{h}", SPAN_LAUNCHES, calls)
+                if stages_alone else unchecked_stages(key, SPAN_LAUNCHES, calls))
         del calls
         stages += span
         ops = sum(r["ops"] for r in span)
@@ -1750,6 +1793,18 @@ def noise_image(rng, hw, size=None):
     return np.clip(img + rng.integers(-3, 4, img.shape), 0, 255).astype(np.uint8)
 
 
+def detect_model(dev, width=1.0, cfg=TRAIN_CFG, img=IMG):
+    """Phase 5's model and images: the training form of `cfg` at `width`,
+    random weights (seed 1) livened and fused, and four BGR noise images of
+    DATA_SHAPES. Returns (model, fused params, fused state, images)."""
+    model = Model.from_yaml(_cfg(width, cfg), seed=1, device=dev)
+    rng = np.random.default_rng(11)
+    calib = torch.from_numpy(rng.integers(0, 256, (2, img, img, 3), np.uint8))
+    liven(model.plan, model.params, model.state, calib.to(dev).float() / 255.0)
+    params, state = fuse_model(model.plan, model.params, model.state)
+    return model, params, state, [noise_image(rng, hw, img) for hw in DATA_SHAPES]
+
+
 def detect(dev, width=1.0, cfg=TRAIN_CFG, img=IMG, transforms=(1, 8), what="detect"):
     """Phase 5 (and 9 (c) on w6): the training form of `cfg` (yolov7's,
     IDetect, unless given) at `width`, random weights (seed 1) livened and
@@ -1759,13 +1814,8 @@ def detect(dev, width=1.0, cfg=TRAIN_CFG, img=IMG, transforms=(1, 8), what="dete
     candidates), K2 once a stem, K3 once a span; bit-equal to the same
     Detector with the plain keep-mask; agreement with an fp32 cuDNN
     Detector at least cuDNN bf16's less MATCH_MARGIN."""
-    model = Model.from_yaml(_cfg(width, cfg), seed=1, device=dev)
-    rng = np.random.default_rng(11)
-    calib = torch.from_numpy(rng.integers(0, 256, (2, img, img, 3), np.uint8))
-    liven(model.plan, model.params, model.state, calib.to(dev).float() / 255.0)
-    params, state = fuse_model(model.plan, model.params, model.state)
-    shapes = ((480, 640), (720, 1280), (640, 640), (375, 500))
-    images = [noise_image(rng, hw, img) for hw in shapes]
+    model, params, state, images = detect_model(dev, width, cfg, img)
+    shapes = DATA_SHAPES
     det = Detector(model.plan, params, state, img_size=img, dtype=torch.bfloat16,
                    device=dev)
     n_stem, n_elan = plan_names(det)
@@ -3432,6 +3482,399 @@ def ranks(dev, width=1.0, img=IMG, batch=BATCH, n_train=TRAIN_IMAGES, n_val=VAL_
             "launches": c[0]["launches"], "phase_s": secs}
 
 
+# ---------------------------------------------------- entry points ---
+
+TTA_SIDES = tuple(math.ceil(IMG * r / 32) * 32 for r in (1.0, 0.83, 0.67))   # 640, 544, 448
+ENTRY_RUNS = ROOT / "build" / "smoke_runs" / "entry"
+LOADER_THREADS = (1, CLI_WORKERS)
+
+
+def tta_spans(side):
+    """SPANS at a `side` px input: each span's rows scaled from 640 px
+    (136/68/34/17 at 544, 112/56/28/14 at 448)."""
+    return tuple((h * side // IMG, *rest) for h, *rest in SPANS)
+
+
+def scale_of(rows, sides=TTA_SIDES):
+    """The TTA input side whose maps (side / 2 ... side / 32) have `rows`
+    rows (the sets are disjoint for 640, 544 and 448)."""
+    for side in sides:
+        if rows in {side >> k for k in range(1, 6)}:
+            return side
+    raise AssertionError(f"a conv_silu launch with {rows} output rows fits no TTA scale")
+
+
+def tta_detect(dev, width=1.0, img=IMG, what="entry (a) TTA Detector"):
+    """Phase 12 (a): phase 5's model and images through the bf16 Detector
+    with augment=True, which keeps the serving rewrites on the card: the
+    fused stem (K2) and the 8 fused spans (K3) at each of the three TTA
+    scales (640, 544, 448 px inputs; the stem's phase-folded maps 320, 272,
+    224 rows, the spans' 160-20, 136-17, 112-14), K1L once (4096
+    candidates of 55,755 anchors an image). Each conv_silu launch of that
+    run is held against the plain conv on its own slices as it runs, and
+    K2 and K3 whole against their plain versions at the 544 and 448 px
+    passes' shapes (`check_k2`, `check_k3`). Detections bit-equal with the
+    plain keep-mask; agreement with the fp32 cuDNN TTA Detector at least
+    the bf16 cuDNN TTA Detector's less MATCH_MARGIN; ms a call beside the
+    Detector without TTA."""
+    model, params, state, images = detect_model(dev, width, TRAIN_CFG, img)
+    det = Detector(model.plan, params, state, img_size=img, dtype=torch.bfloat16,
+                   augment=True, device=dev)
+    n_stem, n_elan = plan_names(det)
+    errs = [] if dev.type == "cuda" else None
+    zero_counts()
+    with recorded_launches(errs) as calls:
+        got = det(images)
+    counts = read_counts()
+    per_scale = {side: 0 for side in TTA_SIDES}
+    err_by_side = {side: 0.0 for side in TTA_SIDES}
+    for ((_, _, _, y), _), err in zip(calls, errs or [0.0] * len(calls)):
+        side = scale_of(y.shape[1])
+        per_scale[side] += 1
+        err_by_side[side] = max(err_by_side[side], err)
+    del calls
+    log(f"{what}: {sum(len(d) for d in got)} detections; launches {counts}; conv_silu "
+        f"launches by input side {per_scale}, each held against the plain conv on its "
+        f"own slices: max abs err by side {err_by_side}")
+    want = {kid: 0 for kid in COUNTED} | {"K1L": 1, "K2": 3 * n_stem, "K3": 3 * n_elan}
+    if dev.type == "cuda":
+        if (n_stem, n_elan) != (1, 8) or counts != want:
+            raise AssertionError(f"{what}: transforms {n_stem}, {n_elan}; launches {counts}, "
+                                 f"want {want}")
+        if set(per_scale.values()) != {3 * n_stem + 6 * n_elan}:
+            raise AssertionError(f"{what}: conv_silu launches by scale {per_scale}")
+    with plain_nms():
+        plain = det(images)
+        refs = {dt: Detector(model.plan, params, state, img_size=img, dtype=dt, augment=True,
+                             fast_stem=False, device=dev)(images)
+                for dt in (torch.float32, torch.bfloat16)}
+    for i, (a, b) in enumerate(zip(got, plain)):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"{what} image {i}: detections differ between K1L and the "
+                                 "plain keep-mask")
+    want32 = rows_out(refs[torch.float32])
+    agree = agreement(what, rows_out(got), want32)
+    agree_bf16 = agreement(f"{what} cuDNN bf16", rows_out(refs[torch.bfloat16]), want32)
+    if not agree >= agree_bf16 - MATCH_MARGIN:
+        raise AssertionError(f"{what}: agreement {agree:.3f}, cuDNN bf16 {agree_bf16:.3f}")
+    ms = plain_ms = None
+    fused = {}
+    if dev.type == "cuda":
+        ms = cuda_ms(lambda: det(images), iters=5, warmup=1)
+        lone = Detector(model.plan, params, state, img_size=img, dtype=torch.bfloat16,
+                        device=dev)
+        plain_ms = cuda_ms(lambda: lone(images), iters=5, warmup=1)
+        # K2 and K3 whole, against their plain versions, at the shapes the
+        # smaller TTA passes give them (batch of the images, random weights)
+        for side in TTA_SIDES[1:]:
+            check_k2(dev, fused, side, len(images), key=f"K2_tta{side}", stages_alone=False)
+            check_k3(dev, fused, tta_spans(side), len(images), key=f"K3_tta{side}",
+                     stages_alone=False)
+    log(f"{what}: bit-equal with the plain keep-mask; agree {agree:.3f} with the fp32 cuDNN "
+        f"TTA Detector (cuDNN bf16 {agree_bf16:.3f}); one call on {len(images)} images "
+        f"{ms} ms with TTA, {plain_ms} ms without")
+    return {"launches": counts, "conv_silu_by_side": per_scale,
+            "conv_silu_max_abs_err_by_side": err_by_side, "fused_at_tta_shapes": fused,
+            "agreement": agree, "agreement_cudnn_bf16": agree_bf16,
+            "detections": sum(len(d) for d in got), "ms": ms, "ms_without_tta": plain_ms}
+
+
+def tta_evaluation(dev, m, batch=BATCH, n_images=16, what="entry (b) TTA evaluate"):
+    """Phase 12 (b): `evaluate(augment=True)` in fp32 over phase 6's
+    batches: K1L once a batch (8192 candidates); map50 / map / mp / mr
+    equal with the plain keep-mask and with the global TF32 on;
+    inference and NMS ms an image (of the second run: the first warms
+    cuDNN up)."""
+    batches = eval_batches(m, batch, n_images)
+    # the plain keep-mask's run first: it also warms cuDNN up to the TTA
+    # passes' new shapes, so the timed run below does not pay for that
+    with plain_nms():
+        plain = evaluate(m.plan, m.params, m.state, batches, augment=True, device=dev)
+    zero_counts()
+    got = evaluate(m.plan, m.params, m.state, batches, augment=True, device=dev)
+    counts = read_counts()
+    want = {kid: 0 for kid in COUNTED} | {"K1L": len(batches)}
+    if dev.type == "cuda" and counts != want:
+        raise AssertionError(f"{what}: launch counts {counts}, want {want}")
+    with global_tf32(True):
+        tf32 = evaluate(m.plan, m.params, m.state, batches, augment=True, device=dev)
+    for key in ("map50", "map", "mp", "mr"):
+        if not got[key] == plain[key] == tf32[key]:
+            raise AssertionError(f"{what}: {key} {got[key]}, plain keep-mask {plain[key]}, "
+                                 f"TF32 on {tf32[key]}")
+    if not 0.0 < got["map50"] < 1.0:
+        raise AssertionError(f"{what}: map50 {got['map50']}")
+    log(f"{what}: map50 {got['map50']:.6f}, map {got['map']:.6f}, equal with the plain "
+        f"keep-mask and with TF32 on; per image: inference "
+        f"{got['speed_ms']['inference']:.3f} ms, NMS {got['speed_ms']['nms']:.3f} ms; "
+        f"launches {counts}")
+    return {"launches": counts, "map50": got["map50"], "map": got["map"],
+            "speed_ms": got["speed_ms"], "plain_nms_ms": plain["speed_ms"]["nms"]}
+
+
+def pt2_check(pt2, ckpt, batch=BATCH, img=IMG):
+    """Run in a fresh process: load the `torch.export` program `pt2`
+    (the K4 op registered by importing `ops/int8_mm` first), run it on
+    noise frames on the card, and hold its `pred` against the eager
+    forward of the exported checkpoint `ckpt` (`cli/export.Program`),
+    under cuDNN's deterministic algorithms. Prints one JSON line: K4
+    launches a forward of the loaded program, equality, ms of both."""
+    from yolo_series_tpu_torch.cli.export import Program
+
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    dev = torch.device("cuda")
+    prog = torch.export.load(str(pt2)).module()
+    plan, params, state = load_checkpoint_any(str(ckpt))
+    eager = Program(plan, params, state, dev)
+    x = torch.from_numpy(np.random.default_rng(12).integers(
+        0, 256, (batch, img, img, 3), np.uint8)).to(dev)
+    with torch.no_grad():
+        int8_mm.int8_matmul_dequant.launches = 0
+        got = prog(x)
+        torch.cuda.synchronize()
+        k4 = int8_mm.int8_matmul_dequant.launches
+        want = eager(x)
+        out = {"k4_launches_a_forward": k4, "equal": bool(torch.equal(got, want)),
+               "max_abs_err": float((got.float() - want.float()).abs().max()),
+               "finite": bool(torch.isfinite(got).all()), "shape": list(got.shape),
+               "ms_loaded": cuda_ms(lambda: prog(x), iters=5),
+               "ms_eager": cuda_ms(lambda: eager(x), iters=5)}
+    print(json.dumps(out))
+
+
+def k4_op_host_ms(dev, plan, batch=BATCH, img=IMG, reps=5):
+    """Host ms of the 41 K4 calls of one int8 forward through the
+    registered op (`int8_matmul_dequant`) and through the launch alone
+    (`_launch_k4`), each call enqueued without waiting (median of `reps`
+    passes, the card drained between them): their difference is what the
+    op adds to an eager int8 forward. A CUDA graph replays neither."""
+    gen = torch.Generator().manual_seed(4)
+    args = []
+    for m, k, n in k4_shapes(plan, batch, img):
+        args.append((_int8(gen, (m, k), dev), _int8(gen, (n, k), dev).t(),
+                     (torch.rand(n, generator=gen) * 1e-2).to(dev),
+                     torch.randn(n, generator=gen).to(dev)))
+    out = {}
+    for name, fn in (("op", int8_mm.int8_matmul_dequant),
+                     ("launch", lambda *a: int8_mm._launch_k4(*a, None))):
+        times = []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for a in args:
+                fn(*a)
+            times.append((time.perf_counter() - t) * 1e3)
+        out[name] = statistics.median(times[1:])
+    out["added"] = out["op"] - out["launch"]
+    out["calls"] = len(args)
+    return out
+
+
+def export_cli(dev, src, calib, int8, batch=BATCH, img=IMG, what="entry (e) export CLI"):
+    """`cli/export.py` on `src` (--int8 --calib-images `calib` or the
+    plain deploy form), with --pt2 and --bench; then the program loaded in
+    a fresh process (`pt2_check`): finite, its `pred` bit-equal with the
+    eager forward, and under int8 K4 launched once a 1x1 conv (41) a
+    forward. Returns the CLI's bench and the check's line."""
+    kind = "int8" if int8 else "deploy"
+    pt2 = ENTRY_RUNS / f"{kind}.pt2"
+    argv = ["--weights", str(src), "--img-size", str(img), "--batch-size", str(batch),
+            "--pt2", str(pt2), "--bench"] + (["--int8", "--calib-images", str(calib)]
+                                              if int8 else [])
+    if dev.type == "cpu":
+        argv += ["--device", "cpu"]
+    t = time.perf_counter()
+    res = cli_export.main(argv)
+    export_s = time.perf_counter() - t
+    check = None
+    if dev.type == "cuda":
+        code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke as cs; "
+                f"cs.pt2_check({str(pt2)!r}, {res['deploy']!r}, {batch}, {img})")
+        p = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                           text=True, timeout=600)
+        if p.returncode != 0:
+            raise AssertionError(f"{what} {kind}: the .pt2 check failed:\n{p.stderr[-4000:]}")
+        check = json.loads(p.stdout.strip().splitlines()[-1])
+        want_k4 = 41 if int8 else 0
+        if (check["k4_launches_a_forward"] != want_k4 or not check["equal"]
+                or not check["finite"]):
+            raise AssertionError(f"{what} {kind}: {check}, want {want_k4} K4 launches and "
+                                 "a pred equal to the eager forward's")
+    log(f"{what} {kind}: {res}; export {export_s:.1f} s (trace included); the .pt2 in a "
+        f"fresh process: {check}")
+    return {"bench": res["bench"], "pt2": check, "export_s": export_s,
+            "pt2_bytes": pt2.stat().st_size}
+
+
+def device_aug_agreement(dev, img=IMG, batch=BATCH):
+    """make_device_augment (mosaic form, separable and gather) on the card
+    against the same call on the CPU, on tiles and parameters of a
+    device-tail batch of phase 8's set: within two levels (a warp value
+    within an ulp of .5 rounding the other way, then the HSV gains), and at
+    most 1% of the values more than 1e-5 apart. ms of the separable
+    batch on the card."""
+    ds = DetectionDataset(str(SMOKE_DATA / "train" / "images"), img_size=img, augment=True,
+                          hyp=trainer.load_hyp(None), device_tail=True, seed=0)
+    b = next(iter(create_loader(ds, batch_size=batch, hold=2)))
+    out = {}
+    for separable in (True, False):
+        fn = make_device_augment(img, 2 * img, separable=separable, mosaic=True)
+        host = [torch.from_numpy(np.array(b[k])) for k in MOSAIC_KEYS]
+        want = fn(*host)
+        got = fn(*(t.to(dev) for t in host)).cpu()
+        d = (got - want).abs()
+        share = float((d > 1e-5).float().mean())
+        out["separable" if separable else "gather"] = {"max_abs_err": float(d.max()),
+                                                       "share_above_1e-5": share}
+        if float(d.max()) > 2 / 255 + 1e-6 or share > 0.01:
+            raise AssertionError(f"device aug (separable={separable}) card against CPU: "
+                                 f"{out}")
+        if separable and dev.type == "cuda":
+            args = [t.to(dev) for t in host]
+            out["ms_batch"] = cuda_ms(lambda: fn(*args), iters=5)
+    log(f"entry (f) device aug on the card against the CPU, batch {batch} at {img} px: {out}")
+    return out
+
+
+def device_loader_img_s(dev, data_dir, img, batch, workers):
+    """img/s of one epoch of the device-tail loader and the device program
+    after it (upload, compose, warp, HSV, flips, mixup), no step."""
+    ds = DetectionDataset(str(data_dir), img_size=img, batch_size=batch, augment=True,
+                          hyp=trainer.load_hyp(None), device_tail=True, seed=0)
+    fn = make_device_augment(img, 2 * img, separable=True, mosaic=True)
+    upload = trainer.BatchUpload(dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    n = 0
+    for b in create_loader(ds, batch_size=batch, workers=workers, hold=2):
+        n += len(fn(*(upload([b[k]]) for k in MOSAIC_KEYS)))
+    torch.cuda.synchronize()
+    return n / (time.perf_counter() - t)
+
+
+def entry_points(dev, m, host_tail, width=1.0, img=IMG, batch=BATCH):
+    """Phase 12, the entry points phases 1-11 left out: (a) the TTA
+    Detector, (b) `evaluate(augment=True)`, (c) `cli/test.py --augment`,
+    (d) `hub.yolov7()` and `hub.yolov7_tiny()`, (e) `cli/export.py` with
+    and without --int8 (--pt2, --bench) and the K4 op's host cost, (f)
+    the device-augment tail: card against CPU, the loader's img/s, and
+    `cli/train.py --device-aug` for one epoch on phase 8's set beside
+    phase 8's host-tail epochs (`host_tail`)."""
+    from yolo_series_tpu_torch import hub
+
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    on_cpu = [] if cuda else ["--device", "cpu"]
+    shutil.rmtree(ENTRY_RUNS, ignore_errors=True)
+    ENTRY_RUNS.mkdir(parents=True)
+    launches = {kid: 0 for kid in COUNTED}
+
+    def add(counts):
+        for kid, n in counts.items():
+            launches[kid] += n
+
+    det = tta_detect(dev, width, img)
+    add(det["launches"])
+    ev = tta_evaluation(dev, m, batch)
+    add(ev["launches"])
+
+    # (e) first: it writes the deploy checkpoint (c) tests
+    src = ENTRY_RUNS / "w.ckpt"
+    shutil.copy(SMOKE_DATA / "livened.ckpt", src)
+    calib = SMOKE_DATA / "val" / "images"
+    zero_counts()
+    exports = {kind: export_cli(dev, src, calib, kind == "int8", batch, img)
+               for kind in ("deploy", "int8")}
+    add(read_counts())   # the benches' engines: warm-up and capture
+    op_ms = None
+    if cuda:
+        plan, _, _ = load_checkpoint_any(str(ENTRY_RUNS / "w.int8.ckpt"))
+        op_ms = k4_op_host_ms(dev, plan, batch, img)
+        log(f"entry (e) K4 op: host ms of the {op_ms['calls']} K4 calls of one eager int8 "
+            f"forward: {op_ms['op']:.3f} through the op, {op_ms['launch']:.3f} launched "
+            f"directly; the op adds {op_ms['added']:.3f} ms")
+
+    # (c) the test CLI with --augment on the exported deploy checkpoint
+    def test_cli(name):
+        return cli_test.main(["--weights", str(ENTRY_RUNS / "w.deploy.ckpt"), "--data",
+                              str(SMOKE_DATA / "data.yaml"), "--img-size", str(img),
+                              "--batch-size", str(batch), "--augment", "--project",
+                              str(ENTRY_RUNS), "--name", name] + on_cpu)
+
+    with plain_nms():   # first: it warms cuDNN up to the rect batches' TTA shapes
+        test_plain = test_cli("test_tta_plain")
+    zero_counts()
+    test = test_cli("test_tta")
+    test_counts = read_counts()
+    add(test_counts)
+    n_val = len(list((SMOKE_DATA / "val" / "images").glob("*.jpg")))
+    want = {kid: 0 for kid in COUNTED} | {"K1L": -(-n_val // batch)}
+    if cuda and test_counts != want:
+        raise AssertionError(f"entry (c) test CLI --augment: launch counts {test_counts}, "
+                             f"want {want}")
+    for key in ("map50", "map", "mp", "mr"):
+        if test[key] != test_plain[key] or not math.isfinite(test[key]):
+            raise AssertionError(f"entry (c) test CLI --augment: {key} {test[key]}, plain "
+                                 f"keep-mask {test_plain[key]}")
+    log(f"entry (c) test CLI --augment on w.deploy.ckpt: map50 {test['map50']:.6f}, map "
+        f"{test['map']:.6f}, equal with the plain keep-mask; {test['speed_ms']} ms an image; "
+        f"launches {test_counts}")
+
+    # (d) the hub's named constructors on the card
+    hubs = {}
+    _, _, _, images = detect_model(dev, width, TRAIN_CFG, img)
+    for name, ctor, want_k in (("yolov7", hub.yolov7, {"K1L": 1, "K2": 1, "K3": 8}),
+                               ("yolov7_tiny", hub.yolov7_tiny, {"K1L": 1})):
+        d = ctor(device=dev.type, img_size=img)
+        zero_counts()
+        rows = d(images)
+        counts = read_counts()
+        add(counts)
+        if any(r.ndim != 2 or r.shape[1] != 6 or not np.isfinite(r).all() for r in rows):
+            raise AssertionError(f"entry (d) hub.{name}: rows {[r.shape for r in rows]}")
+        if cuda and counts != {kid: 0 for kid in COUNTED} | want_k:
+            raise AssertionError(f"entry (d) hub.{name}: launch counts {counts}")
+        hubs[name] = {"launches": counts, "detections": sum(len(r) for r in rows),
+                      "ms": cuda_ms(lambda: d(images), iters=5) if cuda else None}
+    log(f"entry (d) hub: {hubs}")
+
+    # (f) the device tail
+    aug = device_aug_agreement(dev, img, batch)
+    loader = None
+    if cuda:
+        data_dir = SMOKE_DATA / "train" / "images"
+        loader = {f"{tail}_{w}": (device_loader_img_s(dev, data_dir, img, batch, w)
+                                  if tail == "device" else loader_img_s(data_dir, img, batch, w))
+                  for tail in ("device", "host") for w in LOADER_THREADS}
+        log(f"entry (f) loader img/s by tail and threads: {loader}")
+    zero_counts()
+    out = cli_train.main(["--cfg", str(SMOKE_DATA / "model.yaml"), "--data",
+                          str(SMOKE_DATA / "data.yaml"), "--weights",
+                          str(SMOKE_DATA / "livened.ckpt"), "--epochs", "1", "--batch-size",
+                          str(batch), "--nbs", str(CLI_NBS), "--no-warmup-accumulate",
+                          "--img-size", str(img), "--workers", str(CLI_WORKERS),
+                          "--device-aug", "--noval", "--project", str(ENTRY_RUNS),
+                          "--name", "train_device_aug"] + on_cpu)
+    train_counts = read_counts()
+    add(train_counts)
+    row = out["results"][0]
+    items = {k: v for k, v in row.items() if k.startswith("train/")}
+    if len(items) != 4 or not all(math.isfinite(v) for v in items.values()):
+        raise AssertionError(f"entry (f) train CLI --device-aug: loss items {items}")
+    n_train = len(list((SMOKE_DATA / "train" / "images").glob("*.jpg")))
+    epoch = {"img_s": n_train / row["time_s"], "wait_share": row["wait_s"] / row["time_s"],
+             "loss": items} if cuda else {"loss": items}
+    log(f"entry (f) train CLI --device-aug, 1 epoch of {n_train} images: {epoch}; phase 8's "
+        f"host-tail epochs {host_tail}")
+    secs = time.perf_counter() - t_phase
+    log(f"entry points: phase {secs:.1f} s; launches {launches}")
+    return {"launches": launches, "tta_detect": det, "tta_eval": ev,
+            "test_cli_augment": {k: test[k] for k in ("map50", "map", "mp", "mr", "speed_ms")},
+            "hub": hubs, "export": exports, "k4_op_host_ms": op_ms, "device_aug": aug,
+            "loader_img_s": loader, "train_device_aug": epoch,
+            "host_tail_epochs": host_tail, "phase_s": secs}
+
+
 def _cfg(width, path=CFG):
     """The port's yolov7 cfg (deploy, or `path`) at `width` (1.0: the
     published one)."""
@@ -3507,6 +3950,7 @@ def main() -> int:
     six = p6(dev, rows)
     par = ranks(dev)
     rest = zoo(dev)
+    entry = entry_points(dev, m, cli["epochs"])
 
     # host-side counts of each kernel's main path: K1-K3 as the bf16
     # engines launched them (warm-up and capture; what the replays launch
@@ -3521,6 +3965,8 @@ def main() -> int:
         launches[kid] += n
     launches["K1L"] += par["launches"]["K1L"]
     for kid, n in rest["launches"].items():
+        launches[kid] += n
+    for kid, n in entry["launches"].items():
         launches[kid] += n
     for kid in COUNTED:
         if kid != "K4b" and launches[kid] == 0:
@@ -3545,6 +3991,7 @@ def main() -> int:
                     "int8_serving": {k: srv8[k] for k in keys + ("calibrate_s",)},
                     "full_int8": full, "detect": det, "eval": ev, "train": tr,
                     "train_test_cli": cli, "p6": six, "ranks": par, "zoo": rest,
+                    "entry_points": entry,
                     "fused": {"K2": rows["K2"], "K3": rows["K3"]},
                     "k1l_runs": rows["k1l_runs"],
                     "stages": rows["stages"], "k4_convs": rows["k4_convs"],
@@ -3552,7 +3999,8 @@ def main() -> int:
     log(json.dumps({"kernels": kernels}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, train phase "
         f"{tr['phase_s']:.1f} s, train and test CLIs {cli['phase_s']:.1f} s, P6 "
-        f"{six['phase_s']:.1f} s, ranks {par['phase_s']:.1f} s, zoo {rest['phase_s']:.1f} s")
+        f"{six['phase_s']:.1f} s, ranks {par['phase_s']:.1f} s, zoo {rest['phase_s']:.1f} s, "
+        f"entry points {entry['phase_s']:.1f} s")
     log(smi())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -383,8 +383,16 @@ def test_exif_rotated_shape_matches_jax(tmp_path):
 
 
 def test_device_tail_refused(tree):
-    with pytest.raises(NotImplementedError, match="item 18"):
-        PD.DetectionDataset(str(tree / "images"), augment=True, device_tail=True)
+    """The device tail's guards, as the JAX dataset's: a projective warp
+    (hyp perspective != 0) and the quad collate are refused; without
+    augment there is no tail."""
+    ds = PD.DetectionDataset(str(tree / "images"), augment=True, device_tail=True,
+                             hyp={"perspective": 1e-4})
+    with pytest.raises(ValueError, match="perspective"):
+        ds.device_item(0)
+    with pytest.raises(ValueError, match="quad"):
+        PD.create_loader(ds, batch_size=4, quad=True)
+    assert not PD.DetectionDataset(str(tree / "images"), device_tail=True).device_tail
 
 
 # -- coco_eval --------------------------------------------------------------

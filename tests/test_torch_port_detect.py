@@ -231,9 +231,19 @@ def test_detector_from_checkpoint_matches_jax(ckpt, kw):
 
 
 def test_detector_refuses_tta(training):
+    """TTA refuses the ensemble, as the JAX Detector does: with
+    augment=True the Detector runs the three passes of its own model and
+    ignores extra_models, and on the CPU it skips the fast stem. (Its
+    detections against JAX's: tests/test_torch_port_tta.py.)"""
     *_, tplan, tp, ts = training
-    with pytest.raises(NotImplementedError, match="TTA"):
-        Detector(tplan, tp, ts, augment=True, device="cpu")
+    fp, fs = treparam.fuse_model(tplan, tp, ts)
+    det = Detector(tplan, fp, fs, img_size=SIZE, dtype=torch.float32, augment=True,
+                   extra_models=[(tplan, fp, fs)], device="cpu")
+    assert det.extra == []
+    assert "PhasedConv" not in {type(s.block).__name__ for s in det.plan.layers}
+    pred = det._forward(torch.rand(1, SIZE, SIZE, 3, generator=torch.Generator().manual_seed(0)))
+    side = [-(-SIZE * r // 32) * 32 for r in (1.0, 0.83, 0.67)]
+    assert pred.shape[1] == sum(3 * (p // st) ** 2 for p in side for st in tplan.strides)
 
 
 def test_detector_ensemble_concatenates_preds(training):

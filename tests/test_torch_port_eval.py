@@ -248,8 +248,6 @@ def test_evaluate_matches_jax(eval_setup, tmp_path, hybrid):
 
 def test_evaluate_refuses_what_is_not_ported(eval_setup):
     *_, tplan, tp, ts, batches = eval_setup
-    with pytest.raises(NotImplementedError, match="TTA"):
-        tev.evaluate(tplan, tp, ts, batches, augment=True, device="cpu")
     with pytest.raises(NotImplementedError, match="item 19"):
         tev.evaluate(tplan, tp, ts, batches, plots_dir="x", device="cpu")
 

@@ -447,15 +447,16 @@ def test_cli_test_matches_jax(eval_case, tmp_path, capsys, fuse):
         [w.split("=")[0] for w in jline.split()[:5]]
 
 
-# (options, exception, match). Training on several devices, --no-sync-bn
-# and --evolve are ported: their cases hold the errors those options raise
-# (a global batch that does not divide over the devices, fewer cards
-# visible than --devices asks for) or show the option reaching training,
-# which then fails on the missing data file "y".
+# (options, exception, match). Training on several devices, --no-sync-bn,
+# --evolve, the device-augment tail and test --augment are ported: their
+# cases hold the errors those options raise (a global batch that does not
+# divide over the devices, fewer cards visible than --devices asks for) or
+# show the option reaching training or evaluation, which then fails on the
+# missing file "x" or "y".
 REFUSED_TRAIN = {
     "n_data_devices": (dict(n_data_devices=2, batch_size=3), ValueError,
                        "batch 3 does not divide over 2"),
-    "device_aug": (dict(device_aug=True), NotImplementedError, "item 18"),
+    "device_aug": (dict(device_aug=True), FileNotFoundError, "'x'"),
     "bbox_interval": (dict(bbox_interval=1), NotImplementedError, "item 19"),
     "split_concat": (dict(split_concat=True), NotImplementedError, "item 20"),
     "fast_stem": (dict(fast_stem=True), NotImplementedError, "item 20"),
@@ -469,7 +470,7 @@ REFUSED_CLI = {
                                      "cpu", "--devices", "2", "--batch-size", "5"],
                          ValueError, "batch 5 does not divide over 2"),
     "test_augment": (cli_test, ["--weights", "x", "--data", "y", "--augment"],
-                     NotImplementedError, "item 17"),
+                     FileNotFoundError, "'y'"),
     "test_plots": (cli_test, ["--weights", "x", "--data", "y", "--plots"],
                    NotImplementedError, "item 19"),
     "test_study": (cli_test, ["--weights", "x", "--data", "y", "--task", "study"],

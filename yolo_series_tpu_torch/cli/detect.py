@@ -139,8 +139,7 @@ def make_parser():
     p.add_argument("--iou-thres", type=float, default=0.45)
     p.add_argument("--classes", nargs="+", type=int, default=None)
     p.add_argument("--agnostic-nms", action="store_true")
-    p.add_argument("--augment", action="store_true",
-                   help="TTA inference (not ported yet: raises)")
+    p.add_argument("--augment", action="store_true", help="TTA inference")
     p.add_argument("--save-txt", action="store_true")
     p.add_argument("--save-conf", action="store_true")
     p.add_argument("--nosave", action="store_true")

@@ -8,9 +8,9 @@ The JAX CLI's flags and output line, plus `--device` (the card unless
 `cpu` is asked for; raises when no card is visible). `--weights` takes a
 native .ckpt, or a reference .pt with `--cfg`. The forward is fp32
 (without TF32, `evaluate`'s pin), or bf16 with `--half`. `--task speed`
-runs the timing protocol. Not ported yet, and refused: `--augment` (TTA,
-ROADMAP queue 1 item 17), `--plots` and `--task study`, whose output is a
-plot (item 19).
+runs the timing protocol; `--augment` the multi-scale and flip TTA
+(`models/tta.py`). Not ported yet, and refused: `--plots` and `--task
+study`, whose output is a plot (ROADMAP queue 1 item 19).
 """
 
 from __future__ import annotations
@@ -64,7 +64,8 @@ def run_eval(opt, img_size=None):
                   if opt.save_json and "coco" in str(opt.data) else None),
         v5_metric=opt.v5_metric,
         save_txt_dir=str(save_dir / "labels") if save_txt else None,
-        save_conf=opt.save_conf, save_hybrid=opt.save_hybrid, device=opt.device)
+        save_conf=opt.save_conf, save_hybrid=opt.save_hybrid, augment=opt.augment,
+        device=opt.device)
     print(f"images={res['seen']} P={res['mp']:.4f} R={res['mr']:.4f} "
           f"mAP@.5={res['map50']:.4f} mAP@.5:.95={res['map']:.4f} "
           f"({res['speed_ms']['inference']:.1f}ms inf "
@@ -86,8 +87,7 @@ def make_parser():
                    help="loader decode threads (reference --workers)")
     p.add_argument("--task", default="val", choices=["val", "test", "speed", "study"])
     p.add_argument("--half", action="store_true", help="bf16 forward")
-    p.add_argument("--augment", action="store_true",
-                   help="TTA eval (not ported yet: raises)")
+    p.add_argument("--augment", action="store_true", help="TTA eval")
     p.add_argument("--no-rect", action="store_true")
     p.add_argument("--no-fuse", action="store_true")
     p.add_argument("--single-cls", action="store_true",
@@ -114,8 +114,6 @@ def make_parser():
 def main(argv=None):
     """Parse `argv` (sys.argv when None), run, and return evaluate's dict."""
     opt = make_parser().parse_args(argv)
-    if opt.augment:
-        raise NotImplementedError("TTA is not ported yet (ROADMAP queue 1, item 17)")
     if opt.plots or opt.task == "study":
         raise NotImplementedError("the eval plots (and --task study's plot) are not "
                                   "ported yet (ROADMAP queue 1, item 19)")

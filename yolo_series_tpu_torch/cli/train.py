@@ -20,8 +20,9 @@ cards are visible; `--device cpu --devices 2` runs two gloo ranks on the
 CPU); under torchrun (RANK, WORLD_SIZE, LOCAL_RANK set) this process is one
 rank of the group. `--batch-size` is the global batch. `--no-sync-bn`:
 per-replica BatchNorm. `--evolve [--evolve-gens G]`: hyperparameter
-evolution (`train/evolve.py`). Not ported yet, and refused: `--device-aug`
-(ROADMAP queue 1 item 18), `--bbox_interval` (item 19).
+evolution (`train/evolve.py`). `--device-aug`: the warp, HSV, flips and
+mixup run on the device (`data/device_aug.py`). Not ported yet, and
+refused: `--bbox_interval` (ROADMAP queue 1 item 19).
 """
 
 from __future__ import annotations
@@ -59,7 +60,7 @@ def make_parser():
                    help="vary img-size +/-50%% (bucketed)")
     p.add_argument("--freeze", type=int, default=0, help="freeze first N layers")
     p.add_argument("--device-aug", action="store_true",
-                   help="warp/HSV/flip/mixup on the device (not ported yet: raises)")
+                   help="warp/HSV/flip/mixup on the device")
     p.add_argument("--cache-images", action="store_true",
                    help="RAM-cache decoded images (reference --cache)")
     p.add_argument("--workers", type=int, default=1,

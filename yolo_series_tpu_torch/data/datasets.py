@@ -19,11 +19,17 @@ the JAX loader gives after `random.seed(seed); np.random.seed(seed)`, bit
 for bit, with one worker (with several, the workers interleave their draws,
 in both packages).
 
-Not carried: the device-augment tail (`device_tail=True`, the JAX
-`device_item` and `_make_device_batch`) raises, ROADMAP queue 1 item 18.
-The JAX dataset's optional Albumentations hook, which is active only
-where that package is installed and draws from its global generators, is
-not carried either.
+The device-augment tail (`device_tail=True` with `augment`, the JAX
+`device_item` and `_make_device_batch`): the host decodes, places the
+mosaic tiles, samples the warp, HSV, flip and mixup parameters and
+transforms the labels; the batch carries uint8 tiles and those parameters,
+and `data/device_aug.make_device_augment` makes the pixels on the card.
+Its draws too are the JAX dataset's, so its batches are bit-equal to the
+JAX loader's for a seed.
+
+Not carried: the JAX dataset's optional Albumentations hook, which is
+active only where that package is installed and draws from its global
+generators.
 """
 
 from __future__ import annotations
@@ -220,10 +226,9 @@ class DetectionDataset:
                  xml_dir=None, cut_max_len=-1, cache_path=None, prefix="",
                  cache_images=False, device_tail=False, fast_decode=False,
                  single_cls=False, seed=0):
-        if device_tail and augment:
-            raise NotImplementedError(
-                "the device-augment tail is not ported yet (ROADMAP queue 1, "
-                "item 18): train with the host augmentation")
+        # device_tail: the host decodes, places and draws the parameters;
+        # warp, HSV, flips and mixup run on the device (`device_item`)
+        self.device_tail = device_tail and augment
         self.rng = random.Random(seed)
         self.np_rng = np.random.RandomState(seed)
         # fast_decode: DCT-domain reduced JPEG decode when the image will
@@ -404,6 +409,121 @@ class DetectionDataset:
                                 mask[y1:y2, x1:x2].copy()))
         return samples
 
+    # -- device-tail item -------------------------------------------------
+
+    def device_item(self, index):
+        """The host half of the device-augment tail: decode, mosaic
+        placement, the augmentation parameters and the label math; the
+        warp, HSV, flips and mixup run on the device with the same
+        parameters (`data/device_aug.make_device_augment`).
+
+        Returns dict(canvas (2s, 2s, 3) uint8 BGR, or None with tiles
+        (tiles (4, s, s, 3) uint8 BGR, origins (4, 2), centers (2,)), minv
+        (2, 3) fp32 out -> src, hsv (3,) fp32 gains, flips (2,) bool [ud,
+        lr], labels (n, 5) cls + normalized xywh, after the warp and flips).
+        """
+        import yolo_series_tpu_torch.data.device_aug as DA
+
+        hyp, rng = self.hyp, self.rng
+        if hyp.get("perspective", 0):
+            # the device warps are affine (invert_affine drops the projective
+            # row) while warp_labels applies the full homography: pixels and
+            # labels would part. No shipped hyp sets perspective != 0.
+            raise ValueError("the device-augment tail needs hyp['perspective'] == 0 "
+                             "(the device warp is affine); use the host augmentation")
+        s = self.img_size
+        tile_pack = None
+        if rng.random() < hyp["mosaic"]:
+            nine = rng.random() >= 0.8
+            k = 8 if nine else 3
+            idxs = [index] + rng.choices(range(len(self)), k=k)
+            rng.shuffle(idxs)
+            if not nine and not hyp.get("copy_paste", 0):
+                # a 4-tile mosaic, composed on the device: the host keeps
+                # decode, placement geometry and label math (reference
+                # datasets.py:1010-1045); copy_paste needs the composed
+                # pixels and takes the host path below
+                yc = int(rng.uniform(s // 2, 2 * s - s // 2))
+                xc = int(rng.uniform(s // 2, 2 * s - s // 2))
+                tiles = np.full((4, s, s, 3), 114, np.uint8)
+                hw, lbs = [], []
+                for t, i in enumerate(idxs):
+                    img, _, (h, w) = self.load_image(i)
+                    tiles[t, :h, :w] = img
+                    hw.append((h, w))
+                    lbs.append(self._labels_xyxy(i, w, h, 0, 0))
+                origins, pads = DA.mosaic4_geometry(hw, s, yc, xc)
+                out_l = []
+                for t in range(4):
+                    if len(lbs[t]):
+                        lb = lbs[t].copy()
+                        lb[:, [1, 3]] += pads[t][0]
+                        lb[:, [2, 4]] += pads[t][1]
+                        out_l.append(lb)
+                labels = (np.concatenate(out_l, 0) if out_l
+                          else np.zeros((0, 5), np.float32))
+                if len(labels):
+                    labels[:, 1:5] = labels[:, 1:5].clip(0, 2 * s)
+                tile_pack = (tiles, origins, np.array([yc, xc], np.float32))
+                canvas = None
+            else:
+                imgs, lbs = [], []
+                for i in idxs:
+                    img, _, (h, w) = self.load_image(i)
+                    imgs.append(img)
+                    lbs.append(self._labels_xyxy(i, w, h, 0, 0))
+                fn = A.mosaic9 if nine else A.mosaic4
+                canvas, labels = fn(imgs, lbs, s, rng)
+                canvas, labels, _ = A.copy_paste(canvas, labels, [], p=hyp["copy_paste"],
+                                                 rng=rng)
+            M, sc, out_hw = DA.sample_perspective_params(
+                hyp["degrees"], hyp["translate"], hyp["scale"], hyp["shear"],
+                hyp["perspective"], self.mosaic_border, (2 * s, 2 * s), rng)
+            M_canvas = M
+        else:
+            img, _, (h, w) = self.load_image(index)
+            base, ratio, pad = A.letterbox(img, s, auto=False, scaleup=True)
+            labels = self._labels_xyxy(index, ratio[0] * w, ratio[1] * h, pad[0], pad[1])
+            M, sc, out_hw = DA.sample_perspective_params(
+                hyp["degrees"], hyp["translate"], hyp["scale"], hyp["shear"],
+                hyp["perspective"], (0, 0), base.shape[:2], rng)
+            # the s canvas rides the tile composer as 1 active tile, its
+            # bottom-right corner at (3s/2, 3s/2), so it lands on [s/2, 3s/2)
+            # of the 2s canvas; that shift folds into the warp
+            tiles = np.full((4, s, s, 3), 114, np.uint8)
+            tiles[0] = base
+            off = s // 2
+            origins, _ = DA.mosaic4_geometry([(s, s), (0, 0), (0, 0), (0, 0)], s,
+                                             off + s, off + s)
+            tile_pack = (tiles, origins, np.array([off + s, off + s], np.float32))
+            canvas = None
+            e_inv = np.eye(3)
+            e_inv[0, 2] = -off
+            e_inv[1, 2] = -off
+            M_canvas = M @ e_inv
+
+        labels = DA.warp_labels(labels, M, sc, out_hw, perspective=hyp["perspective"])
+        n = len(labels)
+        out = np.zeros((n, 5), np.float32)
+        if n:
+            out[:, 0] = labels[:, 0]
+            out[:, 1] = ((labels[:, 1] + labels[:, 3]) / 2) / out_hw[1]
+            out[:, 2] = ((labels[:, 2] + labels[:, 4]) / 2) / out_hw[0]
+            out[:, 3] = (labels[:, 3] - labels[:, 1]) / out_hw[1]
+            out[:, 4] = (labels[:, 4] - labels[:, 2]) / out_hw[0]
+
+        gains = np.array([rng.uniform(-1, 1) for _ in range(3)], np.float64) * [
+            hyp["hsv_h"], hyp["hsv_s"], hyp["hsv_v"]] + 1
+        flip_ud = rng.random() < hyp["flipud"]
+        flip_lr = rng.random() < hyp["fliplr"]
+        if flip_ud and n:
+            out[:, 2] = 1 - out[:, 2]
+        if flip_lr and n:
+            out[:, 1] = 1 - out[:, 1]
+        return {"canvas": canvas, "tiles": tile_pack, "minv": DA.invert_affine(M_canvas),
+                "hsv": gains.astype(np.float32),
+                "flips": np.array([flip_ud, flip_lr], bool), "labels": out}
+
     # -- item -------------------------------------------------------------
 
     def __getitem__(self, index):
@@ -514,6 +634,11 @@ class create_loader:
     collate (datasets.py:931-955): every 4 samples merge into one 2x-side
     item via `_quad_item`; pair with make_train_step(loss_scale=4).
 
+    A dataset with the device tail yields {tiles (B, 4, s, s, 3) uint8 BGR,
+    origins, centers, minv, hsv, flips, mix_idx, mix_w, labels, label_mask}
+    (`_make_device_batch`), the inputs of `device_aug.make_device_augment`
+    with mosaic=True.
+
     `images` is a pooled buffer: it stays valid while the consumer holds
     at most `hold` batches it has not consumed (`_pooled`); a consumer
     that keeps a batch longer copies it.
@@ -537,6 +662,8 @@ class create_loader:
             raise ValueError(f"a loader sharded over {world} ranks needs drop_last and a "
                              f"batch that divides by {world}, not {batch_size}")
         if quad:
+            if getattr(dataset, "device_tail", False):
+                raise ValueError("quad is a host-collate mode: not with the device tail")
             if (batch_size // world) % 4:
                 raise ValueError("quad collate needs batch_size / world % 4 == 0")
             if getattr(dataset, "rect", False):
@@ -599,6 +726,8 @@ class create_loader:
             return pool[i]
 
     def _make_batch(self, idxs, wid=0):
+        if getattr(self.ds, "device_tail", False):
+            return self._make_device_batch(idxs, wid)
         items = [self.ds[i] for i in idxs]
         if self.quad:
             items = [self._quad_item(items[i:i + 4], self.ds.rng)
@@ -640,6 +769,55 @@ class create_loader:
             lb = (np.concatenate(parts, 0) if parts
                   else np.zeros((0, 5), np.float32))
         return im, lb, group[0][2], group[0][3]
+
+    def _make_device_batch(self, idxs, wid=0):
+        """The device tail's collate: uint8 tiles and the augmentation
+        parameters. Mixup pairs two samples of the batch (the reference's
+        second-mosaic blend, datasets.py:840-847, without a mosaic composed
+        to be thrown away): the labels join on the host, the pixels blend
+        on the device."""
+        rng = self.ds.rng
+        items = [self.ds.device_item(i) for i in idxs]
+        b = len(items)
+        mix_idx = np.arange(b, dtype=np.int32)
+        mix_w = np.ones(b, np.float32)
+        lbs = [it["labels"] for it in items]
+        for i in range(b):
+            if b > 1 and rng.random() < self.ds.hyp.get("mixup", 0.0):
+                # one of the b - 1 other samples, so the mixup probability is
+                # hyp['mixup'] exactly (the reference's second mosaic is
+                # always another sample)
+                j = (i + 1 + rng.randrange(b - 1)) % b
+                mix_idx[i] = j
+                mix_w[i] = float(self.ds.np_rng.beta(8.0, 8.0))
+                if len(items[j]["labels"]):
+                    lbs[i] = (np.concatenate([lbs[i], items[j]["labels"]], 0)
+                              if len(lbs[i]) else items[j]["labels"])
+        labels, mask = pad_labels(lbs, self.max_labels)
+        s = self.ds.img_size
+        # every sample rides the 4-tile form, so the pixels cross once: a
+        # host-composed 2s canvas (mosaic9, copy-paste) as its 4 quadrants
+        tiles = self._pooled(("tiles", wid), (b, 4, s, s, 3))
+        origins = np.zeros((b, 4, 2), np.float32)
+        centers = np.zeros((b, 2), np.float32)
+        quad_org = np.array([[0, 0], [0, s], [s, 0], [s, s]], np.float32)
+        for k, it in enumerate(items):
+            if it.get("tiles") is not None:
+                tiles[k], origins[k], centers[k] = it["tiles"]
+            else:
+                cv = it["canvas"]
+                tiles[k, 0] = cv[:s, :s]
+                tiles[k, 1] = cv[:s, s:]
+                tiles[k, 2] = cv[s:, :s]
+                tiles[k, 3] = cv[s:, s:]
+                origins[k] = quad_org
+                centers[k] = (s, s)
+        return {"tiles": tiles, "origins": origins, "centers": centers,
+                "minv": np.stack([it["minv"] for it in items]),
+                "hsv": np.stack([it["hsv"] for it in items]),
+                "flips": np.stack([it["flips"] for it in items]),
+                "mix_idx": mix_idx, "mix_w": mix_w,
+                "labels": labels, "label_mask": mask}
 
     def _order(self):
         """This epoch's sample order: seeded by seed + epoch."""

@@ -29,6 +29,7 @@ from yolo_series_tpu_torch.device import full_fp32
 from yolo_series_tpu_torch.eval.metrics import (ConfusionMatrix, ap_per_class,
                                                 fitness, match_predictions)
 from yolo_series_tpu_torch.models.model import apply_model, tree_map
+from yolo_series_tpu_torch.models.tta import apply_model_tta
 from yolo_series_tpu_torch.ops.nms import batched_nms, nms_output_to_dets
 
 
@@ -98,14 +99,14 @@ def evaluate(plan, params, state, loader, *,
     save_txt_dir writes per-image auto-label txts (normalized xywh in
     native image space, reference test.py:147-153); save_hybrid feeds the
     ground-truth boxes into NMS as conf-1.0 candidates for hybrid
-    auto-labelling (test.py:124, general.py:656-662). device: the card
+    auto-labelling (test.py:124, general.py:656-662). augment: the
+    multi-scale and flip TTA (`models/tta.apply_model_tta`; each rect
+    batch's height and width scale apart). device: the card
     unless "cpu" is asked for. An fp32 compute_dtype runs the forward in
     full fp32 (`device.full_fp32`: no TF32), whatever the global flags.
 
     Returns a dict with mp, mr, map50, map, per-class ap, speed, fitness.
     """
-    if augment:
-        raise NotImplementedError("TTA is not ported yet (ROADMAP queue 1, item 17)")
     if plots_dir is not None:
         raise NotImplementedError("the batch mosaics are not ported yet (ROADMAP "
                                   "queue 1, item 19, the plots module)")
@@ -132,9 +133,12 @@ def evaluate(plan, params, state, loader, *,
             # apply_model casts to compute_dtype
             x = torch.from_numpy(np.ascontiguousarray(imgs)).to(dev)
             with full_fp32(compute_dtype == torch.float32):
-                out, _ = apply_model(plan, params, state, x.float() / 255.0,
-                                     dtype=compute_dtype)
-            pred = out["pred"]
+                if augment:   # multi-scale and flip TTA (reference test.py --augment)
+                    pred = apply_model_tta(plan, params, state, x.float() / 255.0,
+                                           dtype=compute_dtype)
+                else:
+                    pred = apply_model(plan, params, state, x.float() / 255.0,
+                                       dtype=compute_dtype)[0]["pred"]
             sync()
             t1 = time.perf_counter()
             if save_hybrid:

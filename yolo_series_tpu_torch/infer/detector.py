@@ -11,8 +11,14 @@ pixels. Like the JAX Detector it applies the fast-stem transform; on the
 card in bf16 it also applies the serving engine's fused stem and fused
 ELAN spans, so that detect runs the stem and span kernels as serving does
 (both are exact re-arrangements of the same convs). An ensemble of
-`extra_models` concatenates their predictions before NMS. TTA
-(`augment=True`) is ROADMAP queue 1, item 17.
+`extra_models` concatenates their predictions before NMS
+(`models/tta.apply_ensemble`).
+
+TTA (`augment=True`, `models/tta.apply_model_tta`): three passes at 1,
+0.83 and 0.67 of the size, the second flipped. As in the JAX Detector, it
+takes precedence over `extra_models`, which are then ignored, and on the
+CPU or in fp32 it skips the fast stem. On the card in bf16 it keeps the
+serving rewrites, so the stem and span kernels run at all three scales.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from yolo_series_tpu_torch.infer.serving import place, serving_transforms
 from yolo_series_tpu_torch.models.faststem import make_fast_stem
 from yolo_series_tpu_torch.models.model import apply_model
 from yolo_series_tpu_torch.models.reparam import fuse_model
+from yolo_series_tpu_torch.models.tta import apply_ensemble, apply_model_tta
 from yolo_series_tpu_torch.ops.nms import batched_nms, nms_output_to_dets
 
 
@@ -42,20 +49,19 @@ class Detector:
                  classes: Optional[Sequence[int]] = None,
                  agnostic=False, dtype=torch.bfloat16, augment=False,
                  extra_models=(), fast_stem=True, max_nms=4096, device=None):
-        if augment:
-            raise NotImplementedError("TTA is not ported yet (ROADMAP queue 1, "
-                                      "item 17)")
         self.device = _device(device)
-        extra = tuple(extra_models)
+        # TTA ignores the ensemble, as the JAX Detector does
+        extra = () if augment else tuple(extra_models)
         if fast_stem and not extra:
             if self.device.type == "cuda" and dtype == torch.bfloat16:
                 plan, params, state = serving_transforms(plan, params, state)
-            else:
+            elif not augment:
                 plan, params, state = make_fast_stem(plan, params, state, max_pairs=2)
         self.plan = plan
         self.params, self.state = place(params, state, self.device, dtype)
         self.extra = [(ep_plan, *place(ep, es, self.device, dtype))
                       for ep_plan, ep, es in extra]
+        self.augment = augment
         self.img_size = img_size
         self.conf_thres = conf_thres
         self.iou_thres = iou_thres
@@ -85,16 +91,19 @@ class Detector:
 
     @torch.inference_mode()
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (B, H, W, 3) fp32 in [0, 1] -> (B, A, no) decoded predictions
-        of the model and of the ensemble's other models, concatenated
-        (reference Ensemble, experimental.py:69-81). In fp32 without TF32
-        (`device.full_fp32`), whatever the global flags."""
+        """x: (B, H, W, 3) fp32 in [0, 1] -> (B, A, no) decoded predictions:
+        the TTA passes', or the model's and the ensemble's other models',
+        concatenated. In fp32 without TF32 (`device.full_fp32`), whatever
+        the global flags."""
         with full_fp32(self.dtype == torch.float32):
-            preds = [apply_model(self.plan, self.params, self.state, x,
-                                 dtype=self.dtype)[0]["pred"]]
-            for eplan, ep, es in self.extra:
-                preds.append(apply_model(eplan, ep, es, x, dtype=self.dtype)[0]["pred"])
-        return torch.cat(preds, dim=1)
+            if self.augment:
+                return apply_model_tta(self.plan, self.params, self.state, x,
+                                       dtype=self.dtype)
+            if self.extra:
+                return apply_ensemble([(self.plan, self.params, self.state), *self.extra],
+                                      x, dtype=self.dtype)
+            return apply_model(self.plan, self.params, self.state, x,
+                               dtype=self.dtype)[0]["pred"]
 
     def __call__(self, images) -> List[np.ndarray]:
         """images: one BGR ndarray or a list of them (any sizes). Returns

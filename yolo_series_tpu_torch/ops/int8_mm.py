@@ -18,14 +18,18 @@ The output tile of a launch is chosen here, per shape (`pick_tile`), and
 each wrapper reports the tile of its last launch in `.tile`.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
-launches the kernel or raises.
+launches the kernel or raises. K4 is also an operator of PyTorch's
+dispatcher (`torch.ops.yolo_series_tpu_torch.int8_matmul_dequant`,
+registered when this module is imported), so a `torch.export` program of
+the int8 model holds it as a call; loading such a program needs this
+module imported first.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -138,16 +142,11 @@ def _check_cuda(name, x, w, *rest):
             raise ValueError(f"{name}: data pointer not 16-byte aligned")
 
 
-def int8_matmul_dequant(xq: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
-                        bias: torch.Tensor,
-                        tile: Optional[Tuple[int, int]] = None) -> torch.Tensor:
-    """K4. (M, K) int8 @ (K, N) int8 -> (M, N) fp32 = acc * scale[n] +
-    bias[n], scale being the combined sx * sw. The CPU takes the plain
-    version; a CUDA tensor launches the kernel, on `tile` (one of TILES) or
-    the one `pick_tile` chooses."""
+def _launch_k4(xq: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
+               bias: torch.Tensor, tile: Optional[Tuple[int, int]]) -> torch.Tensor:
+    """One K4 launch on xq's card, on `tile` or the one `pick_tile` chooses;
+    raises where the launch fails."""
     m, k, n = _check("int8_matmul_dequant", xq, wq, torch.int8, (scale, bias))
-    if xq.device.type == "cpu":
-        return int8_matmul_dequant_plain(xq, wq, scale, bias)
     scale, bias = scale.contiguous(), bias.contiguous()
     _check_cuda("int8_matmul_dequant", xq, wq, scale, bias)
     (bm, bn), ctas = _launch_shape("int8_matmul_dequant", xq, m, k, n, tile)
@@ -158,6 +157,43 @@ def int8_matmul_dequant(xq: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
     int8_matmul_dequant.launches += 1
     int8_matmul_dequant.tile = (bm, bn)
     return out
+
+
+# K4 as an operator of PyTorch's dispatcher, so that `torch.export` keeps it
+# in a program as one call (a ctypes launch cannot be traced: it meets fake
+# tensors with no storage). Its CPU kernel is the plain version; its CUDA
+# kernel launches K4 (on `tile`, or the one `pick_tile` chooses) or raises;
+# its fake kernel gives the (M, N) fp32 shape.
+@torch.library.custom_op("yolo_series_tpu_torch::int8_matmul_dequant", mutates_args=())
+def int8_matmul_dequant_op(xq: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
+                           bias: torch.Tensor, tile: Optional[List[int]] = None
+                           ) -> torch.Tensor:
+    _check("int8_matmul_dequant", xq, wq, torch.int8, (scale, bias))
+    return int8_matmul_dequant_plain(xq, wq, scale, bias)
+
+
+@int8_matmul_dequant_op.register_kernel("cuda")
+def _(xq, wq, scale, bias, tile=None):
+    return _launch_k4(xq, wq, scale, bias, None if tile is None else tuple(tile))
+
+
+@int8_matmul_dequant_op.register_fake
+def _(xq, wq, scale, bias, tile=None):
+    return xq.new_empty((xq.shape[0], wq.shape[1]), dtype=torch.float32)
+
+
+def int8_matmul_dequant(xq: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
+                        bias: torch.Tensor,
+                        tile: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """K4. (M, K) int8 @ (K, N) int8 -> (M, N) fp32 = acc * scale[n] +
+    bias[n], scale being the combined sx * sw, through the registered op
+    `torch.ops.yolo_series_tpu_torch.int8_matmul_dequant`: the CPU takes
+    the plain version; a CUDA tensor launches the kernel, on `tile` (one of
+    TILES, for the benches) or the one `pick_tile` chooses."""
+    if xq.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"int8_matmul_dequant: operands on {xq.device}: want one CUDA "
+                         "device (or the CPU for the plain version)")
+    return int8_matmul_dequant_op(xq, wq, scale, bias, None if tile is None else list(tile))
 
 
 int8_matmul_dequant.launches = 0

@@ -45,8 +45,15 @@ torchrun, or any caller that has joined a group already, runs as its rank.
     opt and artifacts, validates each epoch (the epoch's row broadcast to
     every rank) and writes the checkpoints, in the JAX format as always.
 
-Not ported yet, and refused with NotImplementedError: `device_aug` (ROADMAP
-queue 1 item 18), `bbox_interval > 0` (item 19), `split_concat`
+The device-augment tail (`device_aug`): the loader ships uint8 mosaic
+tiles and the augmentation parameters (`data/datasets.py`), and the
+trainer makes the images on the device before the step
+(`data/device_aug.make_device_augment`, built once: separable where the
+hyp has no rotation, shear or perspective), accumulated micro-batches
+stacked as the JAX trainer stacks them.
+
+Not ported yet, and refused with NotImplementedError: `bbox_interval > 0`
+(ROADMAP queue 1 item 19), `split_concat`
 and `fast_stem` (item 20; the JAX trainer's `fast_stem=True` default is an
 exact reshuffle of the step's plan, `models/faststem.make_train_fast_stem`,
 so here it defaults to False and the step runs the plan as compiled), and
@@ -71,6 +78,7 @@ import torch.distributed as dist
 import yaml
 
 from yolo_series_tpu_torch.data.datasets import DetectionDataset, create_loader
+from yolo_series_tpu_torch.data.device_aug import MOSAIC_KEYS, make_device_augment
 from yolo_series_tpu_torch.device import device as _device
 from yolo_series_tpu_torch.eval.evaluator import evaluate
 from yolo_series_tpu_torch.losses import (LossHyp, make_compute_loss,
@@ -134,7 +142,7 @@ class TrainConfig:
     multi_scale_every: int = 1    # redraw cadence in optimizer steps
     freeze: int = 0               # freeze first N layers (train.py:102)
     image_weights: bool = False   # class-weighted epoch resampling
-    device_aug: bool = False      # item 18, refused
+    device_aug: bool = False      # warp/HSV/flip/mixup on the device
     cache_images: bool = False    # RAM-cache decoded images (train --cache)
     fast_decode: bool = False     # reduced-scale JPEG decode (a documented
     # pixel deviation; see data/datasets.py)
@@ -178,9 +186,6 @@ def load_hyp(hyp) -> dict:
 
 
 def _refuse_unported(tc: TrainConfig):
-    if tc.device_aug:
-        raise NotImplementedError("the device-augment tail is not ported yet: "
-                                  "ROADMAP queue 1, item 18")
     if tc.bbox_interval > 0:
         raise NotImplementedError("--bbox_interval's val media panels need the plots "
                                   "module: ROADMAP queue 1, item 19")
@@ -387,7 +392,8 @@ def train(tc: TrainConfig, train_ds: Optional[DetectionDataset] = None,
             sync_processes("label cache", group)
         train_ds = _dataset(tc, data_cfg, "train", hyp=hyp, augment=True, rect=tc.rect,
                             stride=int(max(head.strides)), cache_images=tc.cache_images,
-                            fast_decode=tc.fast_decode, seed=rank_seed(tc.seed, rank))
+                            fast_decode=tc.fast_decode, device_tail=tc.device_aug,
+                            seed=rank_seed(tc.seed, rank))
         if main:
             sync_processes("label cache", group)
     anchors_override = None
@@ -508,6 +514,23 @@ def train(tc: TrainConfig, train_ds: Optional[DetectionDataset] = None,
     if anchors_override is not None:
         cfg_dict["anchors"] = anchors_override
     upload = BatchUpload(dev)
+    dev_aug = None   # the device tail's program
+    if tc.device_aug:
+        # the default hyps have no rotation, shear or perspective: the warp
+        # is then a scale and translate (two matmuls an image)
+        sep = all(hyp.get(k, 0) == 0 for k in ("degrees", "shear", "perspective"))
+        dev_aug = make_device_augment(tc.img_size, 2 * tc.img_size, separable=sep,
+                                      mosaic=True)
+
+    def device_images(micro):
+        """The device tail: each micro-batch's tiles and parameters
+        uploaded, its images made on the device, stacked over the
+        micro-batches as the JAX trainer stacks them."""
+        parts = [upload([b[k] for b in micro]) for k in MOSAIC_KEYS]
+        if len(micro) == 1:
+            return dev_aug(*parts)
+        return torch.stack([dev_aug(*(t[a] for t in parts)) for a in range(len(micro))])
+
     step = ts.step
     ni = start_epoch * nb  # integrated-batch counter (reference `ni`, train.py:345)
     micro = []  # pending micro-batches, kept across epochs (train.py:384)
@@ -544,7 +567,10 @@ def train(tc: TrainConfig, train_ds: Optional[DetectionDataset] = None,
                     ms_cur["size"] = sizes[size_rng.integers(len(sizes))]
                 ms_size = ms_cur["size"]
             fn = get_step(acc, ms_size)
-            ims = upload([b["images"] for b in micro])
+            if dev_aug is not None:
+                ims = device_images(micro)
+            else:
+                ims = upload([b["images"] for b in micro])
             lbs = upload([b["labels"] for b in micro])
             mks = upload([b["label_mask"] for b in micro])
             micro = []
