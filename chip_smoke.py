@@ -167,9 +167,35 @@ non-zero on failure before the last line is printed:
     and the host tail at 1 and 4 threads, and `cli/train.py --device-aug`
     for one epoch on phase 8's set (finite losses, img/s, the share spent
     waiting for a batch) beside phase 8's host-tail epochs.
-13. One JSON line of per-kernel numbers (launch counts with phases 9's,
-    10's, 11's and 12's), the card's name and power limit, and the last
-    line `{"ok": true, "device": {...}}`.
+13. The tail of the zoo (`tail`): (a) a cfg built here from the
+    long-tail cfg of tests/test_graph.py with a row of every block the
+    JAX package's layers.py adds (Focus, nn.Conv2d, DWConv, GhostConv,
+    Ghost, GhostCSPA/B/C, SPPF, Contract, Expand, Chuncat, Foldcut,
+    nn.BatchNorm2d), yolov7's channels (64-1024) at 640 px, the Swin and
+    Transformer blocks on the stride-32 map (20 x 20: the Swin window pads
+    it to 24 and shifts), an IDetect on three levels; RepConv_OREPA's
+    deploy against its train form, the fused model's fp32 forward on the
+    card against the CPU's, Classify alone on the card against the CPU,
+    then served at batch 8 as phase 4 serves yolov7 (K1; each replay
+    bit-equal to eager; bf16 against the fp32 reference; img/s, busy
+    share, host ms); (b) the pose model (the port's yolov7-w6 cfg with an
+    IKeypoint head, upstream's yolov7-w6-pose structure) at 960 px, batch
+    8, bf16, fused, with the serving rewrites (K3 on its ELAN spans, each
+    conv_silu launch held against the plain conv on its own slices, and K3
+    whole against its plain version at the 11 spans' 960 px shapes), then
+    `batched_nms_kpt` (K1): bit-equal, keypoints included, with the plain
+    keep-mask, detections against the fp32 forward as phase 4's, the
+    keypoints of the candidate anchors against the fp32 forward's within
+    FEAT_RATIO of cuDNN bf16's distance, ms of the forward and of the
+    NMS; (c) yolov7's training cfg with an IBin head:
+    three bf16 steps with the bin-OTA loss at 640 px, batch 8 (ms and host
+    ms a step), a fp32 step at width 0.25 card against CPU, one Detector
+    pass (K1L at 4096 candidates, bit-equal with the plain keep-mask), the
+    ranking losses and their gradients and SigmoidBin's bf16 decode on
+    the card against the CPU.
+14. One JSON line of per-kernel numbers (launch counts with phases 9's to
+    13's), the card's name and power limit, and the last line
+    `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -211,7 +237,10 @@ from yolo_series_tpu_torch.eval import evaluator
 from yolo_series_tpu_torch.eval.evaluator import evaluate, scale_coords_np
 from yolo_series_tpu_torch.infer import quant
 from yolo_series_tpu_torch.infer.detector import Detector
-from yolo_series_tpu_torch.infer.serving import DynamicBatcher, ServingEngine
+from yolo_series_tpu_torch.infer.serving import (DynamicBatcher, ServingEngine, place,
+                                                 serving_transforms)
+from yolo_series_tpu_torch.models import extra as X
+from yolo_series_tpu_torch.models import heads as H
 from yolo_series_tpu_torch.models import layers as L
 from yolo_series_tpu_torch.models.model import (Model, _run_layer, apply_model, tree_leaves,
                                                 tree_map)
@@ -223,9 +252,12 @@ from yolo_series_tpu_torch.ops.boxes import box_iou
 from yolo_series_tpu_torch.parallel.dist import (TIMEOUT as DIST_TIMEOUT, free_port,
                                                  host_local_slice, init_distributed, launch,
                                                  sync_processes)
-from yolo_series_tpu_torch.ops.nms import batched_nms, fused_head_nms, nms_padded
-from yolo_series_tpu_torch.losses import (LossHyp, make_compute_loss_aux_ota,
-                                          make_compute_loss_ota)
+from yolo_series_tpu_torch.ops.nms import (batched_nms, batched_nms_kpt, fused_head_nms,
+                                           nms_padded)
+from yolo_series_tpu_torch.losses import (LossHyp, SigmoidBin, alrp_loss, ap_loss,
+                                          make_compute_loss_aux_ota,
+                                          make_compute_loss_bin_ota, make_compute_loss_ota,
+                                          rank_sort_loss)
 from yolo_series_tpu_torch.losses.ota import ota_assign_batch
 from yolo_series_tpu_torch.train import optim as train_optim
 from yolo_series_tpu_torch.train import trainer
@@ -1190,23 +1222,56 @@ def liven(plan, params, state, x, *, act_rms=0.1, head_gain=20.0,
         if idx in plan.save:
             saved[idx] = y
     head = plan.head
+    if isinstance(head, H.IKeypoint):
+        return _liven_kpt_head(head, lp[-1], inp, head_gain, candidates, conf_thres)
+    # the objectness channel: IBin's follows its w and h bins
+    oi = 4 if not isinstance(head, H.IBin) else 2 * (head.bin_count + 1) + 2
     obj, cls = [], []
     for i, m in enumerate(lp[-1]["m"]):
         m["w"].mul_(head_gain)
         b = m["b"].view(head.na, head.no)
-        b[:, 4:] = 0.0
+        b[:, oi:] = 0.0
         r, _ = head._convs()[i].apply(m, {}, inp[i], ctx)
         r = r.permute(0, 2, 3, 1).reshape(r.shape[0], -1, head.no)
-        obj.append(r[..., 4])
-        cls.append(r[..., 5:].max(-1).values)
-    obj, cls = torch.cat(obj, 1), torch.sigmoid(torch.cat(cls, 1))
+        obj.append(r[..., oi])
+        cls.append(r[..., oi + 1:].max(-1).values)
+    lo = _obj_bias(torch.cat(obj, 1), torch.sigmoid(torch.cat(cls, 1)), candidates, conf_thres)
+    for m in lp[-1]["m"]:
+        m["b"].view(head.na, head.no)[:, oi] = lo
+    return lo
+
+
+def _obj_bias(obj, cls, candidates, conf_thres):
+    """The objectness bias, by bisection, with which about `candidates`
+    anchors an image pass conf_thres (obj: logits, cls: probabilities)."""
     lo, hi = -30.0, 30.0
     for _ in range(40):
         mid = (lo + hi) / 2
         n = ((torch.sigmoid(obj + mid) * cls) > conf_thres).sum(1).float().mean()
         lo, hi = (lo, mid) if n > candidates else (mid, hi)
-    for m in lp[-1]["m"]:
-        m["b"].view(head.na, head.no)[:, 4] = lo
+    return lo
+
+
+@torch.no_grad()
+def _liven_kpt_head(head, hp, inp, head_gain, candidates, conf_thres):
+    """`liven`'s head part for IKeypoint: its det and kpt convs' outputs
+    are concatenated and read as (na, no), so anchor a's objectness and
+    class are channels a no + 4 and a no + 5 of the concatenation, held by
+    the det or the kpt convs' biases. The weights times head_gain, the
+    biases zeroed, and one objectness bias for every anchor by bisection."""
+    for kind in ("m", "m_kpt"):
+        for m in hp[kind]:
+            m["w"].mul_(head_gain)
+            m["b"].zero_()
+    out, _ = head.apply(hp, {}, inp, L.Ctx(torch.float32, training=True))
+    raw = torch.cat([r.reshape(r.shape[0], -1, head.no) for r in out["raw"]], 1)
+    lo = _obj_bias(raw[..., 4], torch.sigmoid(raw[..., 5]), candidates, conf_thres)
+    n_det = head.na * head.no_det
+    for a in range(head.na):
+        c = a * head.no + 4
+        kind, c = ("m", c) if c < n_det else ("m_kpt", c - n_det)
+        for m in hp[kind]:
+            m["b"][c] = lo
     return lo
 
 
@@ -1252,7 +1317,13 @@ def agreement(name, got, want):
     return float(np.mean(fracs))
 
 
-def make_model(dev, width=1.0, img=IMG, cfg=CFG):
+def cfg_name(cfg):
+    """A cfg's name: a file's stem, a cfg dict's "name" entry (the graph
+    compiler reads no such key)."""
+    return cfg["name"] if isinstance(cfg, dict) else Path(cfg).stem
+
+
+def make_model(dev, width=1.0, img=IMG, cfg=CFG, name=None):
     """The deploy form of `cfg` (yolov7 unless given) at `width` with random
     weights (torch.Generator seed 0), livened on two noise frames and
     re-parameterized. Returns a namespace with the fused plan, params and
@@ -1266,7 +1337,7 @@ def make_model(dev, width=1.0, img=IMG, cfg=CFG):
     params, state = fuse_model(model.plan, model.params, model.state)
     return SimpleNamespace(plan=model.plan, params=params, state=state, rng=rng,
                            n_params=model.num_params(), obj_bias=obj_bias,
-                           width=width, img=img, dev=dev, name=Path(cfg).stem)
+                           width=width, img=img, dev=dev, name=name or cfg_name(cfg))
 
 
 def make_reference(m):
@@ -1819,7 +1890,7 @@ def detect(dev, width=1.0, cfg=TRAIN_CFG, img=IMG, transforms=(1, 8), what="dete
     det = Detector(model.plan, params, state, img_size=img, dtype=torch.bfloat16,
                    device=dev)
     n_stem, n_elan = plan_names(det)
-    log(f"{what}: {Path(cfg).stem} training form ({type(model.plan.head).__name__} head), "
+    log(f"{what}: {cfg_name(cfg)} training form ({type(model.plan.head).__name__} head), "
         f"width {width}, {model.num_params()} params, fused; Detector bf16 at {img} px "
         f"with {n_stem} FusedStem, {n_elan} FusedELAN; images {shapes}")
     if dev.type == "cuda" and (n_stem, n_elan) != tuple(transforms):
@@ -2113,10 +2184,11 @@ def check_ota(dev, plan, raw, labels, mask):
 
 
 def check_fp32_step(dev, width=0.25, img=320, batch=2, cfg=TRAIN_CFG, hyp=None,
-                    what="train (b)", update_l2=None):
+                    what="train (b)", update_l2=None, make_loss=make_compute_loss_ota):
     """(b) One fp32 step (OTA with `hyp`, `LossHyp()` unless given; SGD) of
     the training form of `cfg` on the card, TF32 off, against the same
-    step on the CPU from the same state on the same batch. The updates of
+    step on the CPU from the same state on the same batch (`make_loss`:
+    the bin-OTA loss for an IBin cfg). The updates of
     the params within STEP_UPDATE_L2, the new BN stats and EMA trees within
     STEP_STATE_REL; with `update_l2` (a model whose step is discontinuous,
     TINY_UPDATE_L2), the updates of the params and of the EMA params
@@ -2129,8 +2201,8 @@ def check_fp32_step(dev, width=0.25, img=320, batch=2, cfg=TRAIN_CFG, hyp=None,
     res = {}
     for where in (dev, torch.device("cpu")):
         ts = init_train_state(model.params, model.state, opt, device=where)
-        step = make_train_step(model.plan, make_compute_loss_ota(model.plan.head, hyp),
-                               opt, compute_dtype=torch.float32)
+        step = make_train_step(model.plan, make_loss(model.plan.head, hyp), opt,
+                               compute_dtype=torch.float32)
         with full_fp32(where.type == "cuda"):
             new, metrics = step(ts, *batch_np, lr, mom)
         res[where.type] = (ts, new, {k: float(v) for k, v in metrics.items()})
@@ -2147,7 +2219,7 @@ def check_fp32_step(dev, width=0.25, img=320, batch=2, cfg=TRAIN_CFG, hyp=None,
     ulp = torch.cat([(torch.nextafter(t, torch.tensor(math.inf)) - t).reshape(-1)
                      for t in (x.detach().cpu().abs() for x in tree_leaves(new_h.params))])
     floor = float(ulp.double().norm() / 2 / du_h.norm())
-    log(f"{what}: one fp32 step of {Path(cfg).stem}, width {width}, {img} px, batch {batch}: "
+    log(f"{what}: one fp32 step of {cfg_name(cfg)}, width {width}, {img} px, batch {batch}: "
         f"losses card {m_c}, CPU {m_h}; parameter updates' relative L2 distance {l2:.3g} "
         f"(limit {STEP_UPDATE_L2}; their fp32 resolution {floor:.3g}), the momentum slot's "
         f"{v_l2:.3g}; BN stats {state_err:.3g}, EMA {ema_err:.3g} (params "
@@ -3876,14 +3948,420 @@ def entry_points(dev, m, host_tail, width=1.0, img=IMG, batch=BATCH):
 
 
 def _cfg(width, path=CFG):
-    """The port's yolov7 cfg (deploy, or `path`) at `width` (1.0: the
-    published one)."""
+    """The port's yolov7 cfg (deploy, or `path`: a file, or a cfg dict) at
+    `width` (1.0: the published one)."""
+    import copy
+
     import yaml
 
-    with open(path) as f:
-        d = yaml.safe_load(f)
+    if isinstance(path, dict):
+        d = copy.deepcopy(path)
+    else:
+        with open(path) as f:
+            d = yaml.safe_load(f)
     d["width_multiple"] = width
     return d
+
+
+# ------------------------------------------------------- the zoo's tail ---
+
+# (a) the tail zoo: the long-tail cfg of tests/test_graph.py:70-89 (its
+# rows marked *) with a row of every block of the JAX package's layers.py
+# that no shipped cfg uses, at yolov7's published channels (64-1024), nc
+# 80, yolov7's anchors on three levels; at 640 px the Swin and Transformer
+# blocks see the stride-32 map, 20 x 20 (the window 8 pads it to 24, and
+# the second Swin layer is shifted and masked)
+TAIL_CFG = {
+    "name": "tail-zoo", "nc": 80, "depth_multiple": 1.0, "width_multiple": 1.0,
+    "anchors": [[12, 16, 19, 36, 40, 28], [36, 75, 76, 55, 72, 146],
+                [142, 110, 192, 243, 459, 401]],
+    "backbone": [
+        [-1, 1, "Focus", [64, 3]],                      # 0  /2
+        [-1, 1, "nn.Conv2d", [64, 3, 1, 1]],
+        [-1, 1, "GhostStem", [128]],                    # 2  /8   *
+        [-1, 1, "DWConv", [128, 3, 1]],
+        [-1, 1, "GhostConv", [256, 3, 2]],              # 4  /16
+        [-1, 1, "Ghost", [256, 3, 1]],
+        [-1, 1, "GhostCSPA", [256]],
+        [-1, 1, "RobustConv", [256, 7, 1]],             # *
+        [-1, 1, "CrossConv", [256, 3, 1]],              # *
+        [-1, 1, "MixConv2d", [256]],                    # 9  *
+        [-1, 1, "Ghost", [512, 3, 2]],                  # 10 /32
+        [-1, 1, "GhostCSPB", [512]],
+        [-1, 2, "STCSPA", [512]],                       # *
+        [-1, 1, "TransformerBlock", [512, 4, 1]],       # *
+        [[-1, -2], 1, "Sum", [2]],                      # *
+        [-1, 1, "GhostCSPC", [512]],
+        [-1, 1, "SPPF", [512, 5]],                      # 16
+        [-1, 1, "Contract", [2]],                       # 17 /64
+        [-1, 1, "Expand", [2]],                         # 18 /32
+        [[-1, 16], 1, "Chuncat", [1]],
+        [-1, 1, "Foldcut", []],
+        [-1, 1, "nn.BatchNorm2d", []],
+    ],
+    "head": [
+        [-1, 1, "GhostSPPCSPC", [512]],                 # 22 *
+        [-1, 1, "RepConv_OREPA", [1024, 3, 1]],         # 23 *
+        [[3, 9, 23], 1, "IDetect", ["nc", "anchors"]],  # *
+    ],
+}
+TAIL_REQUESTS = 4
+# the fused model's fp32 forward on the card against the CPU's (TF32 off):
+# relative RMS of the head inputs, and Classify's output
+TAIL_CPU_RMS = 1e-4
+# (b) the pose model at POSE_IMG px
+POSE_IMG = 960
+# (c) the IBin train steps timed
+IBIN_STEPS = 3
+# the ranking losses and their gradients on the card against the CPU, and
+# OREPA's deploy against its train form (the JAX package's own limits,
+# tests/test_zoo.py:39-49)
+RANK_RTOL = 1e-4
+OREPA_RTOL, OREPA_ATOL = 1e-3, 1e-4
+
+
+def pose_cfg(width=1.0):
+    """The pose model of upstream yolov7's cfg/yolov7-w6-pose.yaml from the
+    port's yolov7-w6 training cfg: nc 1, its four aux convs and the
+    IAuxDetect row replaced by IKeypoint [nc, anchors, 17] over the four
+    lead convs."""
+    cfg = _cfg(width, ZOO_CFGS / "training/yolov7-w6.yaml")
+    f, _, kind, _ = cfg["head"][-1]
+    if kind.lower() != "iauxdetect" or len(f) != 8:
+        raise AssertionError(f"yolov7-w6's last row is {cfg['head'][-1]}")
+    cfg["head"] = cfg["head"][:-5] + [[f[:4], 1, "IKeypoint", ["nc", "anchors", 17]]]
+    return cfg | {"nc": 1, "names": ["person"], "name": "yolov7-w6-pose"}
+
+
+def ibin_cfg(width=1.0):
+    """yolov7's training cfg with its IDetect row an IBin head."""
+    cfg = _cfg(width, TRAIN_CFG)
+    if cfg["head"][-1][2].lower() != "idetect":
+        raise AssertionError(f"yolov7's last row is {cfg['head'][-1]}")
+    cfg["head"][-1] = [cfg["head"][-1][0], 1, "IBin", ["nc", "anchors"]]
+    return cfg | {"name": "yolov7-ibin"}
+
+
+def _rel_rms(got, want):
+    return float((got.float().cpu() - want.float().cpu()).square().mean().sqrt()
+                 / want.float().cpu().square().mean().sqrt())
+
+
+def check_orepa(dev, plan):
+    """RepConv_OREPA of `plan` at its input shape (batch 8): its deploy
+    against its train form's eval forward, fp32, TF32 off."""
+    i, spec = next((i, s) for i, s in enumerate(plan.layers)
+                   if isinstance(s.block, X.RepConvOREPA))
+    blk = spec.block
+    gen = torch.Generator().manual_seed(13)
+    p, st = blk.init(gen)
+    for leaf in tree_leaves(st):   # running stats off (0, 1)
+        leaf.copy_(torch.rand(leaf.shape, generator=gen) + 0.5)
+    p, st = tree_map(lambda t: t.to(dev), p), tree_map(lambda t: t.to(dev), st)
+    x = torch.randn((BATCH, blk.c1, 20, 20), generator=gen).to(dev)
+    with torch.no_grad(), full_fp32(dev.type == "cuda"):
+        y, _ = blk.apply(p, st, x, L.Ctx())
+        dp, ds = blk.deploy(p, st)
+        y2, _ = blk.apply(dp, ds, x, L.Ctx())
+    err = float((y2 - y).abs().max())
+    ok = bool(torch.allclose(y2, y, rtol=OREPA_RTOL, atol=OREPA_ATOL))
+    log(f"tail (a): layer {i} RepConv_OREPA({blk.c1}, {blk.c2}) deploy against its train "
+        f"form at ({BATCH}, {blk.c1}, 20, 20), fp32: max |diff| {err:.3g} (rtol "
+        f"{OREPA_RTOL}, atol {OREPA_ATOL})")
+    if not ok:
+        raise AssertionError(f"tail (a): OREPA deploy differs from its train form by {err}")
+    return err
+
+
+def tail_cpu(dev, m, img):
+    """The fused tail model's fp32 forward (batch 1) on the card, TF32 off,
+    against the CPU's on the same frame (the head inputs' relative RMS);
+    Classify(1024, 1000) on the stride-32 map's shape alone, card against
+    CPU."""
+    frame = torch.from_numpy(np.random.default_rng(21).integers(
+        0, 256, (1, img, img, 3), np.uint8)).float() / 255.0
+    cpu = {"plan": m.plan, "params": tree_map(lambda t: t.cpu(), m.params),
+           "state": tree_map(lambda t: t.cpu(), m.state)}
+    with torch.no_grad():
+        want, _ = apply_model(cpu["plan"], cpu["params"], cpu["state"], frame,
+                              return_head_inputs=True)
+        with full_fp32(dev.type == "cuda"):
+            got, _ = apply_model(m.plan, m.params, m.state, frame.to(dev),
+                                 return_head_inputs=True)
+    err = max(_rel_rms(g, w) for g, w in zip(got, want))
+    blk = X.Classify(1024, 1000)
+    gen = torch.Generator().manual_seed(17)
+    p, _ = blk.init(gen)
+    x = torch.randn((BATCH, 1024, img // 32, img // 32), generator=gen)
+    with torch.no_grad():
+        c_want, _ = blk.apply(p, {}, x, L.Ctx())
+        with full_fp32(dev.type == "cuda"):
+            c_got, _ = blk.apply(tree_map(lambda t: t.to(dev), p), {}, x.to(dev), L.Ctx())
+    c_err = _rel_rms(c_got, c_want)
+    log(f"tail (a): the fused model's fp32 forward, card against CPU: head inputs "
+        f"{err:.3g} relative RMS; Classify(1024, 1000) {tuple(c_got.shape)} {c_err:.3g} "
+        f"(limit {TAIL_CPU_RMS})")
+    if not (err <= TAIL_CPU_RMS and c_err <= TAIL_CPU_RMS and c_got.shape == (BATCH, 1000)):
+        raise AssertionError(f"tail (a): card against CPU {err}, Classify {c_err}")
+    return {"head_inputs_rel_rms": err, "classify_rel_rms": c_err}
+
+
+def tail_zoo(dev, width=1.0, img=IMG, batch=BATCH, requests=TAIL_REQUESTS):
+    """(a) The tail zoo cfg: OREPA's deploy, card against CPU, then served
+    by the bf16 graph engines as phase 4 serves yolov7 (no fused stem or
+    span matches: every conv is cuDNN's; K1 once a forward)."""
+    m = make_model(dev, width, img, TAIL_CFG)
+    names = {type(s.block).__name__ for s in m.plan.layers}
+    log(f"tail (a): {m.name}, {len(m.plan.layers)} layers, {m.n_params} params, blocks "
+        f"{sorted(names)}")
+    orepa = check_orepa(dev, m.plan)
+    cpu = tail_cpu(dev, m, img)
+    res = serving(dev, m, batch, requests, what="tail (a) serving", transforms=(0, 0),
+                  with_ingest=False)
+    return {"orepa_deploy_max_err": orepa, **cpu, **res}
+
+
+def _kpt_rows(out):
+    """batched_nms_kpt's tuple as the engine's output dict."""
+    num, boxes, scores, classes, _ = (t.cpu().numpy() for t in out)
+    return {"num_dets": num[:, None], "det_boxes": boxes, "det_scores": scores,
+            "det_classes": classes}
+
+
+def kpt_error(got, want, conf_thres=0.25):
+    """The keypoints (x, y, visibility of each) of the anchors that the fp32
+    pred `want` scores above conf_thres (the rows that can become
+    detections) in `got` against `want`: (relative RMS, max abs px of x and
+    y). The same anchors on both sides, so the numbers measure the head's
+    decode and what feeds it, not which detections NMS kept."""
+    cand = (want[..., 4] * want[..., 5]).float() > conf_thres
+    g, w = got[cand][:, 6:].float().cpu(), want[cand][:, 6:].float().cpu()
+    if not (torch.isfinite(g).all() and len(w)):
+        raise AssertionError(f"keypoints: non-finite, or no candidate of {cand.numel()} anchors")
+    xy = torch.ones(w.shape[1], dtype=torch.bool)
+    xy[2::3] = False
+    rel = float((g - w).square().mean().sqrt() / w.square().mean().sqrt())
+    return rel, float((g - w)[:, xy].abs().max())
+
+
+def pose(dev, width=1.0, img=POSE_IMG, batch=BATCH):
+    """(b) The w6 pose model, livened and fused, with the serving rewrites
+    (K3 on its spans), bf16, then `batched_nms_kpt` at max_nms 256 (K1).
+    Each conv_silu launch of that forward is held against the plain conv on
+    its own slices as it runs, and K3 whole against its plain version at
+    the spans' shapes (`check_k3`); the keypoints of the candidate anchors
+    against the fp32 forward's (`kpt_error`) within FEAT_RATIO of the bf16
+    cuDNN forward's distance."""
+    model = Model.from_yaml(pose_cfg(width), seed=0, device=dev)
+    rng = np.random.default_rng(23)
+    calib = torch.from_numpy(rng.integers(0, 256, (2, img, img, 3), np.uint8))
+    liven(model.plan, model.params, model.state, calib.to(dev).float() / 255.0)
+    params, state = fuse_model(model.plan, model.params, model.state)
+    span_shapes = model_spans(SimpleNamespace(plan=model.plan, params=params, img=img))
+    plan_t, params_t, state_t = serving_transforms(model.plan, params, state)
+    params_t, state_t = place(params_t, state_t, dev, torch.bfloat16)
+    spans = [type(s.block).__name__ for s in plan_t.layers].count("FusedELAN")
+    frames = torch.from_numpy(rng.integers(0, 256, (batch, img, img, 3), np.uint8)).to(dev)
+
+    def forward(plan, p, s, dtype):
+        with torch.inference_mode():
+            return apply_model(plan, p, s, frames.to(dtype) / 255.0, dtype=dtype)[0]["pred"]
+
+    log(f"pose (b): {cfg_name(pose_cfg(width))} width {width}, {model.num_params()} params, "
+        f"{img} px, batch {batch}, bf16, fused, {spans} FusedELAN; spans (H, cin, ct, cc, "
+        f"cout, order) {span_shapes}")
+    if dev.type == "cuda" and spans == 0:
+        raise AssertionError("pose (b): no ELAN span matched")
+    errs = [] if dev.type == "cuda" else None
+    zero_counts()
+    with recorded_launches(errs) as calls:
+        pred = forward(plan_t, params_t, state_t, torch.bfloat16)
+    out = batched_nms_kpt(pred)
+    counts = read_counts()
+    n_calls = len(calls)
+    del calls
+    want = {kid: 0 for kid in COUNTED} | {"K1": 1, "K3": spans}
+    conv_err = max(errs) if errs else None
+    log(f"pose (b): pred {tuple(pred.shape)}; {int(out[0].sum())} detections; launches "
+        f"{counts}; {n_calls} conv_silu launches, each held against the plain conv on its "
+        f"own slices: max abs err {conv_err}")
+    if dev.type == "cuda" and (counts != want or n_calls != len(SPAN_LAUNCHES) * spans):
+        raise AssertionError(f"pose (b): launch counts {counts}, want {want}; {n_calls} "
+                             f"conv_silu launches")
+    with plain_nms():
+        plain = batched_nms_kpt(pred)
+    for field, a, b in zip(("num_dets", "boxes", "scores", "classes", "keypoints"), out, plain):
+        if not torch.equal(a, b):
+            raise AssertionError(f"pose (b): {field} differ between K1 and the plain keep-mask")
+    p16 = tree_map(lambda t: t.to(torch.bfloat16) if t.dtype == torch.float32 else t, params)
+    with full_fp32(dev.type == "cuda"):
+        pred32 = forward(model.plan, params, state, torch.float32)
+    pred16 = forward(model.plan, p16, state, torch.bfloat16)
+    with plain_nms():
+        want32 = _kpt_rows(batched_nms_kpt(pred32))
+        ref16 = _kpt_rows(batched_nms_kpt(pred16))
+    agree = agreement("pose (b)", _kpt_rows(out), want32)
+    agree_bf16 = agreement("pose (b) cuDNN bf16", ref16, want32)
+    kpt_rel, kpt_px = kpt_error(pred, pred32)
+    kpt_rel16, kpt_px16 = kpt_error(pred16, pred32)
+    del pred16, pred32
+    log(f"pose (b): NMS output bit-equal with K1 and with the plain keep-mask, keypoints "
+        f"included; detections agree {agree:.3f} with the fp32 forward (cuDNN bf16 "
+        f"{agree_bf16:.3f}, margin {MATCH_MARGIN}); keypoints of the fp32 forward's "
+        f"candidate anchors against it: relative RMS {kpt_rel:.4g}, max abs x/y {kpt_px:.4g} "
+        f"px (cuDNN bf16 {kpt_rel16:.4g}, {kpt_px16:.4g} px; limit {FEAT_RATIO} x)")
+    if not agree >= agree_bf16 - MATCH_MARGIN:
+        raise AssertionError(f"pose (b): agreement {agree:.3f}, cuDNN bf16 {agree_bf16:.3f}")
+    if not kpt_rel <= FEAT_RATIO * kpt_rel16:
+        raise AssertionError(f"pose (b): keypoints {kpt_rel:.4g} relative RMS from fp32, "
+                             f"cuDNN bf16 {kpt_rel16:.4g}")
+    res = {"launches": counts, "spans": spans, "detections": int(out[0].sum()),
+           "agreement": agree, "agreement_cudnn_bf16": agree_bf16,
+           "kpt_rel_rms_fp32": kpt_rel, "kpt_max_abs_px_fp32": kpt_px,
+           "kpt_rel_rms_fp32_cudnn_bf16": kpt_rel16, "kpt_max_abs_px_fp32_cudnn_bf16": kpt_px16,
+           "conv_silu_launches": n_calls, "conv_silu_max_abs_err": conv_err,
+           "forward_ms": None, "nms_ms": None, "fused_at_pose_shapes": {}}
+    if dev.type == "cuda":
+        res["forward_ms"] = cuda_ms(lambda: forward(plan_t, params_t, state_t, torch.bfloat16),
+                                    iters=5, warmup=1)
+        res["nms_ms"] = cuda_ms(lambda: batched_nms_kpt(pred), iters=20, warmup=3)
+        del pred, out, plain
+        # K3 whole against its plain version at the 11 spans' shapes
+        # (random weights, the forward's batch)
+        check_k3(dev, res["fused_at_pose_shapes"], span_shapes, batch, key="K3_pose",
+                 stages_alone=False)
+    log(f"pose (b): ms a forward (batch {batch}, {img} px) {res['forward_ms']}, ms of "
+        f"batched_nms_kpt {res['nms_ms']}; card {smi() if dev.type == 'cuda' else 'none'}")
+    return res
+
+
+def check_ranking(dev, n=4096):
+    """The ranking losses (RankSort's identity-update gradient, AP and aLRP
+    with plain gradients) and SigmoidBin's bf16 decode with tied bins, on
+    the card against the CPU on the same inputs."""
+    gen = torch.Generator().manual_seed(29)
+    logits = torch.randn(n, generator=gen) * 2
+    logits[10:40] = logits[0]
+    targets = torch.zeros(n)
+    fg = torch.randperm(n, generator=gen)[:n // 16]
+    targets[fg] = torch.rand(len(fg), generator=gen) * 0.7 + 0.3
+    valid = torch.ones(n, dtype=torch.bool)
+    valid[-64:] = False
+    quality = torch.rand(n, generator=gen)
+    fns = {"rank_sort": lambda x, t, v, q: rank_sort_loss(x, t, v),
+           "ap": lambda x, t, v, q: ap_loss(x, t, v),
+           "alrp": lambda x, t, v, q: sum(alrp_loss(x, t, q, v))}
+    errs = {}
+    for name, fn in fns.items():
+        res = []
+        for where in (dev, torch.device("cpu")):
+            x = logits.to(where).requires_grad_()
+            with full_fp32(where.type == "cuda"):
+                val = fn(x, targets.to(where), valid.to(where), quality.to(where))
+            (g,) = torch.autograd.grad(val, [x])
+            res.append((val.detach().cpu(), g.cpu()))
+        (vc, gc), (vh, gh) = res
+        errs[name] = {"value": float((vc - vh).abs() / vh.abs().clamp(min=1e-30)),
+                      "grad": float((gc - gh).abs().max() / gh.abs().max().clamp(min=1e-30))}
+    sb = SigmoidBin(21, 0.0, 4.0)
+    pred = torch.rand((4096, sb.length), generator=gen)
+    pred[:2048, 3] = pred[:2048, 9] = 1.0
+    pred = pred.to(torch.bfloat16)
+    same = torch.equal(sb.forward(pred.to(dev)).cpu(), sb.forward(pred))
+    log(f"tail (c): ranking losses on {n} logits, card against CPU (relative; limit "
+        f"{RANK_RTOL}): {errs}; SigmoidBin's decode of bf16 rows with tied bins bit-equal "
+        f"{same}")
+    if not same:
+        raise AssertionError("tail (c): SigmoidBin's bf16 decode differs on the card")
+    if not all(e <= RANK_RTOL for d in errs.values() for e in d.values()):
+        raise AssertionError(f"tail (c): ranking losses differ: {errs}")
+    return {"ranking_rel_err": errs, "sigmoid_bin_bf16_equal": same}
+
+
+def ibin_train(dev, width=1.0, img=IMG, batch=BATCH):
+    """(c) yolov7 with an IBin head: three bf16 bin-OTA steps at `img` px,
+    batch `batch` (ms and host ms a step), a fp32 step at width 0.25 card
+    against CPU, the livened and fused model through the bf16 Detector
+    (K1L at 4096 candidates, bit-equal with the plain keep-mask), the
+    ranking losses and SigmoidBin's bf16 decode."""
+    cfg = ibin_cfg(width)
+    model = train_model(dev, width, cfg=cfg)
+    plan, opt = model.plan, train_optim.OptimConfig()
+    if not isinstance(plan.head, H.IBin):
+        raise AssertionError(f"tail (c): head {type(plan.head).__name__}")
+    step = make_train_step(plan, make_compute_loss_bin_ota(plan.head, LossHyp()), opt,
+                           compute_dtype=torch.bfloat16)
+    lr, mom = lr_after_warmup(opt)
+    batch_np = train_batch(np.random.default_rng(31), batch, img)
+    ts = init_train_state(model.params, model.state, opt, device=dev)
+    zero_counts()
+    totals = []
+    for _ in range(IBIN_STEPS):
+        ts, metrics = step(ts, *batch_np, lr, mom)
+        totals.append(float(metrics["total"]))
+    counts = read_counts()
+    if not all(math.isfinite(t) for t in totals):
+        raise AssertionError(f"tail (c): bin-OTA losses {totals}")
+    timing = {"ms_step": None, "host_ms_step": None}
+    if dev.type == "cuda":
+        timing = step_timing(lambda: step(ts, *batch_np, lr, mom), batch, iters=IBIN_STEPS)
+    log(f"tail (c): {cfg_name(cfg)} width {width}, {img} px, batch {batch}, bf16, bin-OTA: "
+        f"losses {totals}; launches {counts} (the step runs no kernel of the port); "
+        f"{timing}")
+    del ts
+    fp32 = check_fp32_step(dev, cfg=cfg, what="tail (c) fp32 step",
+                           make_loss=make_compute_loss_bin_ota)
+
+    model = Model.from_yaml(cfg, seed=1, device=dev)
+    rng = np.random.default_rng(37)
+    calib = torch.from_numpy(rng.integers(0, 256, (2, img, img, 3), np.uint8))
+    liven(model.plan, model.params, model.state, calib.to(dev).float() / 255.0)
+    params, state = fuse_model(model.plan, model.params, model.state)
+    images = [noise_image(rng, hw, img) for hw in DATA_SHAPES]
+    det = Detector(model.plan, params, state, img_size=img, dtype=torch.bfloat16, device=dev)
+    zero_counts()
+    got = det(images)
+    det_counts = read_counts()
+    with plain_nms():
+        plain = det(images)
+    for i, (a, b) in enumerate(zip(got, plain)):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"tail (c) image {i}: detections differ between K1L and "
+                                 "the plain keep-mask")
+    n_stem, n_elan = plan_names(det)
+    log(f"tail (c): the IBin Detector ({n_stem} FusedStem, {n_elan} FusedELAN) on "
+        f"{len(images)} images: {sum(len(d) for d in got)} detections, bit-equal with the "
+        f"plain keep-mask; launches {det_counts}")
+    if dev.type == "cuda" and det_counts["K1L"] != 1:
+        raise AssertionError(f"tail (c): Detector launches {det_counts}")
+    return {"launches": {k: counts[k] + det_counts[k] for k in counts}, "losses": totals,
+            **timing, "fp32_step": fp32, "detections": sum(len(d) for d in got),
+            "detector_launches": det_counts, **check_ranking(dev)}
+
+
+def tail(dev, width=1.0, img=IMG, batch=BATCH, pose_img=POSE_IMG, requests=TAIL_REQUESTS):
+    """Phase 13: (a) the tail zoo, (b) the pose model, (c) IBin training.
+    Returns the numbers, with the launches of the counted main paths."""
+    t_phase = time.perf_counter()
+    zoo_res = tail_zoo(dev, width, img, batch, requests)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    pose_res = pose(dev, width, pose_img, batch)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    ibin = ibin_train(dev, width, img, batch)
+    launches = {kid: zoo_res["launches"].get(kid, 0) + pose_res["launches"][kid]
+                + ibin["launches"][kid] for kid in COUNTED}
+    secs = time.perf_counter() - t_phase
+    log(f"tail: launches of its main paths {launches}; phase {secs:.1f} s; card "
+        f"{smi() if dev.type == 'cuda' else 'none'}")
+    keys = ("replays", "img_s", "device_ms_bs8", "replay_ms_bs8", "eager_ms_bs8",
+            "p50_ms_bs8", "p50_ms_bs1", "host_ms_infer_async", "enqueue_ms_bs8", "profile",
+            "feature_rms_err", "feature_rms_err_cudnn_bf16", "agreement",
+            "agreement_cudnn_bf16", "orepa_deploy_max_err", "head_inputs_rel_rms",
+            "classify_rel_rms")
+    return {"launches": launches, "zoo": {k: zoo_res.get(k) for k in keys}, "pose": pose_res,
+            "ibin": ibin, "phase_s": secs}
 
 
 # ------------------------------------------------------------ main ---
@@ -3951,6 +4429,7 @@ def main() -> int:
     par = ranks(dev)
     rest = zoo(dev)
     entry = entry_points(dev, m, cli["epochs"])
+    tail_res = tail(dev)
 
     # host-side counts of each kernel's main path: K1-K3 as the bf16
     # engines launched them (warm-up and capture; what the replays launch
@@ -3967,6 +4446,8 @@ def main() -> int:
     for kid, n in rest["launches"].items():
         launches[kid] += n
     for kid, n in entry["launches"].items():
+        launches[kid] += n
+    for kid, n in tail_res["launches"].items():
         launches[kid] += n
     for kid in COUNTED:
         if kid != "K4b" and launches[kid] == 0:
@@ -3991,7 +4472,7 @@ def main() -> int:
                     "int8_serving": {k: srv8[k] for k in keys + ("calibrate_s",)},
                     "full_int8": full, "detect": det, "eval": ev, "train": tr,
                     "train_test_cli": cli, "p6": six, "ranks": par, "zoo": rest,
-                    "entry_points": entry,
+                    "entry_points": entry, "tail": tail_res,
                     "fused": {"K2": rows["K2"], "K3": rows["K3"]},
                     "k1l_runs": rows["k1l_runs"],
                     "stages": rows["stages"], "k4_convs": rows["k4_convs"],
@@ -4000,7 +4481,7 @@ def main() -> int:
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, train phase "
         f"{tr['phase_s']:.1f} s, train and test CLIs {cli['phase_s']:.1f} s, P6 "
         f"{six['phase_s']:.1f} s, ranks {par['phase_s']:.1f} s, zoo {rest['phase_s']:.1f} s, "
-        f"entry points {entry['phase_s']:.1f} s")
+        f"entry points {entry['phase_s']:.1f} s, tail {tail_res['phase_s']:.1f} s")
     log(smi())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,8 +5,9 @@ exporter reads back through the other's importer to the same trees, bit
 for bit, for yolov7's training and deploy forms and the P6 training forms
 (w6 with IAuxDetect, e6e with DownC and Shortcut), unfused and fused;
 `.pt` files (a state dict, and `{"model", "ema"}` dicts of fp16 tensors)
-load through `load_checkpoint_any` and the Detector; a stray key, an
-unported block or head, and a `.pt` without a cfg raise."""
+load through `load_checkpoint_any` and the Detector; Focus and the IBin
+head bridge as the JAX package's do; a stray key, a block or head that
+neither package knows, and a `.pt` without a cfg raise."""
 
 import dataclasses
 
@@ -205,35 +206,62 @@ def test_strict_refuses_a_stray_key(w6):
 
 
 @dataclasses.dataclass(frozen=True)
-class Focus(TL.Block):
-    """Stands in for a block of the reference zoo the port does not have."""
+class NoSuchBlock(TL.Block):
+    """Stands in for a block that neither package knows."""
 
     c1: int
 
 
 @dataclasses.dataclass(frozen=True)
-class IBin:
-    """Stands in for the reference's IBin head."""
+class NoSuchHead:
+    """Stands in for a head that neither package knows."""
 
     nc: int = 80
 
 
 def test_unported_blocks_raise_naming_their_item(w6):
-    """A block or head outside the port's scope raises NotImplementedError
-    naming the ROADMAP queue 1 item that ports it: 16 for the rest of the
-    zoo, 15 for the IBin and IKeypoint heads; the exporter likewise."""
+    """The block and head once refused here (Focus, item 16 (c); IBin,
+    item 15) bridge both ways now: yolov7 at width 0.25 with a Focus
+    layer and an IBin head exports the keys and values of the JAX
+    exporter, and JAX's state dict imports to the JAX importer's trees,
+    unfused and fused."""
+    cfg = zoo_cfg("yolov7", "training", 0.25)
+    cfg["backbone"][1] = [-1, 1, "Focus", [64, 3]]
+    cfg["head"][-1] = [cfg["head"][-1][0], 1, "IBin", ["nc", "anchors"]]
+    jplan, params, state, tplan, tp, ts = port_drawn_model(cfg, seed=1, stats_seed=2)
+    assert isinstance(tplan.layers[1].block, TL.Focus)
+    assert type(tplan.head).__name__ == "IBin"
+    for fused in (False, True):
+        if fused:
+            tp, ts = treparam.fuse_model(tplan, tp, ts)
+            params, state = to_jax_params(tplan, tp, ts)
+        want = jexport(jplan, params, state)
+        got = export_state_dict(tplan, tp, ts)
+        assert sorted(got) == sorted(want)
+        for k in want:
+            np.testing.assert_array_equal(got[k], np.asarray(want[k]), err_msg=k)
+        wp, ws = jimport(jplan, want)
+        gp, gs = import_state_dict(tplan, want)
+        _same_trees(gp, from_jax_params(tplan, jax.tree_util.tree_map(np.asarray, wp),
+                                        jax.tree_util.tree_map(np.asarray, ws))[0])
+
+
+def test_unknown_block_or_head_raises_naming_no_item(w6):
+    """A block or head class that neither package knows raises
+    NotImplementedError naming no ROADMAP item, in the importer and the
+    exporter."""
     _, tplan, tp, ts = w6
     sd = export_state_dict(tplan, tp, ts)
     layers = list(tplan.layers)
-    layers[1] = dataclasses.replace(layers[1], block=Focus(3))
+    layers[1] = dataclasses.replace(layers[1], block=NoSuchBlock(3))
     plan = dataclasses.replace(tplan, layers=tuple(layers))
-    with pytest.raises(NotImplementedError, match="Focus.*item 16"):
+    with pytest.raises(NotImplementedError, match="NoSuchBlock.*no ROADMAP item"):
         import_state_dict(plan, sd)
-    with pytest.raises(NotImplementedError, match="Focus.*item 16"):
+    with pytest.raises(NotImplementedError, match="NoSuchBlock.*no ROADMAP item"):
         export_state_dict(plan, tp, ts)
     layers = list(tplan.layers)
-    layers[-1] = dataclasses.replace(layers[-1], block=IBin())
-    with pytest.raises(NotImplementedError, match="IBin.*item 15"):
+    layers[-1] = dataclasses.replace(layers[-1], block=NoSuchHead())
+    with pytest.raises(NotImplementedError, match="NoSuchHead.*no ROADMAP item"):
         import_state_dict(dataclasses.replace(tplan, layers=tuple(layers)), sd)
 
 

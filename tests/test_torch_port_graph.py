@@ -91,20 +91,27 @@ def test_implicit_layers_compile_from_the_dsl():
     assert len(tp.layers) == 108
 
 
-@pytest.mark.parametrize("module", ["IBin", "GhostCSPA", "Focus"])
+@pytest.mark.parametrize("module", ["IBin", "GhostCSPA", "Focus", "NoSuchBlock"])
 def test_unported_module_raises(module):
-    """A head or block the port does not have yet raises, naming its ROADMAP
-    queue 1 item: 15 for the IBin head, 16 (c) for the zoo blocks no
-    shipped cfg uses (IAuxDetect, ReOrg and the BottleneckCSP family, once
-    here, are ported: tests/test_torch_port_p6.py, test_torch_port_zoo*.py)."""
+    """The modules once refused here compile now as the JAX package
+    compiles them (the IBin head, item 15; GhostCSPA and Focus, item 16
+    (c): tests/test_torch_port_heads_tail.py, test_torch_port_zoo_tail.py):
+    the same blocks, channels and strides. A name that neither package
+    knows still raises NotImplementedError, naming no ROADMAP item."""
     cfg = deploy_cfg(1.0)
     if module == "IBin":
         cfg["head"][-1] = [[102, 103, 104], 1, "IBin", ["nc", "anchors"]]
     else:
         cfg["backbone"][1] = [-1, 1, module, [64]]
-    item = "15" if module == "IBin" else r"16 \(c\)"
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, item {item}"):
-        tgraph.compile_graph(cfg)
+    if module == "NoSuchBlock":
+        with pytest.raises(NotImplementedError, match="no ROADMAP item: neither package knows"):
+            tgraph.compile_graph(cfg)
+        with pytest.raises(NotImplementedError):
+            jgraph.compile_graph(cfg)
+        return
+    tp, jp = tgraph.compile_graph(cfg), jgraph.compile_graph(cfg)
+    assert [repr(s.block) for s in tp.layers] == [repr(s.block) for s in jp.layers]
+    assert [(s.cout, s.stride) for s in tp.layers] == [(s.cout, s.stride) for s in jp.layers]
 
 
 def test_fuse_model_matches_jax(half_width):

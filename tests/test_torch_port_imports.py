@@ -36,7 +36,8 @@ def test_every_module_imports_without_jax():
     assert len(MODULES) >= 15, MODULES
     # the train step's modules, the loader, trainer and CLIs, the aux loss,
     # the .pt bridge, the data-parallel layer, evolution, TTA, the hub, the
-    # export CLI and the device-augment tail are among those imported
+    # export CLI, the device-augment tail, the long-tail blocks, the bin and
+    # ranking losses are among those imported
     assert {f"yolo_series_tpu_torch.{m}" for m in (
         "losses", "losses.targets", "losses.yolo_loss", "losses.ota", "losses.aux_ota",
         "models.torch_import", "models.torch_export", "train.optim",
@@ -44,7 +45,9 @@ def test_every_module_imports_without_jax():
         "data.augment", "data.datasets", "eval.coco_eval", "cli.test", "models.convert",
         "train.checkpoints", "utils.autoanchor", "obs.loggers", "obs.artifacts",
         "train.trainer", "cli.train", "parallel", "parallel.dist",
-        "train.evolve", "hub", "models.tta", "cli.export", "data.device_aug")} <= {
+        "train.evolve", "hub", "models.tta", "cli.export", "data.device_aug",
+        "models.extra", "models.attention", "losses.bin", "losses.bin_ota",
+        "losses.ranking")} <= {
         m.removesuffix(".__init__") for m in MODULES}
 
 

@@ -67,10 +67,10 @@ def pallas_1x1_eligible(block) -> bool:
 
 def quantize_tree(block, params, act_scales: Optional[Dict[str, float]] = None,
                   _path: str = "", mixed: bool = False):
-    """Recursively quantize the conv leaves of a fused param tree. With
-    mixed=True only the K4-eligible 1x1 convs are quantized and the rest
-    stay fp."""
-    if isinstance(block, (L.ConvBnAct, L.RepConv, L.PlainConv)):
+    """Recursively quantize the conv leaves of a fused param tree (Focus's
+    conv among them, as the JAX package's). With mixed=True only the
+    K4-eligible 1x1 convs are quantized and the rest stay fp."""
+    if isinstance(block, (L.ConvBnAct, L.Focus, L.RepConv, L.PlainConv)):
         if mixed and not pallas_1x1_eligible(block):
             return params
         scale = act_scales.get(_path) if act_scales else None

@@ -66,11 +66,15 @@ def _softplus(x):
 @torch.no_grad()
 def ota_assign_batch(raw: Sequence[torch.Tensor], labels, label_mask,
                      anchors: np.ndarray, strides: np.ndarray,
-                     hyp: LossHyp, g: float, topk: int):
+                     hyp: LossHyp, g: float, topk: int, codec=None):
     """SimOTA assignment. raw: [(B, na, ny, nx, no)] lead maps (fp32).
     Returns fg (B, C) bool, matched_gt (B, C) int64 over the concatenated
     candidate columns (level-major), and the level column offsets. No
-    gradient flows through it."""
+    gradient flows through it. codec: another head's channel layout,
+    {"obj_idx": the objectness channel (the classes follow it),
+    "wh_decode": (ps (B, Cl, no), anchors (Cl, 2)) -> (B, Cl, 2) w, h in
+    grid units} (the IBin head's bins, `losses/bin_ota.py`); None for
+    [x, y, w, h, obj, classes]."""
     grids = [(r.shape[2], r.shape[3]) for r in raw]
     # gt pixel scale from the maps' own shapes (the reference's
     # `this_target[:, 2:6] * imgs[batch_idx].shape[1]`, loss.py:661)
@@ -91,7 +95,10 @@ def ota_assign_batch(raw: Sequence[torch.Tensor], labels, label_mask,
         anc = c.anchors[None, :, None, :].expand(m, na, K_OFFSETS, 2).reshape(-1, 2)
         grid = torch.stack([gi, gj], -1).float()
         pxy = (torch.sigmoid(ps[..., 0:2]) * 2.0 - 0.5 + grid) * float(strides[li])
-        pwh = torch.square(torch.sigmoid(ps[..., 2:4]) * 2.0) * anc * float(strides[li])
+        if codec is None:
+            pwh = torch.square(torch.sigmoid(ps[..., 2:4]) * 2.0) * anc * float(strides[li])
+        else:
+            pwh = codec["wh_decode"](ps, anc) * float(strides[li])
         all_xyxy.append(xywh2xyxy(torch.cat([pxy, pwh], -1)))
         all_ps.append(ps)
         all_valid.append(c.valid.reshape(b, -1))
@@ -110,8 +117,9 @@ def ota_assign_batch(raw: Sequence[torch.Tensor], labels, label_mask,
     top_iou = _top_k_iter(pair_iou, topk_eff)[0]
     dyn_k = torch.clamp(top_iou.sum(-1).to(torch.int32), min=1)         # (B, M)
 
-    obj_l = p_all[..., 4:5]
-    cls_l = p_all[..., 5:]
+    obj_idx = 4 if codec is None else codec["obj_idx"]
+    obj_l = p_all[..., obj_idx:obj_idx + 1]
+    cls_l = p_all[..., obj_idx + 1:]
     y = torch.sqrt(torch.sigmoid(cls_l) * torch.sigmoid(obj_l))
     z = torch.log(y / (1.0 - y + 1e-12) + 1e-12)                         # (B, C, nc)
     sp_sum = _softplus(z).sum(-1)                                        # (B, C)

@@ -7,15 +7,15 @@ through each block's `stride_factor`, anchors order-checked and
 normalized, and module names resolved through an explicit registry — no
 eval(). Accepts the canonical lowercase names and the reference's names.
 
-The modules of every shipped cfg are ported: conv, mp, sp, reorg,
-concat, shortcut, upsample, spp, sppcspc, repconv, downc, stem,
-bottleneck, res, resx, the CSP wrappers bottleneckcsp{a,b,c},
-rescsp{a,b,c} and resxcsp{a,b,c}, the heads detect, idetect and
-iauxdetect, and the implicit layers implicita / implicitm, which take
-their width from their input. Any other module raises
-NotImplementedError naming the ROADMAP queue 1 item that ports it. An
-iauxdetect row routes 2 x nl inputs, lead maps then aux maps: nl comes
-from the anchors, and the lead inputs' strides are the head's.
+Every module name the JAX package's compiler accepts is registered here,
+with its blocks in the port's `models/layers.py`, `models/extra.py` and
+`models/attention.py` and its heads (detect, idetect, iauxdetect, ibin,
+ikeypoint) in `models/heads.py`; the implicit layers implicita /
+implicitm take their width from their input. A name that neither package
+knows raises NotImplementedError. An iauxdetect row routes 2 x nl inputs,
+lead maps then aux maps: nl comes from the anchors, and the lead inputs'
+strides are the head's. An ibin row's third argument is its bin count, an
+ikeypoint row's its keypoint count.
 """
 
 from __future__ import annotations
@@ -27,6 +27,8 @@ from typing import Any, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import yaml
 
+from yolo_series_tpu_torch.models import attention as ATT
+from yolo_series_tpu_torch.models import extra as X
 from yolo_series_tpu_torch.models import heads as H
 from yolo_series_tpu_torch.models import layers as L
 
@@ -37,72 +39,95 @@ def make_divisible(x, divisor=8):
 
 # name normalization: reference DSL name -> canonical
 _REF_NAMES = {
-    "Conv": "conv", "RepConv": "repconv", "DownC": "downc", "SPP": "spp",
-    "SPPCSPC": "sppcspc", "Stem": "stem", "Bottleneck": "bottleneck",
+    "Conv": "conv", "nn.Conv2d": "conv2d", "DWConv": "dwconv",
+    "GhostConv": "ghostconv", "RepConv": "repconv", "DownC": "downc",
+    "SPP": "spp", "SPPF": "sppf", "SPPCSPC": "sppcspc",
+    "GhostSPPCSPC": "ghostsppcspc", "Focus": "focus", "Stem": "stem",
+    "GhostStem": "ghoststem", "Bottleneck": "bottleneck",
     "BottleneckCSPA": "bottleneckcspa", "BottleneckCSPB": "bottleneckcspb",
     "BottleneckCSPC": "bottleneckcspc",
     "Res": "res", "ResCSPA": "rescspa", "ResCSPB": "rescspb", "ResCSPC": "rescspc",
     "ResX": "resx", "ResXCSPA": "resxcspa", "ResXCSPB": "resxcspb",
     "ResXCSPC": "resxcspc",
+    "Ghost": "ghost", "GhostCSPA": "ghostcspa", "GhostCSPB": "ghostcspb",
+    "GhostCSPC": "ghostcspc",
     "MP": "mp", "SP": "sp", "ReOrg": "reorg", "Concat": "concat",
-    "Shortcut": "shortcut", "nn.Upsample": "upsample", "Upsample": "upsample",
+    "Chuncat": "chuncat", "Shortcut": "shortcut", "Foldcut": "foldcut",
+    "nn.Upsample": "upsample", "Upsample": "upsample",
+    "nn.BatchNorm2d": "batchnorm2d", "Contract": "contract", "Expand": "expand",
     "Detect": "detect", "IDetect": "idetect", "IAuxDetect": "iauxdetect",
+    "IBin": "ibin", "IKeypoint": "ikeypoint",
+    "RobustConv": "robustconv", "RobustConv2": "robustconv2",
+    "CrossConv": "crossconv", "Sum": "sum", "MixConv2d": "mixconv2d",
+    "SwinTransformerBlock": "swintransformerblock",
+    "SwinTransformer2Block": "swintransformer2block",
+    "STCSPA": "stcspa", "STCSPB": "stcspb", "STCSPC": "stcspc",
+    "ST2CSPA": "st2cspa", "ST2CSPB": "st2cspb", "ST2CSPC": "st2cspc",
+    "TransformerBlock": "transformerblock",
+    "RepConv_OREPA": "repconv_orepa",
+    "Classify": "classify", "FReLU": "frelu",
     "ImplicitA": "implicita", "ImplicitM": "implicitm",
-    "nn.Conv2d": "conv2d", "nn.BatchNorm2d": "batchnorm2d",
 }
 # conv-family modules: args start [c2, ...] and get width scaling
 _CONV_FAMILY = {
-    "conv", "repconv", "downc", "spp", "sppcspc", "stem", "bottleneck",
+    "conv", "conv2d", "dwconv", "ghostconv", "repconv", "downc", "spp", "sppf",
+    "sppcspc", "ghostsppcspc", "focus", "stem", "ghoststem", "bottleneck",
     "bottleneckcspa", "bottleneckcspb", "bottleneckcspc",
     "res", "rescspa", "rescspb", "rescspc", "resx", "resxcspa", "resxcspb",
-    "resxcspc",
+    "resxcspc", "ghost", "ghostcspa", "ghostcspb", "ghostcspc",
+    "robustconv", "robustconv2", "crossconv", "mixconv2d",
+    "swintransformerblock", "swintransformer2block",
+    "stcspa", "stcspb", "stcspc", "st2cspa", "st2cspb", "st2cspc",
+    "transformerblock", "repconv_orepa", "classify",
 }
 # subset that takes an inner repeat count inserted at args[2]
 _TAKES_N = {
-    "downc", "sppcspc", "bottleneckcspa", "bottleneckcspb", "bottleneckcspc",
-    "rescspa", "rescspb", "rescspc", "resxcspa", "resxcspb", "resxcspc",
+    "downc", "sppcspc", "ghostsppcspc", "bottleneckcspa", "bottleneckcspb",
+    "bottleneckcspc", "rescspa", "rescspb", "rescspc", "resxcspa", "resxcspb",
+    "resxcspc", "ghostcspa", "ghostcspb", "ghostcspc",
+    "stcspa", "stcspb", "stcspc", "st2cspa", "st2cspb", "st2cspc",
 }
+
+
+def _swin2block(c1, c2, num_heads, num_layers, window_size=7):
+    """SwinTransformer2Block: v2 layers, window 7 by default, not v1's 8
+    (common.py:1947)."""
+    return ATT.SwinTransformerBlock(c1, c2, num_heads, num_layers,
+                                    window_size=window_size, v2=True)
+
+
 _BLOCK_CLASSES = {
-    "conv": L.ConvBnAct, "repconv": L.RepConv, "downc": L.DownC, "spp": L.SPP,
-    "sppcspc": L.SPPCSPC, "stem": L.Stem, "bottleneck": L.Bottleneck,
-    "bottleneckcspa": L.BottleneckCSPA, "bottleneckcspb": L.BottleneckCSPB,
-    "bottleneckcspc": L.BottleneckCSPC,
+    "conv": L.ConvBnAct, "dwconv": L.DWConv, "ghostconv": L.GhostConv,
+    "repconv": L.RepConv, "downc": L.DownC, "spp": L.SPP, "sppf": L.SPPF,
+    "sppcspc": L.SPPCSPC, "focus": L.Focus, "stem": L.Stem,
+    "bottleneck": L.Bottleneck, "bottleneckcspa": L.BottleneckCSPA,
+    "bottleneckcspb": L.BottleneckCSPB, "bottleneckcspc": L.BottleneckCSPC,
     "res": L.Res, "rescspa": L.ResCSPA, "rescspb": L.ResCSPB, "rescspc": L.ResCSPC,
     "resx": L.ResX, "resxcspa": L.ResXCSPA, "resxcspb": L.ResXCSPB,
     "resxcspc": L.ResXCSPC,
-    "mp": L.MP, "sp": L.SP, "reorg": L.ReOrg, "implicita": L.ImplicitA,
-    "implicitm": L.ImplicitM,
+    "ghost": L.Ghost, "ghostcspa": L.GhostCSPA, "ghostcspb": L.GhostCSPB,
+    "ghostcspc": L.GhostCSPC,
+    "mp": L.MP, "sp": L.SP, "reorg": L.ReOrg, "foldcut": L.Foldcut,
+    "batchnorm2d": L.BatchNorm2d, "contract": L.Contract, "expand": L.Expand,
+    "conv2d": L.PlainConv, "implicita": L.ImplicitA, "implicitm": L.ImplicitM,
+    "ghostsppcspc": X.GhostSPPCSPC, "ghoststem": X.GhostStem,
+    "robustconv": X.RobustConv, "robustconv2": X.RobustConv2,
+    "crossconv": X.CrossConv, "mixconv2d": X.MixConv2d,
+    "repconv_orepa": X.RepConvOREPA, "classify": X.Classify, "frelu": X.FReLU,
+    "swintransformerblock": ATT.SwinTransformerBlock,
+    "swintransformer2block": _swin2block,
+    "stcspa": ATT.STCSPA, "stcspb": ATT.STCSPB, "stcspc": ATT.STCSPC,
+    "st2cspa": ATT.ST2CSPA, "st2cspb": ATT.ST2CSPB, "st2cspc": ATT.ST2CSPC,
+    "transformerblock": ATT.TransformerBlock,
 }
 _HEAD_CLASSES = {"detect": H.Detect, "idetect": H.IDetect,
-                 "iauxdetect": H.IAuxDetect}
-# the ROADMAP queue 1 item of each module the port does not compile: the
-# zoo blocks no shipped cfg uses (16 (c)), those of the JAX package's
-# models/extra.py and models/attention.py (16 (d)), the other heads (15)
-_ITEMS = {
-    "16 (c)": ("conv2d", "dwconv", "ghostconv", "sppf", "focus", "ghost",
-               "ghostcspa", "ghostcspb", "ghostcspc", "chuncat", "foldcut",
-               "batchnorm2d", "contract", "expand"),
-    "16 (d)": ("ghostsppcspc", "ghoststem", "robustconv", "robustconv2",
-               "crossconv", "mixconv2d", "repconv_orepa", "classify", "frelu",
-               "sum", "swintransformerblock", "swintransformer2block", "stcspa",
-               "stcspb", "stcspc", "st2cspa", "st2cspb", "st2cspc",
-               "transformerblock"),
-    "15": ("ibin", "ikeypoint"),
-}
-_NAME_ITEM = {name: item for item, names in _ITEMS.items() for name in names}
-
-
-def roadmap_item(module: str) -> Optional[str]:
-    """The ROADMAP queue 1 item that ports a module of the reference DSL
-    (its reference or canonical name), None for a name no package knows."""
-    return _NAME_ITEM.get(_norm_module(module))
+                 "iauxdetect": H.IAuxDetect, "ibin": H.IBin,
+                 "ikeypoint": H.IKeypoint}
 
 
 def _not_ported(m: str, i: int) -> NotImplementedError:
-    item = roadmap_item(m)
-    where = (f"ROADMAP queue 1, item {item}" if item is not None
-             else "no ROADMAP item: neither package knows it")
-    return NotImplementedError(f"module {m!r} (layer {i}) is not ported yet: {where}")
+    return NotImplementedError(f"unknown module {m!r} (layer {i}): no ROADMAP item: "
+                               "neither package knows it")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -212,10 +237,18 @@ def compile_graph(cfg: Union[str, dict], ch: int = 3,
             lead_strides = tuple(st_at(x) for x in f[:nl])
             anc_np = check_anchor_order(anc_np, lead_strides)
             anc_norm = anc_np / np.asarray(lead_strides, np.float32)[:, None, None]
+            extra = {}
+            if len(args) > 2 and isinstance(args[2], int):
+                # the third argument: nkpt (IKeypoint, yolo.py:214), bin_count
+                # (IBin, yolo.py:437)
+                if name == "ikeypoint":
+                    extra["nkpt"] = args[2]
+                elif name == "ibin":
+                    extra["bin_count"] = args[2]
             head = _HEAD_CLASSES[name](
                 nc=args[0] if args else nc_,
                 anchors=tuple(tuple(r.reshape(-1).tolist()) for r in anc_norm),
-                ch=head_ch, strides=lead_strides)
+                ch=head_ch, strides=lead_strides, **extra)
             frm_h = tuple(j if j == -1 else (i + j if j < 0 else j) for j in f)
             spec = LayerSpec(i, frm_h, head, 0, 0.0, is_head=True)
             layers.append(spec)
@@ -248,8 +281,17 @@ def compile_graph(cfg: Union[str, dict], ch: int = 3,
             block = L.Concat(cins)
             cout = block.cout
             stride = sts.pop()
+        elif name == "chuncat":
+            block = L.Chuncat(tuple(ch_at(x) for x in f))
+            cout = block.cout
+            stride = st_at(f[0])
         elif name == "shortcut":
             block = L.Shortcut(tuple(ch_at(x) for x in f))
+            cout = block.cout
+            stride = st_at(f[0])
+        elif name == "sum":
+            block = X.Sum(tuple(ch_at(x) for x in f),
+                          weight=bool(args[1]) if len(args) > 1 else False)
             cout = block.cout
             stride = st_at(f[0])
         elif name == "upsample":

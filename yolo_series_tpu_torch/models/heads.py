@@ -1,11 +1,11 @@
-"""Detect, IDetect and IAuxDetect heads (counterpart of
-`yolo_series_tpu/models/heads.py` Detect, IDetect, IAuxDetect).
+"""The detection heads (counterpart of `yolo_series_tpu/models/heads.py`):
+Detect, IDetect, IAuxDetect, the binned-size IBin and the pose head
+IKeypoint.
 
-Semantics mirror reference models/yolo.py:23-430. The decoded output
+Semantics mirror reference models/yolo.py:23-505. The decoded output
 concatenates the levels into one (B, sum(na*ny*nx), no) tensor in the
 reference's anchor-major order; the raw output per level is
-(B, na, ny, nx, no). IBin and IKeypoint (ROADMAP queue 1, item 15) are
-not ported yet.
+(B, na, ny, nx, no).
 """
 
 from __future__ import annotations
@@ -17,7 +17,16 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from yolo_series_tpu_torch.losses.bin import SigmoidBin
 from yolo_series_tpu_torch.models.layers import Ctx, ImplicitA, ImplicitM, PlainConv
+
+
+def _grid(ny, nx, device):
+    """(ny, nx, 1, 2) cell offsets (x, y)."""
+    gy, gx = torch.meshgrid(torch.arange(ny, dtype=torch.float32, device=device),
+                            torch.arange(nx, dtype=torch.float32, device=device),
+                            indexing="ij")
+    return torch.stack([gx, gy], dim=-1)[:, :, None, :]
 
 
 def _decode_level(p, stride, anchors_px, nc):
@@ -27,10 +36,7 @@ def _decode_level(p, stride, anchors_px, nc):
     (reference yolo.py:55-57)."""
     b, ny, nx, na, no = p.shape
     y = torch.sigmoid(p.float())
-    gy, gx = torch.meshgrid(
-        torch.arange(ny, dtype=torch.float32, device=p.device),
-        torch.arange(nx, dtype=torch.float32, device=p.device), indexing="ij")
-    grid = torch.stack([gx, gy], dim=-1)[:, :, None, :]          # (ny, nx, 1, 2)
+    grid = _grid(ny, nx, p.device)
     anc = torch.as_tensor(anchors_px, dtype=torch.float32,
                           device=p.device)[None, None]            # (1, 1, na, 2)
     xy = (y[..., 0:2] * 2.0 - 0.5 + grid) * stride
@@ -174,3 +180,136 @@ class IAuxDetect(Detect):
                    .to(mp["b"].device)}
                   for i, mp in enumerate(params["m2"])]
         return {**params, "m2": new_m2}
+
+
+@dataclasses.dataclass(frozen=True)
+class IBin(Detect):
+    """The binned-size head (reference yolo.py:433-505): an anchor's output
+    is [x, y, w bins (bin_count + 1), h bins (bin_count + 1), obj, classes],
+    w and h decoded by `SigmoidBin` (the argmax bin plus the residual,
+    over [0, 4] x the anchor). Params as IDetect's."""
+
+    bin_count: int = 21
+
+    @property
+    def no(self):
+        return self.nc + 3 + 2 * (self.bin_count + 1)
+
+    def _bins(self):
+        return SigmoidBin(self.bin_count, 0.0, 4.0)
+
+    init = IDetect.init
+    _raw_level = IDetect._raw_level
+
+    def apply(self, params, state, xs, ctx):
+        raws, preds = [], []
+        apx = self.anchors_grid()
+        sb = self._bins()
+        bl = self.bin_count + 1
+        for i in range(self.nl):
+            yraw = self._raw_level(params, xs, i, ctx)        # (B, ny, nx, na, no)
+            raws.append(yraw.permute(0, 3, 1, 2, 4))
+            if not ctx.training:
+                b, ny, nx, na, _ = yraw.shape
+                y = torch.sigmoid(yraw.float())
+                xy = (y[..., 0:2] * 2.0 - 0.5 + _grid(ny, nx, y.device)) * self.strides[i]
+                anc = torch.as_tensor(apx[i], dtype=torch.float32, device=y.device)
+                pw = sb.forward(y[..., 2:2 + bl]) * anc[:, 0]
+                ph = sb.forward(y[..., 2 + bl:2 + 2 * bl]) * anc[:, 1]
+                out = torch.cat([xy, pw[..., None], ph[..., None], y[..., 2 + 2 * bl:]], -1)
+                preds.append(out.permute(0, 3, 1, 2, 4).reshape(b, na * ny * nx, -1))
+        if ctx.training:
+            return {"raw": raws}, state
+        return {"pred": torch.cat(preds, 1), "raw": raws}, state
+
+    def _bias_prior(self, stride, cf=None):
+        """The obj / cls prior at IBin's channel layout (reference
+        _initialize_biases_bin, yolo.py:657-670)."""
+        prior = np.zeros((self.na, self.no), np.float32)
+        obj_idx = 2 * (self.bin_count + 1) + 2
+        prior[:, obj_idx] = math.log(8.0 / (640.0 / stride) ** 2)
+        prior[:, obj_idx + 1:] = (math.log(0.6 / (self.nc - 0.99)) if cf is None
+                                  else np.log(cf / cf.sum()))
+        return torch.from_numpy(prior.reshape(-1))
+
+
+@dataclasses.dataclass(frozen=True)
+class IKeypoint(Detect):
+    """The pose head (reference yolo.py:210-308): nc + 5 detection channels
+    (convs `m`, with the implicit layers `ia` / `im`) and 3 x nkpt
+    keypoint channels (convs `m_kpt`, on the level's input without `ia`).
+
+    As in the reference and the JAX package, the det and kpt conv outputs
+    are concatenated on the channel axis and that axis is read as
+    (na, no): anchor 0's keypoint slots hold det channels of anchors 1
+    and up. A trained network learns that reading, so it is kept. The
+    keypoints' x and y decode from the raw logits, (2 t - 0.5 + grid) x
+    stride, their visibility through a sigmoid."""
+
+    nkpt: int = 17
+
+    @property
+    def no_det(self):
+        return self.nc + 5
+
+    @property
+    def no_kpt(self):
+        return 3 * self.nkpt
+
+    @property
+    def no(self):
+        return self.no_det + self.no_kpt
+
+    def _convs(self) -> List[PlainConv]:
+        return [PlainConv(c, self.no_det * self.na, 1) for c in self.ch]
+
+    def _kpt_convs(self) -> List[PlainConv]:
+        return [PlainConv(c, self.no_kpt * self.na, 1) for c in self.ch]
+
+    def init(self, gen):
+        return {"m": [cv.init(gen)[0] for cv in self._convs()],
+                "m_kpt": [cv.init(gen)[0] for cv in self._kpt_convs()],
+                "ia": [ImplicitA(c).init(gen)[0] for c in self.ch],
+                "im": [ImplicitM(self.no_det * self.na).init(gen)[0] for _ in self.ch]}, {}
+
+    def apply(self, params, state, xs, ctx):
+        raws, preds = [], []
+        apx = self.anchors_grid()
+        for i in range(self.nl):
+            x = xs[i]
+            xd = ImplicitA(self.ch[i]).apply(params["ia"][i], {}, x, ctx)[0] \
+                if "ia" in params else x
+            det, _ = self._convs()[i].apply(params["m"][i], {}, xd, ctx)
+            if "im" in params:
+                det = ImplicitM(self.no_det * self.na).apply(params["im"][i], {}, det, ctx)[0]
+            kpt, _ = self._kpt_convs()[i].apply(params["m_kpt"][i], {}, x, ctx)
+            b, _, ny, nx = det.shape
+            full = torch.cat([det, kpt], dim=1).permute(0, 2, 3, 1).reshape(
+                b, ny, nx, self.na, self.no)
+            raws.append(full.permute(0, 3, 1, 2, 4))
+            if not ctx.training:
+                x_det = full[..., :self.no_det].float()
+                x_kpt = full[..., self.no_det:].float()
+                y = torch.sigmoid(x_det)
+                grid = _grid(ny, nx, y.device)
+                anc = torch.as_tensor(apx[i], dtype=torch.float32, device=y.device)[None, None]
+                xy = (y[..., 0:2] * 2.0 - 0.5 + grid) * self.strides[i]
+                wh = torch.square(y[..., 2:4] * 2.0) * anc
+                kx = (x_kpt[..., 0::3] * 2.0 - 0.5 + grid[..., 0:1]) * self.strides[i]
+                ky = (x_kpt[..., 1::3] * 2.0 - 0.5 + grid[..., 1:2]) * self.strides[i]
+                kv = torch.sigmoid(x_kpt[..., 2::3])
+                kout = torch.stack([kx, ky, kv], -1).reshape(*x_kpt.shape[:-1], -1)
+                out = torch.cat([xy, wh, y[..., 4:], kout], -1)
+                preds.append(out.permute(0, 3, 1, 2, 4).reshape(b, self.na * ny * nx, -1))
+        if ctx.training:
+            return {"raw": raws}, state
+        return {"pred": torch.cat(preds, 1), "raw": raws}, state
+
+    def _bias_prior(self, stride, cf=None):
+        """The obj / cls prior of the det convs (their na x (nc + 5)
+        channels)."""
+        prior = np.zeros((self.na, self.no_det), np.float32)
+        prior[:, 4] = math.log(8.0 / (640.0 / stride) ** 2)
+        prior[:, 5:] = (math.log(0.6 / (self.nc - 0.99)) if cf is None
+                        else np.log(cf / cf.sum()))
+        return torch.from_numpy(prior.reshape(-1))

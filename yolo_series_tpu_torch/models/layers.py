@@ -8,16 +8,21 @@ transforms stay plain tree edits. Params are dicts of tensors; conv
 weights are OIHW. Activations are NCHW tensors, kept in `channels_last`
 memory by the model, so a permute gives kernels contiguous NHWC.
 
-The blocks of every shipped cfg are here: ConvBnAct (BN, fused {w, b}
-or int8 {wq, sw, b[, sx]} form), PlainConv (detect-head convs), MP, SP,
-ReOrg, Upsample, Concat, Shortcut, SPP, SPPCSPC, RepConv, DownC, Stem,
-Bottleneck, Res (and ResX, a grouped Res), the CSP wrappers
-BottleneckCSPA/B/C, ResCSPA/B/C and ResXCSPA/B/C, and the
+Every block of the JAX module is here: ConvBnAct (BN, fused {w, b} or
+int8 {wq, sw, b[, sx]} form), PlainConv (detect-head convs and the
+`nn.Conv2d` layer), DWConv, MP, SP, ReOrg, Focus, Contract / Expand,
+Upsample, Concat, Chuncat, Shortcut, Foldcut, SPP, SPPF, SPPCSPC,
+GhostConv, Ghost, RepConv, DownC, Stem, Bottleneck, Res (and ResX, a
+grouped Res), the CSP wrappers BottleneckCSPA/B/C, ResCSPA/B/C,
+ResXCSPA/B/C and GhostCSPA/B/C, the standalone BatchNorm2d, and the
 implicit-knowledge layers ImplicitA / ImplicitM of IDetect and IAuxDetect,
-with every activation of the JAX package's table. The blocks that no
-shipped cfg uses (Ghost*, SPPF, Focus, Contract / Expand, Chuncat /
-Foldcut, BatchNorm2d, DWConv) are ROADMAP queue 1 item 16 (c), those of
-`models/extra.py` and `models/attention.py` item 16 (d).
+with every activation of the JAX package's table. The blocks of the JAX
+package's `models/extra.py` and `models/attention.py` are in the port's
+modules of the same names.
+
+The space-to-depth blocks (ReOrg, Focus, Contract) and Expand, Chuncat
+and Foldcut order their channels as the JAX package's NHWC blocks do: a
+block's output channel c here is channel c there.
 
 In training (`Ctx.training`) BN normalizes with the batch's moments and
 returns the new running stats, which every block hands back as its new
@@ -513,6 +518,11 @@ class PlainConv(Block):
                       ctx.dtype), state
 
 
+def DWConv(c1, c2, k=1, s=1, act=True):
+    """Depthwise conv (reference common.py:147): groups = gcd(c1, c2)."""
+    return ConvBnAct(c1, c2, k, s, None, math.gcd(c1, c2), act)
+
+
 @dataclasses.dataclass(frozen=True)
 class MP(Block):
     """MaxPool k=s (reference common.py:30); default 2x2/2 downsample."""
@@ -574,8 +584,98 @@ class ReOrg(Block):
         return {}, {}
 
     def apply(self, params, state, x, ctx):
-        y = torch.cat([x[:, :, ::2, ::2], x[:, :, 1::2, ::2], x[:, :, ::2, 1::2],
-                       x[:, :, 1::2, 1::2]], dim=1)
+        return _space_to_depth(x), state
+
+
+def _space_to_depth(x):
+    """(B, C, H, W) -> (B, 4C, H/2, W/2): the slices at (row, column)
+    offsets (0, 0), (1, 0), (0, 1), (1, 1), concatenated in that order."""
+    y = torch.cat([x[:, :, ::2, ::2], x[:, :, 1::2, ::2], x[:, :, ::2, 1::2],
+                   x[:, :, 1::2, 1::2]], dim=1)
+    return y.contiguous(memory_format=torch.channels_last)
+
+
+@dataclasses.dataclass(frozen=True)
+class Focus(Block):
+    """Space-to-depth, then a ConvBnAct on the 4 x c1 channels (reference
+    common.py:796-806), with ReOrg's slice order. Its params are the
+    conv's own ({w, bn}, fused {w, b}, int8 {wq, sw, b[, sx]})."""
+
+    c1: int
+    c2: int
+    k: int = 1
+    s: int = 1
+    p: Optional[int] = None
+    g: int = 1
+    act: Any = True
+
+    @property
+    def cout(self):
+        return self.c2
+
+    stride_factor = 2.0
+
+    def _conv(self):
+        return ConvBnAct(self.c1 * 4, self.c2, self.k, self.s, self.p, self.g, self.act)
+
+    def init(self, gen):
+        return self._conv().init(gen)
+
+    def apply(self, params, state, x, ctx):
+        return self._conv().apply(params, state, _space_to_depth(x), ctx)
+
+
+@dataclasses.dataclass(frozen=True)
+class Contract(Block):
+    """Space-to-depth by `gain` (reference common.py:824): input channel ci
+    at offset (gh, gw) of its gain x gain cell becomes output channel
+    (gh * gain + gw) * c + ci, the JAX package's NHWC order."""
+
+    c1: int
+    gain: int = 2
+
+    @property
+    def cout(self):
+        return self.c1 * self.gain ** 2
+
+    @property
+    def stride_factor(self):
+        return float(self.gain)
+
+    def init(self, gen):
+        return {}, {}
+
+    def apply(self, params, state, x, ctx):
+        b, c, h, w = x.shape
+        g = self.gain
+        y = x.reshape(b, c, h // g, g, w // g, g).permute(0, 3, 5, 1, 2, 4)
+        y = y.reshape(b, g * g * c, h // g, w // g)
+        return y.contiguous(memory_format=torch.channels_last), state
+
+
+@dataclasses.dataclass(frozen=True)
+class Expand(Block):
+    """The inverse of Contract (reference common.py:837)."""
+
+    c1: int
+    gain: int = 2
+
+    @property
+    def cout(self):
+        return self.c1 // self.gain ** 2
+
+    @property
+    def stride_factor(self):
+        return 1.0 / self.gain
+
+    def init(self, gen):
+        return {}, {}
+
+    def apply(self, params, state, x, ctx):
+        b, c, h, w = x.shape
+        g = self.gain
+        y = x.reshape(b, g, g, c // (g * g), h, w).permute(0, 3, 4, 1, 5, 2)
+        y = y.reshape(b, c // (g * g), h * g, w * g)
         return y.contiguous(memory_format=torch.channels_last), state
 
 
@@ -619,6 +719,27 @@ class Concat(Block):
 
 
 @dataclasses.dataclass(frozen=True)
+class Chuncat(Block):
+    """Each input split in half on channels, the first halves concatenated,
+    then the second halves (reference common.py:64-77)."""
+
+    cins: Tuple[int, ...]
+
+    @property
+    def cout(self):
+        return sum(self.cins)
+
+    def init(self, gen):
+        return {}, {}
+
+    def apply(self, params, state, xs, ctx):
+        halves = [xi.shape[1] // 2 for xi in xs]
+        firsts = [xi[:, :c] for xi, c in zip(xs, halves)]
+        seconds = [xi[:, c:] for xi, c in zip(xs, halves)]
+        return torch.cat(firsts + seconds, dim=1), state
+
+
+@dataclasses.dataclass(frozen=True)
 class Shortcut(Block):
     """Elementwise add of two routed inputs (reference common.py:80)."""
 
@@ -633,6 +754,58 @@ class Shortcut(Block):
 
     def apply(self, params, state, xs, ctx):
         return xs[0] + xs[1], state
+
+
+@dataclasses.dataclass(frozen=True)
+class Foldcut(Block):
+    """The channels split in half and the halves added (reference
+    common.py:89)."""
+
+    c1: int
+
+    @property
+    def cout(self):
+        return self.c1 // 2
+
+    def init(self, gen):
+        return {}, {}
+
+    def apply(self, params, state, x, ctx):
+        c = x.shape[1] // 2
+        return x[:, :c] + x[:, c:], state
+
+
+@dataclasses.dataclass(frozen=True)
+class GhostConv(Composite):
+    """Ghost convolution (reference common.py:152-162): cv1, then a 5 x 5
+    depthwise cv2 of its output, concatenated."""
+
+    c1: int
+    c2: int
+    k: int = 1
+    s: int = 1
+    g: int = 1
+    act: Any = True
+
+    @property
+    def cout(self):
+        return self.c2
+
+    @property
+    def stride_factor(self):
+        return float(self.s)
+
+    def children(self):
+        c_ = self.c2 // 2
+        return {
+            "cv1": ConvBnAct(self.c1, c_, self.k, self.s, None, self.g, self.act),
+            "cv2": ConvBnAct(c_, c_, 5, 1, None, c_, self.act),
+        }
+
+    def apply(self, params, state, x, ctx):
+        call, new_state = self._call(params, state, ctx)
+        y = call("cv1", x)
+        return torch.cat([y, call("cv2", y)], dim=1), new_state
 
 
 @dataclasses.dataclass(frozen=True)
@@ -730,6 +903,36 @@ class SPP(Composite):
         x = call("cv1", x)
         pools = max_pool_pyramid(x, self.k)
         return call("cv2", torch.cat([x] + pools, dim=1)), new_state
+
+
+@dataclasses.dataclass(frozen=True)
+class SPPF(Composite):
+    """Fast SPP (reference common.py:808-821): three chained stride-1 k x k
+    pools, whose gradient sends a tie to the first maximum of its window
+    in both libraries (not `MaxPoolTiled`'s split)."""
+
+    c1: int
+    c2: int
+    k: int = 5
+
+    @property
+    def cout(self):
+        return self.c2
+
+    def children(self):
+        c_ = self.c1 // 2
+        return {
+            "cv1": ConvBnAct(self.c1, c_, 1, 1),
+            "cv2": ConvBnAct(c_ * 4, self.c2, 1, 1),
+        }
+
+    def apply(self, params, state, x, ctx):
+        call, new_state = self._call(params, state, ctx)
+        x = call("cv1", x)
+        y1 = max_pool(x, self.k, 1, self.k // 2)
+        y2 = max_pool(y1, self.k, 1, self.k // 2)
+        y3 = max_pool(y2, self.k, 1, self.k // 2)
+        return call("cv2", torch.cat([x, y1, y2, y3], dim=1)), new_state
 
 
 @dataclasses.dataclass(frozen=True)
@@ -834,6 +1037,47 @@ def ResX(c1, c2, shortcut=True, g=32, e=0.5):
     """ResNeXt bottleneck (reference common.py:237-241): a Res with 32
     groups."""
     return Res(c1, c2, shortcut, g, e)
+
+
+@dataclasses.dataclass(frozen=True)
+class Ghost(Composite):
+    """Ghost bottleneck (reference common.py:244-255): two GhostConvs (a
+    depthwise k x k between them at stride 2), plus x, or at stride 2 a
+    depthwise-then-1x1 shortcut of x."""
+
+    c1: int
+    c2: int
+    k: int = 3
+    s: int = 1
+
+    @property
+    def cout(self):
+        return self.c2
+
+    @property
+    def stride_factor(self):
+        return float(self.s)
+
+    def children(self):
+        c_ = self.c2 // 2
+        kids = {
+            "conv0": GhostConv(self.c1, c_, 1, 1),
+            "conv2": GhostConv(c_, self.c2, 1, 1, act=False),
+        }
+        if self.s == 2:
+            kids["conv1"] = DWConv(c_, c_, self.k, self.s, act=False)
+            kids["short_dw"] = DWConv(self.c1, self.c1, self.k, self.s, act=False)
+            kids["short_pw"] = ConvBnAct(self.c1, self.c2, 1, 1, act=False)
+        return kids
+
+    def apply(self, params, state, x, ctx):
+        call, new_state = self._call(params, state, ctx)
+        y = call("conv0", x)
+        if self.s == 2:
+            y = call("conv1", y)
+        y = call("conv2", y)
+        sc = call("short_pw", call("short_dw", x)) if self.s == 2 else x
+        return y + sc, new_state
 
 
 # The CSP wrappers: the A/B/C variants differ in the stem and route
@@ -992,6 +1236,25 @@ class ResXCSPC(_CSPC):
         return _res(self, c_, 1.0)
 
 
+def _ghosts(b, c_):
+    return [Ghost(c_, c_) for _ in range(b.n)]
+
+
+class GhostCSPA(_CSPA):
+    def inner(self, c_):
+        return _ghosts(self, c_)
+
+
+class GhostCSPB(_CSPB):
+    def inner(self, c_):
+        return _ghosts(self, c_)
+
+
+class GhostCSPC(_CSPC):
+    def inner(self, c_):
+        return _ghosts(self, c_)
+
+
 @dataclasses.dataclass(frozen=True)
 class RepConv(Composite):
     """RepVGG-style conv (reference common.py:463-507). Train form: 3x3+BN,
@@ -1097,3 +1360,21 @@ class ImplicitM(Block):
 
     def apply(self, params, state, x, ctx):
         return x * params["v"].to(x.dtype)[:, None, None], state
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchNorm2d(Block):
+    """A standalone BN layer (the `nn.BatchNorm2d` rows of the DSL): params
+    {scale, bias}, state {mean, var}."""
+
+    c1: int
+
+    @property
+    def cout(self):
+        return self.c1
+
+    def init(self, gen):
+        return bn_init(self.c1)
+
+    def apply(self, params, state, x, ctx):
+        return batch_norm(params, state, x, ctx)

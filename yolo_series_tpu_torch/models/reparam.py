@@ -1,11 +1,20 @@
 """Train -> deploy re-parameterization as param-tree transforms
 (counterpart of `yolo_series_tpu/models/reparam.py`).
 
-Conv+BN fusion (reference torch_utils.py:181-201; composite blocks such as
-SPPCSPC and DownC child by child), the RepConv 3-branch collapse
-(common.py:509-552) and the folding of IDetect's and IAuxDetect's implicit
-layers into their lead 1x1 convs (yolo.py:178-190): (params, state) -> (params',
-state') with the same inference output and the same GraphPlan.
+Conv+BN fusion (reference torch_utils.py:181-201; Focus's conv, composite
+blocks such as SPPCSPC and DownC child by child), the RepConv 3-branch
+collapse (common.py:509-552), the OREPA family's `deploy` (weight_gen and
+BN into one conv, common.py:1323-1345) and the folding of IDetect's,
+IAuxDetect's, IBin's and IKeypoint's implicit layers into their lead 1x1
+convs (yolo.py:178-190): (params, state) -> (params', state') with the
+same inference output and the same GraphPlan.
+
+A composite block's own leaves beside its children (RobustConv's 1x1 conv
+and layer scale, RobustConv2's transposed conv, TransformerBlock's
+linears, Classify's conv) have no BN and pass through as they are. The
+JAX package's `fuse_block` keeps a composite's children only, so its
+fused tree of such a block lacks them and its forward raises KeyError
+(ROADMAP queue 3); the port's fused forward equals the unfused one.
 """
 
 from __future__ import annotations
@@ -15,6 +24,7 @@ from typing import Any, Tuple
 import torch
 import torch.nn.functional as F
 
+from yolo_series_tpu_torch.models import extra as X
 from yolo_series_tpu_torch.models import layers as L
 from yolo_series_tpu_torch.models.graph import GraphPlan
 from yolo_series_tpu_torch.models.layers import BN_EPS
@@ -54,10 +64,10 @@ def fuse_repconv(block: L.RepConv, params, state):
 
 
 def fuse_head_implicit(head, params):
-    """Fold IDetect's (and IAuxDetect's lead) ia / im into the 1x1 convs
-    `m` (yolo.py:178-190): b += w @ ia, then w and b scale by im. The aux
-    convs `m2` have no implicit layers and stay as they are. A head without
-    ia / im is returned as is."""
+    """Fold the implicit layers ia / im into the 1x1 convs `m`
+    (yolo.py:178-190): b += w @ ia, then w and b scale by im. IAuxDetect's
+    aux convs `m2` and IKeypoint's keypoint convs `m_kpt` have none and
+    stay as they are. A head without ia / im is returned as is."""
     if "ia" not in params:
         return params
     ms = []
@@ -71,14 +81,18 @@ def fuse_head_implicit(head, params):
 def fuse_block(block, params, state) -> Tuple[Any, Any]:
     if isinstance(block, L.RepConv):
         return fuse_repconv(block, params, state)
-    if isinstance(block, L.ConvBnAct):
+    if isinstance(block, (X.OREPA3x3, X.RepConvOREPA)):
+        return (params, state) if "w" in params else block.deploy(params, state)
+    if isinstance(block, (L.ConvBnAct, L.Focus)):
         if "bn" in params:
             w, b = fuse_conv_bn(params["w"], params["bn"], state["bn"])
             return {"w": w, "b": b}, {}
         return params, state
     if isinstance(block, L.Composite):
-        new_p, new_s = {}, {}
-        for name, child in block.children().items():
+        kids = block.children()
+        new_p = {k: v for k, v in params.items() if k not in kids}
+        new_s = {k: v for k, v in state.items() if k not in kids}
+        for name, child in kids.items():
             new_p[name], new_s[name] = fuse_block(child, params[name], state[name])
         return new_p, new_s
     return params, state

@@ -1,7 +1,7 @@
 """Batched NMS on decoded predictions, and the fused head + NMS of serving
 (counterpart of `yolo_series_tpu/ops/nms.py`: `NMSOutput`, `nms_padded`,
 `batched_nms`, `_single_image_nms`, `_nms_tail`, `nms_output_to_dets`,
-`fused_head_nms`).
+`fused_head_nms`, `batched_nms_kpt`).
 
 Candidate selection is a stable descending sort over the (anchor) or
 (anchor x class) scores, cut to `max_nms`: at ties the lower index comes
@@ -38,11 +38,13 @@ class NMSOutput(NamedTuple):
 
 
 def _nms_tail(cand_boxes, top_scores, cand_cls, iou_thres, agnostic, max_det,
-              max_wh) -> NMSOutput:
+              max_wh, payload=None):
     """Greedy suppression + packed output from score-sorted candidates,
     batched: cand_boxes (B, K, 4) xyxy fp32, top_scores (B, K) fp32 (-inf =
     invalid), cand_cls (B, K) fp32. The keep-mask is looked up in
-    `ops/nms_keep` at each call."""
+    `ops/nms_keep` at each call. payload (B, K, P): extra columns (the
+    keypoints) carried through the same scatter; with it the result is
+    (NMSOutput, (B, max_det, P) fp32)."""
     valid = torch.isfinite(top_scores)
     shifted = (cand_boxes if agnostic
                else cand_boxes + (cand_cls * max_wh)[..., None])
@@ -63,8 +65,14 @@ def _nms_tail(cand_boxes, top_scores, cand_cls, iou_thres, agnostic, max_det,
     out_cls = torch.zeros((b, max_det + 1), dtype=torch.int32, device=dev)
     out_cls.scatter_(1, idx, cand_cls.int())
     num = torch.clamp(keep.sum(dim=1), max=max_det).int()
-    return NMSOutput(num, out_boxes[:, :max_det], out_scores[:, :max_det],
-                     out_cls[:, :max_det])
+    out = NMSOutput(num, out_boxes[:, :max_det], out_scores[:, :max_det],
+                    out_cls[:, :max_det])
+    if payload is None:
+        return out
+    out_payload = torch.zeros((b, max_det + 1, payload.shape[-1]), dtype=torch.float32,
+                              device=dev)
+    out_payload.scatter_(1, idx[..., None].expand(-1, -1, payload.shape[-1]), payload.float())
+    return out, out_payload[:, :max_det]
 
 
 def nms_padded(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float = 0.45,
@@ -245,3 +253,23 @@ def fused_head_nms(head, head_params, feats, *, conf_thres=0.25,
     cand_cls = torch.argmax(rows[..., 5:5 + nc], dim=-1).float()
     return _nms_tail(cand_boxes, top_scores, cand_cls, iou_thres, False,
                      max_det, max_wh)
+
+
+def batched_nms_kpt(pred: torch.Tensor, conf_thres: float = 0.25, iou_thres: float = 0.45,
+                    max_det: int = 300, max_nms: int = 256, max_wh: float = 4096.0,
+                    agnostic: bool = False):
+    """Keypoint NMS (reference non_max_suppression_kpt, general.py:723-780,
+    kpt_label=True) on the IKeypoint head's decoded output pred (B, A,
+    6 + 3 nkpt) = [xywh, obj, cls, keypoints...], obj and cls already
+    sigmoids; score = obj x cls, one class. Returns (num_dets (B,), boxes
+    (B, max_det, 4) xyxy, scores, classes, keypoints (B, max_det,
+    3 nkpt)), static shapes. At the default max_nms the keep-mask is K1's
+    on the card."""
+    score = (pred[..., 4] * pred[..., 5]).float()
+    score = torch.where(score > conf_thres, score, torch.full_like(score, float("-inf")))
+    top_scores, idx = _top_k(score, min(max_nms, score.shape[1]))
+    rows = torch.gather(pred, 1, idx[..., None].expand(-1, -1, pred.shape[-1]))
+    cand_cls = torch.zeros(top_scores.shape, dtype=torch.float32, device=pred.device)
+    out, kpts = _nms_tail(xywh2xyxy(rows[..., 0:4].float()), top_scores, cand_cls, iou_thres,
+                          agnostic, max_det, max_wh, payload=rows[..., 6:])
+    return (*out, kpts)

@@ -56,10 +56,11 @@ Not ported yet, and refused with NotImplementedError: `bbox_interval > 0`
 (ROADMAP queue 1 item 19), `split_concat`
 and `fast_stem` (item 20; the JAX trainer's `fast_stem=True` default is an
 exact reshuffle of the step's plan, `models/faststem.make_train_fast_stem`,
-so here it defaults to False and the step runs the plan as compiled), and
-the IBin head (`compile_graph` raises, item 15). An IAuxDetect model (the
-P6 training cfgs) trains with the aux OTA loss (`losses/aux_ota.py`), as
-the JAX trainer dispatches it. The image size is rounded up to a multiple
+so here it defaults to False and the step runs the plan as compiled). An
+IAuxDetect model (the P6 training cfgs) trains with the aux OTA loss
+(`losses/aux_ota.py`) and an IBin model with the bin-OTA loss
+(`losses/bin_ota.py`, whatever `loss_ota` says), as the JAX trainer
+dispatches them. The image size is rounded up to a multiple
 of the largest stride (64 for P6; reference train.py:249-250). The
 train-batch mosaics and `plot_results` wait for item 19: the trainer says
 so once and writes none.
@@ -82,9 +83,10 @@ from yolo_series_tpu_torch.data.device_aug import MOSAIC_KEYS, make_device_augme
 from yolo_series_tpu_torch.device import device as _device
 from yolo_series_tpu_torch.eval.evaluator import evaluate
 from yolo_series_tpu_torch.losses import (LossHyp, make_compute_loss,
-                                          make_compute_loss_aux_ota, make_compute_loss_ota)
+                                          make_compute_loss_aux_ota,
+                                          make_compute_loss_bin_ota, make_compute_loss_ota)
 from yolo_series_tpu_torch.models.graph import compile_graph
-from yolo_series_tpu_torch.models.heads import IAuxDetect
+from yolo_series_tpu_torch.models.heads import IAuxDetect, IBin
 from yolo_series_tpu_torch.models.model import init_model, tree_leaves
 from yolo_series_tpu_torch.obs.artifacts import ARTIFACT_PREFIX
 from yolo_series_tpu_torch.parallel.dist import (broadcast_object, broadcast_tensors,
@@ -422,6 +424,15 @@ def train(tc: TrainConfig, train_ds: Optional[DetectionDataset] = None,
     loss_hyp = _scaled_loss_hyp(hyp, nl, nc, tc.img_size, tc.label_smoothing)
     if isinstance(head, IAuxDetect):
         loss_fn = make_compute_loss_aux_ota(head, loss_hyp)
+    elif isinstance(head, IBin):
+        # the reference ships ComputeLossBinOTA (loss.py:848-1172) but never
+        # dispatches to it from train.py; an IBin cfg trains with it here,
+        # as in the JAX trainer
+        if not hyp.get("loss_ota", 1):
+            say("IBin head: loss_ota=0 ignored — ComputeLossBinOTA is the only "
+                "bin-capable loss (the non-OTA ComputeLoss would misread IBin's "
+                "binned w/h channel layout)")
+        loss_fn = make_compute_loss_bin_ota(head, loss_hyp)
     else:
         loss_fn = (make_compute_loss_ota if hyp.get("loss_ota", 1)
                    else make_compute_loss)(head, loss_hyp)
