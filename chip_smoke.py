@@ -193,8 +193,24 @@ non-zero on failure before the last line is printed:
     pass (K1L at 4096 candidates, bit-equal with the plain keep-mask), the
     ranking losses and their gradients and SigmoidBin's bf16 decode on
     the card against the CPU.
-14. One JSON line of per-kernel numbers (launch counts with phases 9's to
-    13's), the card's name and power limit, and the last line
+14. int8 across the zoo and the tools (`int8_and_tools`): (a) yolov7-w6
+    deploy at 1280 px mixed, yolov7-tiny deploy full and mixed, x50-csp
+    and yolov3 full, and the tail zoo mixed, each calibrated on noise,
+    quantized and served by the graph engine at batch 8 (K1, K4; K2 / K3
+    where their rewrites still match): each replay bit-equal to eager,
+    head inputs and detections bit-equal with the plain K4, head inputs
+    within INT8_FEAT_MAX of the bf16 engine's; img/s, busy share, host ms,
+    K4 launches, peak allocation; (b) `profile_layers` of phase 4's model
+    at batch 8, its rows' sum against the eager forward, `chip_rate` of the
+    bf16 engine against phase 4's replay, `model_info` card against CPU;
+    (c) tools/torch_serve_http.py in this process on 127.0.0.1, bf16 and
+    `--int8`, five JPEGs through tools/client.py, each answer bit-equal to
+    the engine's `infer`; (d) tools/torch_bench_serving.py, 16 clients for
+    5 s a mode with batching on and off (infer/s, p50, p99; each client
+    its own frame's detections); (e) tools/torch_eval_int8.py on phase 8's
+    set (fp32 and int8 mAP; K4, K1L; int8 equal with the plain keep-mask).
+15. One JSON line of per-kernel numbers (launch counts with phases 9's to
+    14's), the card's name and power limit, and the last line
     `{"ok": true, "device": {...}}`.
 """
 
@@ -4364,6 +4380,399 @@ def tail(dev, width=1.0, img=IMG, batch=BATCH, pose_img=POSE_IMG, requests=TAIL_
             "ibin": ibin, "phase_s": secs}
 
 
+# ------------------------------------------ int8 across the zoo, the tools ---
+
+# Phase 14 (a): (name, cfg, px, mixed) of the int8 engines, each calibrated
+# on INT8_CAL noise batches of 2 and served at batch BATCH: w6 (ReOrg,
+# DownC, a 4-level head) mixed; tiny (LeakyReLU, SP) full and mixed; x50-csp
+# (32-group convs, im2col int8) and yolov3 (repeated rows) full; the tail
+# zoo (RobustConv's own leaves and the deployed RepConv_OREPA pass through
+# `quantize_tree`) mixed. Each is held as phase 4b holds yolov7: bit-equal
+# with the plain K4, head inputs within INT8_FEAT_MAX of the bf16 engine's.
+INT8_ZOO = (("yolov7-w6", P6_DEPLOY_CFG, P6_IMG, True),
+            ("yolov7-tiny", TINY_DEPLOY_CFG, IMG, False),
+            ("yolov7-tiny", TINY_DEPLOY_CFG, IMG, True),
+            ("x50-csp", ZOO_CFGS / "baseline/x50-csp.yaml", IMG, False),
+            ("yolov3", ZOO_CFGS / "baseline/yolov3.yaml", IMG, False),
+            ("tail-zoo", TAIL_CFG, IMG, True))
+INT8_CAL = 2
+# (b) the sum of `profile_layers`' rows against the eager forward of the
+# same plan, and `chip_rate` of the bf16 engine's end2end against phase 4's
+# replay time: each runs the same kernels one after another, so within
+# PROFILE_TOL of each other (a layer timed twice, or not at all, is 1/100
+# of the sum; a chip_rate that timed the host or a fraction of the calls,
+# 2x)
+PROFILE_TOL = 0.25
+# (c) the HTTP server: HTTP_FRAMES JPEGs of phase 5's shapes; (d) the load
+# bench: LOAD_CLIENTS closed-loop clients for LOAD_SECONDS a mode
+HTTP_FRAMES, LOAD_CLIENTS, LOAD_SECONDS = 5, 16, 5.0
+TOOL_RUNS = ROOT / "build" / "smoke_runs" / "tools"
+
+
+def _tools():
+    """The port's tools and tools/client.py, imported from the checkout."""
+    if str(ROOT / "tools") not in sys.path:
+        sys.path.insert(0, str(ROOT / "tools"))
+    import client
+    import torch_bench_serving
+    import torch_eval_int8
+    import torch_serve_http
+    return client, torch_serve_http, torch_bench_serving, torch_eval_int8
+
+
+def k4_convs(plan, qparams) -> int:
+    """The int8 convs of a quantized tree that run on K4: those for which
+    `quant.k4_routes`, the test `quant.int8_conv` makes, holds on the
+    weight, the block's stride and groups (yolov3's `[512, [1, 1]]` conv
+    among them, which `pallas_1x1_eligible` declines)."""
+    def walk(block, p):
+        if isinstance(p, list):
+            return sum(walk(block, r) for r in p)
+        if not isinstance(p, dict):
+            return 0
+        if "wq" in p:
+            return int(quant.k4_routes(p["wq"], block.s, block.g))
+        kids = block.children() if isinstance(block, L.Composite) else {}
+        return sum(walk(kids[k], v) for k, v in p.items() if k in kids)
+
+    return sum(walk(spec.block, qparams["layers"][i]) for i, spec in enumerate(plan.layers)
+               if not spec.is_head)
+
+
+def int8_engine(dev, m, mixed, batch=BATCH, what="int8 zoo"):
+    """Phase 14 (a), one model: calibrate on noise, quantize (mixed or
+    full), serve by the graph engine at `batch`. Counted: K1 once a
+    forward, K4 once an eligible conv, K2 / K3 where their rewrites still
+    match; each replay bit-equal to eager, head inputs and detections
+    bit-equal with the plain K4, head inputs within INT8_FEAT_MAX of the
+    bf16 engine's (and of fp32's, printed); img/s, busy share, host ms,
+    peak allocation."""
+    img = m.img
+    rng = np.random.default_rng(1)
+    cal = [rng.uniform(0, 1, (2, img, img, 3)).astype(np.float32) for _ in range(INT8_CAL)]
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    scales = quant.calibrate(m.plan, m.params, m.state, cal)
+    qp, qs = quant.quantize_model(m.plan, m.params, m.state, scales, mixed=mixed)
+    n_q, n_k4 = _count_wq(qp), k4_convs(m.plan, qp)
+    if n_k4 == 0 or (mixed and n_q != n_k4) or n_k4 < len(k4_shapes(m.plan, 1, img)):
+        raise AssertionError(f"{what}: {n_q} convs quantized, {n_k4} K4-eligible")
+    engine = ServingEngine(m.plan, qp, qs, batch_size=batch, img_size=img,
+                           dtype=torch.bfloat16, device=dev)
+    n_stem, n_elan = plan_names(engine)
+    batches = [rng.integers(0, 256, (batch, img, img, 3), np.uint8) for _ in range(2)]
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    zero_counts()
+    outs = [engine.infer(b) for b in batches]
+    counts = read_counts()
+    check_path_counts(what, counts, (engine,),
+                      {"K1": 1, "K2": n_stem, "K3": n_elan, "K4": n_k4})
+    graph_equals_eager(what, engine, outs, batches)
+    normalized, reference = make_reference(m)
+    feats = same_as_plain_k4(what, engine, normalized, batches[0])
+    bf16 = ServingEngine(m.plan, m.params, m.state, batch_size=batch, img_size=img,
+                         dtype=torch.bfloat16, device=dev)
+    with torch.inference_mode():
+        f16, _ = apply_model(bf16.plan, bf16._params, bf16._state, normalized(batches[0]),
+                             dtype=torch.bfloat16, return_head_inputs=True)
+        d16 = bf16.to_host(bf16.end2end(torch.from_numpy(batches[0]).to(dev)))
+    del bf16
+    f32, _ = reference(batches[0], torch.float32)
+    err, err32 = feature_error(feats, f16), feature_error(feats, f32)
+    agree = agreement(what, outs[0], d16)
+    log(f"{what}: {n_q} convs quantized ({'mixed' if mixed else 'full'}; {n_k4} on K4), "
+        f"plan {n_stem} FusedStem, {n_elan} FusedELAN; head inputs {err:.4f} relative RMS "
+        f"from the bf16 engine's ({err32:.4f} from fp32), limit {INT8_FEAT_MAX}; "
+        f"detections agree {agree:.3f} with the bf16 engine's; "
+        f"{int(outs[0]['num_dets'].sum())} / {int(d16['num_dets'].sum())} detections")
+    if not (err <= INT8_FEAT_MAX and all(torch.isfinite(f).all() for f in feats)):
+        raise AssertionError(f"{what}: int8 head inputs {err} relative RMS from the bf16 "
+                             f"engine's > {INT8_FEAT_MAX}")
+    res = {"launches": counts, "quantized": n_q, "k4_convs": n_k4, "mixed": mixed,
+           "feature_rms_err_bf16": err, "feature_rms_err_fp32": err32, "agreement_bf16": agree}
+    if dev.type == "cuda":
+        fwd_ms = cuda_ms(lambda: engine.infer_async(batches[0]), iters=10)
+        host = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            engine.infer_async(batches[0])
+            host.append((time.perf_counter() - t) * 1e3)
+        torch.cuda.synchronize()
+        prof = profile_forwards(lambda: engine.infer_async(batches[0]), f"{what} (graph)",
+                                n=3)["profile"]
+        got = prof and prof["launches"]
+        want = {k: 0.0 for k in TRACED} | {"nms_keep_kernel": 1.0,
+                                           "conv_silu_kernel": float(3 * n_stem + 6 * n_elan),
+                                           "int8_mm_kernel": float(n_k4)}
+        if got is not None and got != want:
+            raise AssertionError(f"{what}: a replay launched {got} in the trace, want {want}")
+        res.update(img_s=batch / fwd_ms * 1e3, device_ms_bs8=fwd_ms,
+                   host_ms_infer_async=statistics.median(host),
+                   busy_share=prof and prof["busy_share"], profile=prof,
+                   peak_bytes=torch.cuda.max_memory_allocated())
+        log(f"{what}: {res['img_s']:.1f} img/s (one batch-{batch} infer_async {fwd_ms:.3f} "
+            f"ms between events), busy {res['busy_share']}, host "
+            f"{res['host_ms_infer_async']:.3f} ms an infer_async, K4 launches {counts['K4']}, "
+            f"peak {res['peak_bytes'] / 1e9:.2f} GB")
+    return res
+
+
+def int8_zoo(dev, width=1.0, zoo=INT8_ZOO, batch=BATCH):
+    """Phase 14 (a): every model of `zoo` in int8 (`int8_engine`)."""
+    out = {}
+    for name, cfg, img, mixed in zoo:
+        key = f"{name} {'mixed' if mixed else 'full'}"
+        t = time.perf_counter()
+        m = make_model(dev, width, img, cfg)
+        out[key] = int8_engine(dev, m, mixed, batch, f"int8 zoo (a) {key}")
+        out[key]["s"] = time.perf_counter() - t
+        del m
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def profiling(dev, m, replay_ms, batch=BATCH):
+    """Phase 14 (b): `profile_layers` of the fused plan at `batch` (bf16):
+    one row a layer, its steady-state device time; the sum within
+    PROFILE_TOL of the eager forward's device busy time (its kernels' time
+    in a torch.profiler trace: the forward does not capture, its head
+    copies the anchors from the host; its time between two events, which
+    counts the host's launch gaps, printed beside it); `chip_rate` of the
+    bf16 engine's end2end (a CUDA graph of N calls) within PROFILE_TOL of
+    phase 4's replay time; `model_info`'s counts on the card equal to the
+    CPU's."""
+    from yolo_series_tpu_torch.models.model import profile_layers
+    from yolo_series_tpu_torch.utils.chiprate import chip_rate
+    from yolo_series_tpu_torch.utils.general import model_info
+
+    x = torch.from_numpy(m.rng.integers(0, 256, (batch, m.img, m.img, 3), np.uint8)).to(
+        dev).float() / 255.0
+    rows = profile_layers(m.plan, m.params, m.state, x, iters=5, dtype=torch.bfloat16)
+    total = sum(r["ms"] for r in rows)
+    if len(rows) != len(m.plan.layers) or rows[-1]["module"] != "Detect" or \
+            sum(r["params"] for r in rows) != sum(t.numel() for t in tree_leaves(m.params)):
+        raise AssertionError("profile: the rows do not cover the plan")
+    res = {"rows": len(rows), "rows_ms": total,
+           "gflops": sum(r["gflops"] for r in rows),
+           "top_rows": sorted(({k: r[k] for k in ("idx", "module", "ms", "gflops")}
+                               for r in rows), key=lambda r: -r["ms"])[:8]}
+    info_dev = model_info(m.plan, m.params, m.state, img_size=m.img)
+    info_cpu = model_info(m.plan, tree_map(lambda t: t.cpu(), m.params),
+                          tree_map(lambda t: t.cpu(), m.state), img_size=m.img)
+    if info_dev != info_cpu:
+        raise AssertionError(f"model_info on the card {info_dev}, on the CPU {info_cpu}")
+    res["model_info"] = info_dev
+    log(f"profile: {len(rows)} rows, {total:.3f} ms summed, {res['gflops']:.1f} GFLOPs at "
+        f"batch {batch}; model_info {info_dev} on the card and the CPU")
+    if dev.type != "cuda":
+        return res
+    def forward():
+        return apply_model(m.plan, m.params, m.state, x, dtype=torch.bfloat16)
+
+    with torch.inference_mode():
+        eager = cuda_ms(forward, iters=10)
+        trace = profile_forwards(forward, "profile: the eager forward", n=3)["profile"]
+    if trace is None:
+        raise AssertionError("profile: the trace recorded no device time for the forward")
+    busy = trace["busy_ms"]
+    engine = ServingEngine(m.plan, m.params, m.state, batch_size=batch, img_size=m.img,
+                           dtype=torch.bfloat16, device=dev)
+    engine.capture()
+    rate = chip_rate(engine.end2end, engine._static_in, iters=20)
+    res.update(eager_ms=eager, eager_busy_ms=busy, chip_rate_ms=rate * 1e3,
+               chip_rate_mode=chip_rate.mode, replay_ms_bs8=replay_ms)
+    log(f"profile: rows {total:.3f} ms against the eager forward's device busy {busy:.3f} ms "
+        f"({eager:.3f} ms between events); chip_rate {rate * 1e3:.3f} ms a call "
+        f"({chip_rate.mode}) against phase 4's replay {replay_ms:.3f} ms; limit "
+        f"{PROFILE_TOL:.0%}")
+    if not abs(total - busy) <= PROFILE_TOL * busy:
+        raise AssertionError(f"profile rows {total} ms, eager forward busy {busy} ms")
+    if not abs(rate * 1e3 - replay_ms) <= PROFILE_TOL * replay_ms:
+        raise AssertionError(f"chip_rate {rate * 1e3} ms, replay {replay_ms} ms")
+    return res
+
+
+def write_deploy_ckpt(m, path):
+    """m's fused deploy weights as a checkpoint in the JAX format (the
+    export CLI's layout), for the tools that load one."""
+    from yolo_series_tpu_torch.models.convert import to_jax_tree
+    from yolo_series_tpu_torch.train.checkpoints import FORMAT, _dump
+
+    path.parent.mkdir(parents=True, exist_ok=True)
+    _dump({"format": FORMAT, "epoch": -1, "best_fitness": 0, "results": None, "hyp": None,
+           "cfg": _cfg(m.width), "step": 0,
+           "params": to_jax_tree(tree_map(lambda t: t.cpu(), m.params)),
+           "state": to_jax_tree(tree_map(lambda t: t.cpu(), m.state)), "ema_params": None,
+           "ema_state": None, "opt_state": None}, path)
+    return str(path)
+
+
+def http_server(dev, m, int8, batch=BATCH):
+    """Phase 14 (c): tools/torch_serve_http.py on m's checkpoint (with
+    `--int8`: full int8, dynamic scales), in this process on 127.0.0.1 at
+    a free port; HTTP_FRAMES JPEGs through tools/client.py's `post`, each
+    answer bit-equal to the engine's direct `infer` on the decoded frame,
+    letterboxed and scaled back by the same functions."""
+    import cv2
+
+    client, serve, _, _ = _tools()
+    ckpt = write_deploy_ckpt(m, TOOL_RUNS / "deploy.ckpt")
+    what = f"http server ({'int8' if int8 else 'bf16'})"
+    opt = serve.make_parser().parse_args(
+        ["--weights", ckpt, "--img-size", str(m.img), "--batch-size", str(batch),
+         "--device", dev.type] + (["--int8"] if int8 else []))
+    plan, engine, batcher = serve.build_engine(opt)
+    server = serve.make_server(batcher, opt.img_size, plan.names, host="127.0.0.1", port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    rng = np.random.default_rng(31)
+    n_dets, lat = 0, []
+    try:
+        for i in range(HTTP_FRAMES):
+            # quality 100 without chroma subsampling: a default JPEG blurs
+            # the colour noise the model was livened on, and it detects nothing
+            ok, buf = cv2.imencode(".jpg", noise_image(rng, DATA_SHAPES[i % len(DATA_SHAPES)],
+                                                       m.img),
+                                   [cv2.IMWRITE_JPEG_QUALITY, 100, cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                                    cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444])
+            t = time.perf_counter()
+            res = client.post(url, buf.tobytes())
+            lat.append((time.perf_counter() - t) * 1e3)
+            img0 = cv2.imdecode(buf, cv2.IMREAD_COLOR)
+            img, ratio, dwdh = letterbox(img0, m.img, auto=False)
+            want = engine.infer(np.ascontiguousarray(img[:, :, ::-1])[None])
+            n = int(want["num_dets"][0, 0])
+            boxes = scale_coords_np((m.img, m.img), want["det_boxes"][0, :n].copy(),
+                                    img0.shape[:2], ((ratio[1], ratio[0]), dwdh))
+            same = (res["num_dets"] == n
+                    and res["det_boxes"] == json.loads(json.dumps(boxes.tolist()))
+                    and res["det_scores"] == want["det_scores"][0, :n].tolist()
+                    and res["det_classes"] == want["det_classes"][0, :n].tolist())
+            if not same:
+                raise AssertionError(f"{what}: frame {i}: the answer differs from the "
+                                     "engine's")
+            n_dets += n
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        batcher.close()
+    log(f"{what}: {HTTP_FRAMES} JPEGs answered bit-equal to the engine's infer "
+        f"({n_dets} detections); client round trip p50 {statistics.median(lat):.2f} ms")
+    if n_dets == 0:
+        raise AssertionError(f"{what}: no detections to compare")
+    return {"frames": HTTP_FRAMES, "detections": n_dets,
+            "round_trip_p50_ms": statistics.median(lat)}
+
+
+def load_bench(dev, m, batch=BATCH, clients=LOAD_CLIENTS, seconds=LOAD_SECONDS):
+    """Phase 14 (d): tools/torch_bench_serving.py's two modes on m's bf16
+    engines (batch `batch` behind the DynamicBatcher, batch 1 behind a
+    lock), `clients` closed-loop clients for `seconds` each: infer/s, p50,
+    p99; every answer checked against its client's frame."""
+    _, _, bench_tool, _ = _tools()
+    kw = dict(img_size=m.img, conf_thres=0.25, iou_thres=0.45, max_det=100, max_nms=256,
+              pack_output=True, dtype=torch.bfloat16, device=dev)
+    engine = ServingEngine(m.plan, m.params, m.state, batch_size=batch, **kw)
+    engine1 = ServingEngine(m.plan, m.params, m.state, batch_size=1, **kw)
+    out = bench_tool.bench(engine, engine1, clients, seconds)
+    log(f"load bench: {json.dumps(out)}")
+    return out
+
+
+@contextlib.contextmanager
+def recorded_k4():
+    """Inside: each K4 conv (`int8_mm.int8_conv1x1`) is also held against
+    the plain K4 on its own inputs as soon as it has run; they must be
+    bit-equal. Yields the list of the launches' (M, K, N)."""
+    real, shapes = int8_mm.int8_conv1x1, []
+
+    def record(xq, wq, scale, bias):
+        y = real(xq, wq, scale, bias)
+        b, h, w, k = xq.shape
+        n = wq.shape[0]
+        got = y.reshape(b * h * w, n)
+        want = int8_mm.int8_matmul_dequant_plain(xq.reshape(b * h * w, k),
+                                                 wq.reshape(n, k).t(), scale, bias)
+        shapes.append((b * h * w, k, n))
+        if not torch.equal(got, want):
+            raise AssertionError(f"K4 launch {len(shapes)} (M, K, N) {shapes[-1]}: max abs "
+                                 f"err {float((got - want).abs().max())} from the plain K4")
+        return y
+
+    int8_mm.int8_conv1x1 = record
+    try:
+        yield shapes
+    finally:
+        int8_mm.int8_conv1x1 = real
+
+
+def int8_eval_tool(dev, img=IMG, batch=BATCH):
+    """Phase 14 (e): tools/torch_eval_int8.py on phase 8's set and start
+    (its 16 val JPEGs in rect batches, calibrated on 8 train images): fp32
+    and int8 mAP, finite; counted K4 and K1L launches; each K4 launch
+    bit-equal with the plain K4 on its own inputs (`recorded_k4`), and the
+    int8 row equal with that of the plain K4 and the plain keep-mask."""
+    *_, eval_tool = _tools()
+    plan, params, state = load_checkpoint_any(str(SMOKE_DATA / "livened.ckpt"))
+    zero_counts()
+    with recorded_k4() as shapes:
+        out = eval_tool.evaluate_int8(plan, params, state, SMOKE_DATA, img, batch, 8, dev,
+                                      names=plan.names)
+    counts = read_counts()
+    fparams, fstate = fuse_model(plan, params, state)
+    cal = eval_tool.calibration_frames(SMOKE_DATA / "train" / "images", img, 8)
+    qp, qs = quant.quantize_model(plan, fparams, fstate,
+                                  quant.calibrate(plan, fparams, fstate, cal))
+    with plain_nms(), plain_k4():
+        plain = eval_tool.metrics(plan, qp, qs, str(SMOKE_DATA / "val" / "images"), img,
+                                  batch, dev, plan.names)
+    ms = sorted({m for m, _, _ in shapes})
+    log(f"int8 eval tool: {json.dumps(out)}; launches {counts}; {len(shapes)} K4 convs "
+        f"bit-equal with the plain K4 on their own inputs (M {ms}); int8 with the plain "
+        f"K4 and keep-mask {plain}")
+    if not all(math.isfinite(v) for row in ("fp", "int8") for v in out[row].values()):
+        raise AssertionError(f"int8 eval tool: non-finite metrics {out}")
+    if plain != out["int8"]:
+        raise AssertionError(f"int8 eval tool: int8 mAP {out['int8']}, with the plain "
+                             f"K4 and keep-mask {plain}")
+    if dev.type == "cuda" and (counts["K4"] == 0 or counts["K1L"] == 0
+                               or counts["K4"] != len(shapes)):
+        raise AssertionError(f"int8 eval tool: launches {counts}, {len(shapes)} K4 convs "
+                             "recorded")
+    return {**out, "launches": counts, "k4_m": ms}
+
+
+def int8_and_tools(dev, m, replay_ms, width=1.0, batch=BATCH, zoo=INT8_ZOO,
+                   clients=LOAD_CLIENTS, seconds=LOAD_SECONDS, eval_img=IMG):
+    """Phase 14: (a) int8 across the zoo, (b) profiling, (c) the HTTP server
+    bf16 and int8, (d) the load bench, (e) the int8 eval tool. Returns the
+    numbers, with the launches of the counted main paths."""
+    t_phase = time.perf_counter()
+    zoo_res = int8_zoo(dev, width, zoo, batch)
+    prof = profiling(dev, m, replay_ms, batch)
+    zero_counts()
+    http = {"bf16": http_server(dev, m, False, batch), "int8": http_server(dev, m, True, batch)}
+    http_counts = read_counts()
+    zero_counts()
+    load = load_bench(dev, m, batch, clients, seconds)
+    load_counts = read_counts()
+    ev = int8_eval_tool(dev, eval_img, batch)
+    launches = {kid: sum(r["launches"][kid] for r in zoo_res.values()) + http_counts[kid]
+                + load_counts[kid] + ev["launches"][kid] for kid in COUNTED}
+    secs = time.perf_counter() - t_phase
+    log(f"int8 and tools: launches of its main paths {launches} (http {http_counts}, load "
+        f"bench {load_counts}); phase {secs:.1f} s; card "
+        f"{smi() if dev.type == 'cuda' else 'none'}")
+    return {"launches": launches, "int8_zoo": zoo_res, "profile": prof, "http": http,
+            "http_launches": http_counts, "load_bench": load, "load_launches": load_counts,
+            "eval_int8": ev, "phase_s": secs}
+
+
 # ------------------------------------------------------------ main ---
 
 KERNELS = (
@@ -4430,6 +4839,8 @@ def main() -> int:
     rest = zoo(dev)
     entry = entry_points(dev, m, cli["epochs"])
     tail_res = tail(dev)
+    torch.cuda.empty_cache()
+    tools = int8_and_tools(dev, m, srv["replay_ms_bs8"])
 
     # host-side counts of each kernel's main path: K1-K3 as the bf16
     # engines launched them (warm-up and capture; what the replays launch
@@ -4448,6 +4859,8 @@ def main() -> int:
     for kid, n in entry["launches"].items():
         launches[kid] += n
     for kid, n in tail_res["launches"].items():
+        launches[kid] += n
+    for kid, n in tools["launches"].items():
         launches[kid] += n
     for kid in COUNTED:
         if kid != "K4b" and launches[kid] == 0:
@@ -4472,7 +4885,7 @@ def main() -> int:
                     "int8_serving": {k: srv8[k] for k in keys + ("calibrate_s",)},
                     "full_int8": full, "detect": det, "eval": ev, "train": tr,
                     "train_test_cli": cli, "p6": six, "ranks": par, "zoo": rest,
-                    "entry_points": entry, "tail": tail_res,
+                    "entry_points": entry, "tail": tail_res, "int8_and_tools": tools,
                     "fused": {"K2": rows["K2"], "K3": rows["K3"]},
                     "k1l_runs": rows["k1l_runs"],
                     "stages": rows["stages"], "k4_convs": rows["k4_convs"],
@@ -4481,7 +4894,8 @@ def main() -> int:
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, train phase "
         f"{tr['phase_s']:.1f} s, train and test CLIs {cli['phase_s']:.1f} s, P6 "
         f"{six['phase_s']:.1f} s, ranks {par['phase_s']:.1f} s, zoo {rest['phase_s']:.1f} s, "
-        f"entry points {entry['phase_s']:.1f} s, tail {tail_res['phase_s']:.1f} s")
+        f"entry points {entry['phase_s']:.1f} s, tail {tail_res['phase_s']:.1f} s, int8 and "
+        f"tools {tools['phase_s']:.1f} s")
     log(smi())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -100,9 +100,12 @@ def test_batched_nms_large_k_takes_the_plain_keep_mask_on_the_cpu():
 
 # ------------------------------------------------------------- metrics ---
 
-def test_metrics_equal_jax_on_random_inputs():
+def test_metrics_equal_jax_on_random_inputs(tmp_path):
     """ap_per_class, compute_ap (both sentinels), match_predictions,
-    ConfusionMatrix and fitness: the same numbers, exactly."""
+    ConfusionMatrix and fitness: the same numbers, exactly. With plot=True,
+    ap_per_class draws the PR, F1, P and R curves and the confusion matrix
+    its panel, the same files as the JAX package's, and returns the same
+    numbers."""
     rng = np.random.default_rng(11)
     n, m = 400, 120
     tp = rng.uniform(size=(n, 10)) < np.linspace(0.7, 0.2, 10)
@@ -136,10 +139,18 @@ def test_metrics_equal_jax_on_random_inputs():
         tcm.process_batch(pred, labels)
         jcm.process_batch(pred, labels)
         np.testing.assert_array_equal(tcm.matrix, jcm.matrix)
-    with pytest.raises(NotImplementedError, match="item 19"):
-        tmet.ap_per_class(tp, conf, pred_cls, target_cls, plot=True)
-    with pytest.raises(NotImplementedError, match="item 19"):
-        tcm.plot()
+    files = {}
+    for side, met, cm in (("port", tmet, tcm), ("jax", jmet, jcm)):
+        d = tmp_path / side
+        d.mkdir()
+        got = met.ap_per_class(tp, conf, pred_cls, target_cls, plot=True, save_dir=d,
+                               names=[f"c{i}" for i in range(7)])
+        for g, w in zip(got, jmet.ap_per_class(tp, conf, pred_cls, target_cls)):
+            np.testing.assert_array_equal(g, w)
+        cm.plot(save_dir=str(d), names=("a", "b", "c"))
+        files[side] = sorted(f.name for f in d.iterdir() if f.stat().st_size > 0)
+    assert files["port"] == files["jax"] == ["F1_curve.png", "PR_curve.png", "P_curve.png",
+                                             "R_curve.png", "confusion_matrix.png"]
 
 
 def test_scale_coords_and_coco_ids_equal_jax():
@@ -246,10 +257,24 @@ def test_evaluate_matches_jax(eval_setup, tmp_path, hybrid):
         [r["category_id"] for r in out["jax_json"]]
 
 
-def test_evaluate_refuses_what_is_not_ported(eval_setup):
-    *_, tplan, tp, ts, batches = eval_setup
-    with pytest.raises(NotImplementedError, match="item 19"):
-        tev.evaluate(tplan, tp, ts, batches, plots_dir="x", device="cpu")
+def test_evaluate_refuses_what_is_not_ported(eval_setup, tmp_path):
+    """Nothing of `evaluate` is refused now: plots_dir writes the first
+    batches' mosaics as the JAX package's does, the ground-truth mosaics
+    bit-equal with JAX's, the prediction mosaics of the same size (the
+    detections of the two fp32 forwards differ in rounding only)."""
+    plan, jp, js, tplan, tp, ts, batches = eval_setup
+    for side in ("port", "jax"):
+        (tmp_path / side).mkdir()
+    tev.evaluate(tplan, tp, ts, batches, plots_dir=str(tmp_path / "port"), device="cpu")
+    jev.evaluate(plan, jp, js, batches, plots_dir=str(tmp_path / "jax"))
+    import cv2
+
+    names = [f"test_batch{i}_{k}.jpg" for i in range(2) for k in ("labels", "pred")]
+    for name in names:
+        got, want = (cv2.imread(str(tmp_path / side / name)) for side in ("port", "jax"))
+        assert got is not None and got.shape == want.shape, name
+        if name.endswith("labels.jpg"):
+            np.testing.assert_array_equal(got, want, err_msg=name)
 
 
 @pytest.mark.parametrize("start", [(True, "high"), (False, "highest"), (True, "medium")],

@@ -17,14 +17,18 @@ PKG = ROOT / "yolo_series_tpu_torch"
 MODULES = sorted(
     ".".join(p.relative_to(ROOT).with_suffix("").parts)
     for p in PKG.rglob("*.py"))
+# the port's tools: run as scripts, imported here by path
+TOOLS = ("tools/torch_serve_http.py", "tools/torch_bench_serving.py",
+         "tools/torch_eval_int8.py")
 
 
 def test_every_module_imports_without_jax():
-    """Import every port module in a fresh interpreter (tests/conftest.py has
-    already imported jax into this one) and check that neither jax nor any
-    module of `yolo_series_tpu` was loaded."""
-    code = ("import sys\n"
+    """Import every port module and the port's tools in a fresh interpreter
+    (tests/conftest.py has already imported jax into this one) and check
+    that neither jax nor any module of `yolo_series_tpu` was loaded."""
+    code = ("import sys, runpy\n"
             f"for m in {MODULES!r}: __import__(m)\n"
+            f"for t in {TOOLS!r}: runpy.run_path(t, run_name='tool')\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'yolo_series_tpu' or "
             "m.startswith('yolo_series_tpu.'))\n"
@@ -47,7 +51,7 @@ def test_every_module_imports_without_jax():
         "train.trainer", "cli.train", "parallel", "parallel.dist",
         "train.evolve", "hub", "models.tta", "cli.export", "data.device_aug",
         "models.extra", "models.attention", "losses.bin", "losses.bin_ota",
-        "losses.ranking")} <= {
+        "losses.ranking", "utils.chiprate", "data.tools", "obs.plots")} <= {
         m.removesuffix(".__init__") for m in MODULES}
 
 
@@ -57,7 +61,7 @@ _FORBIDDEN = re.compile(
 
 
 @pytest.mark.parametrize("path", sorted(
-    [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")] + ["chip_smoke.py"]))
+    [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")] + ["chip_smoke.py", *TOOLS]))
 def test_source_has_no_jax_import(path):
     text = (ROOT / path).read_text()
     assert not _FORBIDDEN.search(text), path

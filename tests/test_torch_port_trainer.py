@@ -448,7 +448,8 @@ def test_cli_test_matches_jax(eval_case, tmp_path, capsys, fuse):
 
 
 # (options, exception, match). Training on several devices, --no-sync-bn,
-# --evolve, the device-augment tail and test --augment are ported: their
+# --evolve, the device-augment tail, --bbox_interval, test --augment,
+# --plots and --task study are ported: their
 # cases hold the errors those options raise (a global batch that does not
 # divide over the devices, fewer cards visible than --devices asks for) or
 # show the option reaching training or evaluation, which then fails on the
@@ -457,7 +458,7 @@ REFUSED_TRAIN = {
     "n_data_devices": (dict(n_data_devices=2, batch_size=3), ValueError,
                        "batch 3 does not divide over 2"),
     "device_aug": (dict(device_aug=True), FileNotFoundError, "'x'"),
-    "bbox_interval": (dict(bbox_interval=1), NotImplementedError, "item 19"),
+    "bbox_interval": (dict(bbox_interval=1), FileNotFoundError, "'x'"),
     "split_concat": (dict(split_concat=True), NotImplementedError, "item 20"),
     "fast_stem": (dict(fast_stem=True), NotImplementedError, "item 20"),
 }
@@ -472,9 +473,9 @@ REFUSED_CLI = {
     "test_augment": (cli_test, ["--weights", "x", "--data", "y", "--augment"],
                      FileNotFoundError, "'y'"),
     "test_plots": (cli_test, ["--weights", "x", "--data", "y", "--plots"],
-                   NotImplementedError, "item 19"),
+                   FileNotFoundError, "'y'"),
     "test_study": (cli_test, ["--weights", "x", "--data", "y", "--task", "study"],
-                   NotImplementedError, "item 19"),
+                   FileNotFoundError, "'y'"),
 }
 
 

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Operations and parameters of the port's cfgs, counted from the compiled
-plans (no forward, no card): 2 x MACs of every conv at the given image
-side (a grouped conv counts c_in / g inputs an output), the head's 1x1s
-included, pools and elementwise work not. One line a cfg.
+"""Operations and parameters of the port's cfgs: the convolutions',
+matmuls' and max pools' operations of one image's inference forward at the
+given side (`utils/general.FlopCounter.dense`, the count `model_info` and
+`profile_layers` make: two a multiply-add over the taps inside the input,
+window - 1 compares a pooled output), pointwise work not. The forward runs
+on the meta device: shapes only, no arithmetic, no card. One line a cfg.
 
     python3 tools/torch_zoo_flops.py [deploy/yolov7:640 baseline/yolor-p6:1280 ...]
 
@@ -20,9 +22,10 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from yolo_series_tpu_torch.models import layers as L  # noqa: E402
 from yolo_series_tpu_torch.models.graph import compile_graph  # noqa: E402
-from yolo_series_tpu_torch.models.model import init_model, tree_leaves  # noqa: E402
+from yolo_series_tpu_torch.models.model import (apply_model, init_model,  # noqa: E402
+                                                tree_leaves, tree_map)
+from yolo_series_tpu_torch.utils.general import FlopCounter  # noqa: E402
 
 DEFAULT = ("deploy/yolov7:640", "deploy/yolov7-w6:1280", "deploy/yolov7-tiny:640",
            "baseline/yolov3:640", "baseline/yolov3-spp:640", "baseline/yolov4-csp:640",
@@ -31,39 +34,16 @@ DEFAULT = ("deploy/yolov7:640", "deploy/yolov7-w6:1280", "deploy/yolov7-tiny:640
            "baseline/yolor-e6:1280", "baseline/yolor-d6:1280")
 
 
-def _side(s):
-    return s if isinstance(s, int) else s[0]
-
-
-def block_flops(block, h: int) -> int:
-    """Operations of one block on an h x h input."""
-    if isinstance(block, (L.ConvBnAct, L.PlainConv)):
-        k, ho = _side(block.k), h // _side(block.s)
-        return 2 * (block.c1 // block.g) * block.c2 * k * k * ho * ho
-    if isinstance(block, L.RepConv):
-        return 2 * (block.c1 // block.g) * block.c2 * 9 * (h // block.s) ** 2
-    if isinstance(block, L.Composite):
-        # each child at the block's input side, but those fed a downsampled map
-        down = ({"cv2": 2, "cv3": 2, "cv4": 4} if isinstance(block, L.Stem)
-                else {"cv3": block.k} if isinstance(block, L.DownC) else {})
-        return sum(block_flops(c, h // down.get(name, 1)) for name, c in
-                   block.children().items())
-    return 0
-
-
 def count(cfg: str, img: int):
+    """(operations, parameters) of `cfg` on one img x img image."""
     plan = compile_graph(str(ROOT / "yolo_series_tpu_torch/models/cfg" / f"{cfg}.yaml"))
-    total = 0
-    for spec in plan.layers:
-        if spec.is_head:
-            total += sum(2 * c * spec.block.no * spec.block.na * (img // int(st)) ** 2
-                         for c, st in zip(spec.block.ch, spec.block.strides))
-            continue
-        # the layer's input side: its output stride undone by its own factor
-        h = int(img * spec.block.stride_factor ** spec.n_seq / spec.stride)
-        total += block_flops(spec.block, h) * spec.n_seq
-    params, _ = init_model(plan, torch.Generator().manual_seed(0))
-    return total, sum(t.numel() for t in tree_leaves(params))
+    params, state = init_model(plan, torch.Generator().manual_seed(0))
+    n = sum(t.numel() for t in tree_leaves(params))
+    meta = lambda t: t.to("meta")   # noqa: E731
+    with torch.inference_mode(), FlopCounter() as c:
+        apply_model(plan, tree_map(meta, params), tree_map(meta, state),
+                    torch.zeros((1, img, img, 3), device="meta"))
+    return c.dense, n
 
 
 def main(argv):

@@ -8,9 +8,9 @@ The JAX CLI's flags and output line, plus `--device` (the card unless
 `cpu` is asked for; raises when no card is visible). `--weights` takes a
 native .ckpt, or a reference .pt with `--cfg`. The forward is fp32
 (without TF32, `evaluate`'s pin), or bf16 with `--half`. `--task speed`
-runs the timing protocol; `--augment` the multi-scale and flip TTA
-(`models/tta.py`). Not ported yet, and refused: `--plots` and `--task
-study`, whose output is a plot (ROADMAP queue 1 item 19).
+runs the timing protocol; `--task study` the image-size sweep with its
+speed-mAP plot; `--augment` the multi-scale and flip TTA
+(`models/tta.py`); `--plots` the batch mosaics and the confusion matrix.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from __future__ import annotations
 import argparse
 from pathlib import Path
 
+import numpy as np
 import torch
 import yaml
 
@@ -52,24 +53,26 @@ def run_eval(opt, img_size=None):
 
     save_dir = increment_path(Path(opt.project) / opt.name, opt.exist_ok)
     save_txt = opt.save_txt or opt.save_hybrid  # reference test.py:330
-    if save_txt or opt.save_json:
+    if save_txt or opt.save_json or opt.plots:
         (save_dir / "labels" if save_txt else save_dir).mkdir(parents=True, exist_ok=True)
 
     res = evaluate(
         plan, params, state, loader, conf_thres=opt.conf_thres,
         iou_thres=opt.iou_thres, names=names, verbose=opt.verbose,
-        compute_dtype=torch.bfloat16 if opt.half else torch.float32,
+        confusion=opt.plots, compute_dtype=torch.bfloat16 if opt.half else torch.float32,
         save_json=str(save_dir / "predictions.json") if opt.save_json else None,
         coco_ids=(coco80_to_coco91()
                   if opt.save_json and "coco" in str(opt.data) else None),
         v5_metric=opt.v5_metric,
         save_txt_dir=str(save_dir / "labels") if save_txt else None,
         save_conf=opt.save_conf, save_hybrid=opt.save_hybrid, augment=opt.augment,
-        device=opt.device)
+        plots_dir=str(save_dir) if opt.plots else None, device=opt.device)
     print(f"images={res['seen']} P={res['mp']:.4f} R={res['mr']:.4f} "
           f"mAP@.5={res['map50']:.4f} mAP@.5:.95={res['map']:.4f} "
           f"({res['speed_ms']['inference']:.1f}ms inf "
           f"{res['speed_ms']['nms']:.1f}ms nms /img)")
+    if opt.plots and "confusion" in res:
+        res["confusion"].plot(save_dir=str(save_dir), names=names)
     return res
 
 
@@ -102,7 +105,7 @@ def make_parser():
                    help="append confidences to --save-txt rows")
     p.add_argument("--v5-metric", action="store_true")
     p.add_argument("--verbose", action="store_true")
-    p.add_argument("--plots", action="store_true", help="not ported yet: raises")
+    p.add_argument("--plots", action="store_true")
     p.add_argument("--project", default="runs/test")
     p.add_argument("--name", default="exp")
     p.add_argument("--exist-ok", action="store_true")
@@ -111,12 +114,35 @@ def make_parser():
     return p
 
 
+def study(opt):
+    """Image-size sweep -> study_{data}_{weights}.txt (the reference test()
+    row: P R mAP50 mAP, three val losses (not computed here, 0), then
+    inference, NMS and total ms an image) and the speed-mAP plot
+    (reference test.py:341-354, plots.py:240). Returns the rows."""
+    from yolo_series_tpu_torch.obs.plots import plot_study_txt
+
+    rows = []
+    for sz in STUDY_SIZES:
+        res = run_eval(opt, img_size=sz)
+        t_inf, t_nms = res["speed_ms"]["inference"], res["speed_ms"]["nms"]
+        rows.append([res["mp"], res["mr"], res["map50"], res["map"], 0.0, 0.0, 0.0,
+                     t_inf, t_nms, t_inf + t_nms])
+        print(f"study img={sz} map={res['map']:.4f}")
+    Path(opt.project).mkdir(parents=True, exist_ok=True)
+    fname = Path(opt.project) / f"study_{Path(opt.data).stem}_{Path(opt.weights).stem}.txt"
+    np.savetxt(fname, rows, fmt="%10.4g")
+    print(f"saved {fname}")
+    plot_study_txt(path=opt.project)
+    return rows
+
+
+STUDY_SIZES = tuple(range(256, 1536 + 128, 128))
+
+
 def main(argv=None):
-    """Parse `argv` (sys.argv when None), run, and return evaluate's dict."""
+    """Parse `argv` (sys.argv when None), run, and return evaluate's dict
+    (`--task study`: the sweep's rows)."""
     opt = make_parser().parse_args(argv)
-    if opt.plots or opt.task == "study":
-        raise NotImplementedError("the eval plots (and --task study's plot) are not "
-                                  "ported yet (ROADMAP queue 1, item 19)")
     if opt.save_hybrid:
         # reference test.py:304: the GT rows injected at conf 1.0 match
         # themselves, so P/R/mAP measure the hybrid labels, not the model
@@ -124,6 +150,8 @@ def main(argv=None):
               "labels, not from predictions alone")
     if opt.task == "speed":
         opt.conf_thres, opt.iou_thres, opt.save_json = 0.25, 0.45, False
+    if opt.task == "study":
+        return study(opt)
     return run_eval(opt)
 
 

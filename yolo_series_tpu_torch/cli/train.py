@@ -21,8 +21,8 @@ CPU); under torchrun (RANK, WORLD_SIZE, LOCAL_RANK set) this process is one
 rank of the group. `--batch-size` is the global batch. `--no-sync-bn`:
 per-replica BatchNorm. `--evolve [--evolve-gens G]`: hyperparameter
 evolution (`train/evolve.py`). `--device-aug`: the warp, HSV, flips and
-mixup run on the device (`data/device_aug.py`). Not ported yet, and
-refused: `--bbox_interval` (ROADMAP queue 1 item 19).
+mixup run on the device (`data/device_aug.py`). `--bbox_interval N`: the
+val mosaics every N epochs, logged as media.
 """
 
 from __future__ import annotations
@@ -109,7 +109,7 @@ def make_parser():
                         "store and train from the snapshot")
     p.add_argument("--bbox_interval", "--bbox-interval", type=int,
                    default=-1, dest="bbox_interval",
-                   help="epochs between val bbox media panels (not ported yet)")
+                   help="epochs between val bbox media panels")
     p.add_argument("--artifact_alias", "--artifact-alias",
                    default="latest", dest="artifact_alias",
                    help="dataset-artifact alias for artifact:// --data refs")

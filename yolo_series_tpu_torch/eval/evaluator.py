@@ -84,6 +84,30 @@ def _save_txt(save_txt_dir, path, predn, native_shape, save_conf):
             f.write("\n".join(txt) + "\n")
 
 
+def _plot_batch(plots_dir, batch_i, imgs, labels, mask, dets, names, paths):
+    """The batch's mosaics (reference test.py:216-222):
+    test_batch{i}_labels.jpg, the ground truth, and test_batch{i}_pred.jpg,
+    the detections as normalized cls-xywh rows."""
+    from yolo_series_tpu_torch.obs.plots import plot_images
+
+    h_in, w_in = imgs.shape[1:3]
+    pl = np.zeros_like(labels)
+    pm = np.zeros(labels.shape[:2], bool)
+    whwh = np.array([w_in, h_in, w_in, h_in], np.float32)
+    for si, d in enumerate(dets):
+        n = min(len(d), pl.shape[1])
+        if n:
+            xyxy = d[:n, :4] / whwh
+            pl[si, :n, 0] = d[:n, 5]
+            pl[si, :n, 1:3] = (xyxy[:, :2] + xyxy[:, 2:]) / 2
+            pl[si, :n, 3:5] = xyxy[:, 2:] - xyxy[:, :2]
+            pm[si, :n] = True
+    plot_images(imgs, labels, mask, paths=paths,
+                fname=str(plots_dir / f"test_batch{batch_i}_labels.jpg"), names=names)
+    plot_images(imgs, pl, pm, paths=paths,
+                fname=str(plots_dir / f"test_batch{batch_i}_pred.jpg"), names=names)
+
+
 def evaluate(plan, params, state, loader, *,
              conf_thres: float = 0.001, iou_thres: float = 0.65,
              max_det: int = 300, max_nms: int = 8192,
@@ -101,15 +125,13 @@ def evaluate(plan, params, state, loader, *,
     ground-truth boxes into NMS as conf-1.0 candidates for hybrid
     auto-labelling (test.py:124, general.py:656-662). augment: the
     multi-scale and flip TTA (`models/tta.apply_model_tta`; each rect
-    batch's height and width scale apart). device: the card
+    batch's height and width scale apart). plots_dir: the first three
+    batches' label and prediction mosaics are written there. device: the card
     unless "cpu" is asked for. An fp32 compute_dtype runs the forward in
     full fp32 (`device.full_fp32`: no TF32), whatever the global flags.
 
     Returns a dict with mp, mr, map50, map, per-class ap, speed, fitness.
     """
-    if plots_dir is not None:
-        raise NotImplementedError("the batch mosaics are not ported yet (ROADMAP "
-                                  "queue 1, item 19, the plots module)")
     dev = _device(device)
     params = tree_map(lambda t: t.to(dev), params)
     state = tree_map(lambda t: t.to(dev), state)
@@ -125,7 +147,7 @@ def evaluate(plan, params, state, loader, *,
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    for batch in loader:
+    for batch_i, batch in enumerate(loader):
         imgs = batch["images"]
         t0 = time.perf_counter()
         with torch.inference_mode():
@@ -164,6 +186,9 @@ def evaluate(plan, params, state, loader, *,
         h_in, w_in = imgs.shape[1:3]
         labels = batch["labels"]
         mask = batch["label_mask"]
+        if plots_dir is not None and batch_i < 3:
+            _plot_batch(Path(plots_dir), batch_i, imgs, labels, mask, dets, names,
+                        batch.get("paths"))
         for si in range(len(dets)):
             seen += 1
             shapes = batch["shapes"][si]

@@ -4,16 +4,15 @@
 Numerical parity with reference utils/metrics.py (fitness :12, ap_per_class
 :18-78, compute_ap :81-110, ConfusionMatrix :113-186) and the per-image
 greedy IoU matching of test.py:180-211. Host code on the accumulated
-detections. The PR / F1 curve and confusion-matrix plots raise until the
-plots module is ported (ROADMAP queue 1, item 19).
+detections; the PR / F1 curves and the confusion matrix are drawn by
+`obs/plots`.
 """
 
 from __future__ import annotations
 
-import numpy as np
+from pathlib import Path
 
-_NO_PLOTS = ("the metric plots are not ported yet (ROADMAP queue 1, item 19, "
-             "the plots module)")
+import numpy as np
 
 
 def fitness(results: np.ndarray) -> np.ndarray:
@@ -56,8 +55,6 @@ def ap_per_class(tp, conf, pred_cls, target_cls, v5_metric=False,
     Returns (p, r, ap (nc, 10), f1, unique_classes) at the max-F1 operating
     point — same contract as reference metrics.py:18-78.
     """
-    if plot:
-        raise NotImplementedError(_NO_PLOTS)
     order = np.argsort(-conf)
     tp, conf, pred_cls = tp[order], conf[order], pred_cls[order]
 
@@ -65,6 +62,7 @@ def ap_per_class(tp, conf, pred_cls, target_cls, v5_metric=False,
     nc = unique_classes.shape[0]
 
     px = np.linspace(0, 1, 1000)
+    py = []
     ap = np.zeros((nc, tp.shape[1]))
     p = np.zeros((nc, 1000))
     r = np.zeros((nc, 1000))
@@ -81,10 +79,18 @@ def ap_per_class(tp, conf, pred_cls, target_cls, v5_metric=False,
         precision = tpc / (tpc + fpc)
         p[ci] = np.interp(-px, -conf[i], precision[:, 0], left=1)
         for j in range(tp.shape[1]):
-            ap[ci, j], _, _ = compute_ap(recall[:, j], precision[:, j],
-                                         v5_metric=v5_metric)
+            ap[ci, j], mpre, mrec = compute_ap(recall[:, j], precision[:, j],
+                                               v5_metric=v5_metric)
+            if plot and j == 0:
+                py.append(np.interp(px, mrec, mpre))
 
     f1 = 2 * p * r / (p + r + 1e-16)
+    if plot:
+        from yolo_series_tpu_torch.obs.plots import plot_mc_curve, plot_pr_curve
+        plot_pr_curve(px, py, ap, Path(save_dir) / "PR_curve.png", names)
+        plot_mc_curve(px, f1, Path(save_dir) / "F1_curve.png", names, ylabel="F1")
+        plot_mc_curve(px, p, Path(save_dir) / "P_curve.png", names, ylabel="Precision")
+        plot_mc_curve(px, r, Path(save_dir) / "R_curve.png", names, ylabel="Recall")
     i = f1.mean(0).argmax()
     return p[:, i], r[:, i], ap, f1[:, i], unique_classes.astype(np.int32)
 
@@ -162,7 +168,8 @@ class ConfusionMatrix:
                     self.matrix[dcls, self.nc] += 1  # background FP
 
     def plot(self, save_dir=".", names=()):
-        raise NotImplementedError(_NO_PLOTS)
+        from yolo_series_tpu_torch.obs.plots import plot_confusion_matrix
+        plot_confusion_matrix(self.matrix, self.nc, save_dir, names)
 
     def print(self):
         for i in range(self.nc + 1):

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from yolo_series_tpu_torch.models import extra as X
 from yolo_series_tpu_torch.models import layers as L
 from yolo_series_tpu_torch.models.graph import GraphPlan
 from yolo_series_tpu_torch.ops import int8_mm
@@ -53,9 +54,12 @@ def _quantize_conv_leaf(params: Dict[str, Any], act_scale=None):
 
 
 def pallas_1x1_eligible(block) -> bool:
-    """True when `int8_conv` sends this conv to K4 (`ops/int8_mm`): 1x1,
-    stride 1, no groups, channels multiples of 128 (the kernel's tiling, as
-    the Pallas kernel's lane constraint)."""
+    """True for the convs that mixed=True quantizes, as the JAX package's
+    predicate: listed kernel 1, stride 1, no groups, channels multiples of
+    128 (the kernel's tiling, as the Pallas kernel's lane constraint). It
+    reads the block's listed kernel size; which int8 conv runs on K4 is
+    `k4_routes`, on the weight (yolov3's `[512, [1, 1]]` conv is declined
+    here and, quantized in full int8, runs on K4)."""
     k = getattr(block, "k", None)
     s = getattr(block, "s", 1)
     g = getattr(block, "g", 1)
@@ -65,20 +69,39 @@ def pallas_1x1_eligible(block) -> bool:
             and c1 % int8_mm.ALIGN == 0 and c2 % int8_mm.ALIGN == 0)
 
 
+def k4_routes(wq: torch.Tensor, stride, groups: int) -> bool:
+    """True when `int8_conv` sends the conv of OIHW int8 weight `wq` to K4
+    (`ops/int8_mm.int8_conv1x1`): a 1 x 1 kernel, stride 1, one group,
+    channels multiples of `int8_mm.ALIGN`."""
+    n, c, kh, kw = wq.shape
+    return (kh == 1 and kw == 1 and groups == 1 and stride in (1, (1, 1))
+            and c % int8_mm.ALIGN == 0 and n % int8_mm.ALIGN == 0)
+
+
 def quantize_tree(block, params, act_scales: Optional[Dict[str, float]] = None,
                   _path: str = "", mixed: bool = False):
     """Recursively quantize the conv leaves of a fused param tree (Focus's
     conv among them, as the JAX package's). With mixed=True only the
-    K4-eligible 1x1 convs are quantized and the rest stay fp."""
+    K4-eligible 1x1 convs are quantized and the rest stay fp.
+
+    A composite's own leaves beside its children (RobustConv's 1x1 and
+    layer scale, RobustConv2's transposed conv, TransformerBlock's
+    linears, Classify's conv; `reparam.fuse_model` keeps them) pass
+    through unquantized, and so does a deployed RepConv_OREPA ({w, b}, no
+    children left): the JAX package quantizes neither, since its fused
+    tree drops the first and its `quantize_tree` raises KeyError on the
+    second (ROADMAP queue 3)."""
     if isinstance(block, (L.ConvBnAct, L.Focus, L.RepConv, L.PlainConv)):
         if mixed and not pallas_1x1_eligible(block):
             return params
         scale = act_scales.get(_path) if act_scales else None
         return _quantize_conv_leaf(params, scale)
+    if isinstance(block, X.RepConvOREPA) and "w" in params:
+        return params
     if isinstance(block, L.Composite):
-        return {name: quantize_tree(child, params[name], act_scales,
-                                    f"{_path}/{name}", mixed=mixed)
-                for name, child in block.children().items()}
+        return {**params, **{name: quantize_tree(child, params[name], act_scales,
+                                                 f"{_path}/{name}", mixed=mixed)
+                             for name, child in block.children().items()}}
     return params
 
 
@@ -168,10 +191,8 @@ def int8_conv(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor, b: torch.Tens
         sx = torch.clamp_min(x.abs().amax() / 127.0, 1e-8)
     xq = torch.clamp(torch.round(x / sx), -127, 127).to(torch.int8)
     xh = xq.permute(0, 2, 3, 1)          # NHWC view of channels-last memory
-    n, c, kh, kw = wq.shape
     scale = sx * sw
-    if (kh == 1 and kw == 1 and groups == 1 and stride in (1, (1, 1))
-            and c % int8_mm.ALIGN == 0 and n % int8_mm.ALIGN == 0):
+    if k4_routes(wq, stride, groups):
         y = int8_mm.int8_conv1x1(xh.contiguous(), wq, scale, b)
     else:
         y = _grouped_int_mm(xh, wq, stride, padding, groups).float() * scale + b

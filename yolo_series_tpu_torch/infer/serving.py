@@ -191,28 +191,35 @@ class ServingEngine:
             static_out = self.end2end(static_in)
         self._graph, self._static_in, self._static_out = graph, static_in, static_out
 
-    def infer_async(self, images: np.ndarray):
+    def infer_async(self, images):
         """Dispatch without waiting: returns (device output, n), so a
         pipeline can keep several batches in flight. On the card: copy into
         the graph's input buffer, replay, clone the outputs (the next
-        replay writes over the graph's own)."""
-        n = images.shape[0]
-        if n > self.batch_size:
-            raise ValueError(f"{n} images for batch size {self.batch_size}")
-        if n < self.batch_size:
-            pad = np.zeros((self.batch_size - n, *images.shape[1:]), images.dtype)
-            images = np.concatenate([images, pad], 0)
-        if tuple(images.shape) != self.in_shape:
-            raise ValueError(f"frames {tuple(images.shape[1:])}: this engine takes "
-                             f"{self.in_shape[1:]}")
-        x = torch.from_numpy(np.ascontiguousarray(images))
+        replay writes over the graph's own). images: (n<=B, ...) uint8
+        numpy frames, or a full uint8 batch already staged on the engine's
+        device (a load bench's `--prestaged`)."""
+        if isinstance(images, torch.Tensor):
+            if tuple(images.shape) != self.in_shape or images.device != self.device:
+                raise ValueError(f"a staged batch must be {self.in_shape} on {self.device}")
+            n, x = self.batch_size, images
+        else:
+            n = images.shape[0]
+            if n > self.batch_size:
+                raise ValueError(f"{n} images for batch size {self.batch_size}")
+            if n < self.batch_size:
+                pad = np.zeros((self.batch_size - n, *images.shape[1:]), images.dtype)
+                images = np.concatenate([images, pad], 0)
+            if tuple(images.shape) != self.in_shape:
+                raise ValueError(f"frames {tuple(images.shape[1:])}: this engine takes "
+                                 f"{self.in_shape[1:]}")
+            x = torch.from_numpy(np.ascontiguousarray(images))
         self.batches += 1
         if self.device.type != "cuda":
             return self.end2end(x), n
         self.capture()
         # from pinned memory: the copy queues behind the last replay
         # without holding up the host
-        self._static_in.copy_(x.pin_memory(), non_blocking=True)
+        self._static_in.copy_(x if x.is_cuda else x.pin_memory(), non_blocking=True)
         self._graph.replay()
         self.replays += 1
         out = self._static_out

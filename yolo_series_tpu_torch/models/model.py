@@ -6,6 +6,7 @@
 save-list outputs kept by index. Inputs and head inputs are NHWC at this
 boundary, as in the JAX package; inside, activations are NCHW tensors in
 `channels_last` memory, so the NHWC views are permutes, not copies.
+`profile_layers` (and `Model.profile`) times and sizes it layer by layer.
 """
 
 from __future__ import annotations
@@ -141,6 +142,66 @@ def apply_model(plan: GraphPlan, params, state, x, *, training: bool = False,
     raise ValueError("graph plan ended without a head layer")
 
 
+def profile_layers(plan: GraphPlan, params, state, x, *, iters: int = 10,
+                   dtype: torch.dtype = torch.float32, printout: bool = True):
+    """Per-layer forward profile, the reference
+    `Model.forward_once(profile=True)` (yolo.py:614-623: each module timed
+    over `iters` calls, with its GFLOPs and parameter count, printed as a
+    table). x: (B, H, W, 3) NHWC in [0, 1].
+
+    Each layer, the head included, runs alone on the output of the layer
+    before, after one call under `utils/general.FlopCounter` that counts
+    its operations. On the card its time is the steady-state device time
+    a call (`utils/chiprate.chip_rate`: the slope between `iters` and
+    2 * `iters` calls in a CUDA graph, each run between two CUDA events),
+    so the host's launch gaps, which a whole forward hides behind the
+    card's work, are not counted and the rows sum to about the forward's
+    device time. On the CPU it is the mean of `iters` calls on the host
+    clock (`utils/general.profile_fn`).
+
+    Returns a list of {idx, module, ms, gflops, params, shape} dicts."""
+    from yolo_series_tpu_torch.utils.chiprate import chip_rate
+    from yolo_series_tpu_torch.utils.general import FlopCounter, profile_fn
+
+    ctx = Ctx(dtype=dtype)
+    lp, ls = params["layers"], state["layers"]
+    saved: Dict[int, torch.Tensor] = {}
+    y = x.to(dtype).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    rows = []
+    for idx, spec in enumerate(plan.layers):
+        if isinstance(spec.frm, tuple):
+            inp = [y if j == -1 else saved[j] for j in spec.frm]
+        else:
+            inp = y if spec.frm == -1 else saved[spec.frm]
+        if spec.is_head:
+            def layer(inp=inp, spec=spec, p=lp[idx], s=ls[idx]):
+                return spec.block.apply(p, s, inp, ctx)[0]
+        else:
+            def layer(inp=inp, spec=spec, p=lp[idx], s=ls[idx], idx=idx):
+                return _run_layer(ctx, spec, p, s, inp, idx)[0]
+        with torch.inference_mode():
+            with FlopCounter() as c:
+                out = layer()
+            ms = 1e3 * (chip_rate(lambda _: layer(), x, iters=iters) if x.is_cuda
+                        else profile_fn(layer, n=iters))
+        probe = out["pred"] if isinstance(out, dict) else out
+        n_par = sum(t.numel() for t in tree_leaves(lp[idx]))
+        rows.append({"idx": idx, "module": type(spec.block).__name__, "ms": ms,
+                     "gflops": c.flops / 1e9, "params": n_par, "shape": tuple(probe.shape)})
+        if printout:
+            print(f"{ms:8.2f}ms {rows[-1]['gflops']:8.2f} GFLOPs {n_par:10d} params  "
+                  f"l{idx:<3d} {rows[-1]['module']}")
+        if spec.is_head:
+            break
+        y = out
+        if idx in plan.save:
+            saved[idx] = y
+    if printout:
+        print(f"{sum(r['ms'] for r in rows):8.2f}ms total "
+              f"({sum(r['params'] for r in rows):,d} params)")
+    return rows
+
+
 class Model(torch.nn.Module):
     """Owner of (plan, params, state), mirroring the reference
     `Model(cfg, ch, nc, anchors)` constructor surface (yolo.py:508). All
@@ -174,3 +235,8 @@ class Model(torch.nn.Module):
 
     def num_params(self) -> int:
         return sum(t.numel() for t in tree_leaves(self.params))
+
+    def profile(self, x, iters: int = 10, dtype: torch.dtype = torch.float32):
+        """Per-layer timing and GFLOPs table (reference
+        forward_once(profile=True), yolo.py:614-623)."""
+        return profile_layers(self.plan, self.params, self.state, x, iters=iters, dtype=dtype)

@@ -7,7 +7,8 @@ collapse (common.py:509-552), the OREPA family's `deploy` (weight_gen and
 BN into one conv, common.py:1323-1345) and the folding of IDetect's,
 IAuxDetect's, IBin's and IKeypoint's implicit layers into their lead 1x1
 convs (yolo.py:178-190): (params, state) -> (params', state') with the
-same inference output and the same GraphPlan.
+same inference output and the same GraphPlan. `prune_model` and
+`sparsity` are the reference's L1 pruning and its zero count.
 
 A composite block's own leaves beside its children (RobustConv's 1x1 conv
 and layer scale, RobustConv2's transposed conv, TransformerBlock's
@@ -21,6 +22,7 @@ from __future__ import annotations
 
 from typing import Any, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -117,3 +119,36 @@ def fuse_model(plan: GraphPlan, params, state) -> Tuple[Any, Any]:
             new_p.append(p)
             new_s.append(s)
     return {"layers": new_p}, {"layers": new_s}
+
+
+def prune_model(params, amount: float = 0.3):
+    """Per-leaf L1 unstructured pruning of conv kernels (reference
+    torch_utils.prune, :228-236: l1_unstructured per Conv2d module): every
+    4-d leaf named "w" loses its `amount` fraction of smallest |w|, every
+    value at or below the k-th smallest |w| set to 0 (ties at the
+    threshold included, as the JAX package's `prune_model`). The zeros
+    persist through the deploy transforms and quantization."""
+    def prune(tree, name=""):
+        if isinstance(tree, dict):
+            return {k: prune(v, k) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(prune(v, name) for v in tree)
+        if name != "w" or not isinstance(tree, torch.Tensor) or tree.ndim != 4:
+            return tree
+        flat = tree.detach().abs().cpu().numpy().ravel()
+        k = int(len(flat) * amount)
+        if k == 0:
+            return tree
+        thr = float(np.partition(flat, k - 1)[k - 1])
+        return torch.where(tree.abs() <= thr, torch.zeros_like(tree), tree)
+
+    return prune(params)
+
+
+def sparsity(params) -> float:
+    """Global fraction of zero weights (reference torch_utils.sparsity)."""
+    from yolo_series_tpu_torch.models.model import tree_leaves
+
+    leaves = tree_leaves(params)
+    zeros = sum(int((t == 0).sum()) for t in leaves)
+    return zeros / max(sum(t.numel() for t in leaves), 1)

@@ -4,7 +4,8 @@ console + results.jsonl + optional TensorBoard / Weights & Biases
 append, train.py:441-442).
 
 The jsonl record is always written. TensorBoard and W&B are optional, as in
-the JAX package: a missing package disables its sink.
+the JAX package: a missing package disables its sink, and
+`log_dataset_artifact` is a no-op without wandb.
 """
 
 from __future__ import annotations
@@ -13,6 +14,13 @@ import json
 import logging
 from pathlib import Path
 from typing import Dict, Optional
+
+
+def setup_logging(rank: int = 0, verbose: bool = True):
+    """Root logging config by process rank (reference general.py:34-37)."""
+    logging.basicConfig(
+        format="%(message)s",
+        level=logging.INFO if (verbose and rank in (-1, 0)) else logging.WARNING)
 
 
 class ExperimentLogger:
@@ -83,3 +91,26 @@ class ExperimentLogger:
             self.tb.close()
         if self.wandb_run:
             self.wandb_run.finish()
+
+
+def log_dataset_artifact(data_yaml: str, project: str = "yolo-series-tpu"):
+    """Upload a dataset as a W&B artifact (reference log_dataset.py +
+    wandb_utils.py:193-261). No-op, returning None, when wandb is
+    unavailable."""
+    try:
+        import wandb
+        import yaml
+    except Exception as e:  # noqa: BLE001
+        logging.info(f"log_dataset skipped: {e}")
+        return None
+    with open(data_yaml) as f:
+        data = yaml.safe_load(f)
+    run = wandb.init(project=project, job_type="dataset")
+    art = wandb.Artifact(name=Path(data_yaml).stem, type="dataset", metadata=data)
+    for split in ("train", "val"):
+        p = data.get(split)
+        if p and Path(p).exists():
+            (art.add_dir if Path(p).is_dir() else art.add_file)(str(p))
+    run.log_artifact(art)
+    run.finish()
+    return art

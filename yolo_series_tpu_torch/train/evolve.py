@@ -13,8 +13,7 @@ the JAX package's globals give the same hyp. `evolve` seeds them with
 `TrainConfig.seed`. On several devices each generation's training is
 `train`'s multi-process run; under an already joined group (torchrun)
 every rank mutates alike and rank 0 alone writes the files.
-`plot_evolve` (the scatter panels) waits for the plots module, ROADMAP
-queue 1 item 19.
+`obs/plots.plot_evolution` draws evolve.txt's scatter panels.
 """
 
 from __future__ import annotations

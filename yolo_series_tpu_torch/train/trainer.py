@@ -52,8 +52,7 @@ trainer makes the images on the device before the step
 hyp has no rotation, shear or perspective), accumulated micro-batches
 stacked as the JAX trainer stacks them.
 
-Not ported yet, and refused with NotImplementedError: `bbox_interval > 0`
-(ROADMAP queue 1 item 19), `split_concat`
+Not ported yet, and refused with NotImplementedError: `split_concat`
 and `fast_stem` (item 20; the JAX trainer's `fast_stem=True` default is an
 exact reshuffle of the step's plan, `models/faststem.make_train_fast_stem`,
 so here it defaults to False and the step runs the plan as compiled). An
@@ -61,9 +60,11 @@ IAuxDetect model (the P6 training cfgs) trains with the aux OTA loss
 (`losses/aux_ota.py`) and an IBin model with the bin-OTA loss
 (`losses/bin_ota.py`, whatever `loss_ota` says), as the JAX trainer
 dispatches them. The image size is rounded up to a multiple
-of the largest stride (64 for P6; reference train.py:249-250). The
-train-batch mosaics and `plot_results` wait for item 19: the trainer says
-so once and writes none.
+of the largest stride (64 for P6; reference train.py:249-250). The first
+three batches' mosaics (train_batch{0,1,2}.jpg, none from the device tail,
+which has no host pixels), `plot_results`' results.png, and with
+`bbox_interval` > 0 the val mosaics every that many epochs (logged as
+`val/test_batch*_pred`) are written as the JAX trainer writes them.
 """
 
 from __future__ import annotations
@@ -160,7 +161,8 @@ class TrainConfig:
     entity: Optional[str] = None  # W&B entity
     upload_dataset: bool = False  # snapshot the dataset into the artifact
     # store and train from the snapshot (wandb_utils.py:193-218)
-    bbox_interval: int = -1       # > 0: item 19, refused
+    bbox_interval: int = -1       # epochs between val bbox media panels
+    # (reference --bbox_interval; wandb_utils.py:263-300). -1 = off
     artifact_alias: str = "latest"  # alias of an artifact:// data ref
     device: Optional[str] = None  # the card unless "cpu"
 
@@ -188,9 +190,6 @@ def load_hyp(hyp) -> dict:
 
 
 def _refuse_unported(tc: TrainConfig):
-    if tc.bbox_interval > 0:
-        raise NotImplementedError("--bbox_interval's val media panels need the plots "
-                                  "module: ROADMAP queue 1, item 19")
     if tc.fast_stem or tc.split_concat:
         raise NotImplementedError("the train step's layout passes (fast_stem, "
                                   "split_concat) are not ported yet: ROADMAP queue 1, "
@@ -342,8 +341,6 @@ def train(tc: TrainConfig, train_ds: Optional[DetectionDataset] = None,
                        if isinstance(v, (int, float, str, bool, type(None)))}, f)
         from yolo_series_tpu_torch.obs.loggers import ExperimentLogger
         logger = ExperimentLogger(save_dir, entity=tc.entity)
-    say("train: the train-batch mosaics and the results plots are not ported yet "
-        "(ROADMAP queue 1, item 19): none is written")
 
     # dataset artifacts (reference wandb_utils.py:159-218): --upload_dataset
     # snapshots the dataset into the project-level store and trains from the
@@ -558,6 +555,15 @@ def train(tc: TrainConfig, train_ds: Optional[DetectionDataset] = None,
                 break
             micro.append(batch)
             ni += 1
+            if main and ni <= 3 and "images" in batch:
+                # first-3-batch mosaics (reference train.py:403-407)
+                try:
+                    from yolo_series_tpu_torch.obs.plots import plot_images
+                    plot_images(batch["images"], batch["labels"], batch["label_mask"],
+                                paths=batch.get("paths"), names=names,
+                                fname=str(save_dir / f"train_batch{ni - 1}.jpg"))
+                except Exception as e:  # noqa: BLE001
+                    print(f"train batch plot failed: {e}")
             # warmup accumulate ramp (train.py:352-353)
             accum_now = (warmup_accumulate(ni - 1, warmup_steps, accumulate)
                          if tc.warmup_accumulate else accumulate)
@@ -598,8 +604,16 @@ def train(tc: TrainConfig, train_ds: Optional[DetectionDataset] = None,
         fi = 0.0
         if val_ds is not None and not tc.noval and \
                 (epoch % tc.eval_every == 0 or epoch == tc.epochs - 1):
+            # --bbox_interval: val bbox media panels every N epochs
+            # (reference wandb_utils.log_training_progress, :263-300)
+            media = (tc.bbox_interval > 0
+                     and (epoch % tc.bbox_interval == 0 or epoch == tc.epochs - 1))
             res = evaluate(plan, ts.ema_params, ts.ema_state, val_loader(),
-                           names=names, v5_metric=tc.v5_metric, device=dev)
+                           names=names, v5_metric=tc.v5_metric, device=dev,
+                           plots_dir=str(save_dir) if media else None)
+            if media:
+                for f in sorted(save_dir.glob("test_batch*_pred.jpg")):
+                    logger.log_image(f"val/{f.stem}", f, step=epoch)
             row.update({f"val/{k}": res[k] for k in ("mp", "mr", "map50", "map")})
             fi = res["fitness"]
         row, fi = broadcast_object((row, fi), 0, group)   # rank 0's row on every rank
@@ -630,6 +644,13 @@ def train(tc: TrainConfig, train_ds: Optional[DetectionDataset] = None,
                                 if isinstance(v, (int, float))}, step)
         if callbacks and "on_epoch_end" in callbacks:
             callbacks["on_epoch_end"](epoch, row, ts)
+
+    if main:
+        try:
+            from yolo_series_tpu_torch.obs.plots import plot_results
+            plot_results(results_rows, save_dir)
+        except Exception as e:  # noqa: BLE001
+            print(f"plot_results failed: {e}")
 
     # train-end (reference train.py:494-531): evaluate best if it exists,
     # else last, then strip both to deploy form (strip_optimizer)
