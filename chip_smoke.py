@@ -209,8 +209,30 @@ non-zero on failure before the last line is printed:
     5 s a mode with batching on and off (infer/s, p50, p99; each client
     its own frame's detections); (e) tools/torch_eval_int8.py on phase 8's
     set (fp32 and int8 mAP; K4, K1L; int8 equal with the plain keep-mask).
-15. One JSON line of per-kernel numbers (launch counts with phases 9's to
-    14's), the card's name and power limit, and the last line
+15. Several cards and the layout passes (`mesh_and_layout`): (a) the
+    sharded engine (`infer/serving.ShardedServingEngine`) on full-width
+    yolov7 deploy, 640 px, bf16, batch 8, over one card twice: a 2 x 1
+    data grid (each row a batch-4 graph engine: K2, K3, K1 a replay, each
+    in a fresh process's trace; each half bit-equal with a batch-4 engine's, with the
+    row's eager forward, whose conv_silu launches are each held against
+    the plain conv, and with the plain keep-mask's) and a 1 x 2 tensor-parallel
+    grid (cut convs through cuDNN, K1; head inputs within cuDNN bf16's own
+    distance from fp32 of the unsharded bf16 forward, detections by the
+    phase-4 rule), img/s and p50; (b) phase 7's step with
+    `make_train_fast_stem` (an fp32 step card against CPU by phase 7's
+    rule unless the max pools route near-ties otherwise, and the folded
+    layers alone under one cotangent against the CPU and the unfolded
+    layers; the bf16 step's ms with and without the fold), the
+    `split_concat` engine against the plain engine on yolov7-tiny (on
+    yolov7 K3 leaves it nothing), `make_lane_align` and `TrainReorgConv`
+    on yolov7-w6 training in fp32 against the plain plan; (c) `remat_prefix=4` on phase
+    7's step, bit-equal with cuDNN deterministic, peak and ms with and
+    without; (d) the native loader (built from the port's loader.cc) on
+    phase 8's JPEGs, bit-equal with the Python letterbox, img/s at 1 and 4
+    threads; (e) the fp32 eval pred of the training form, card against
+    CPU.
+16. One JSON line of per-kernel numbers (launch counts with phases 9's to
+    15's), the card's name and power limit, and the last line
     `{"ok": true, "device": {...}}`.
 """
 
@@ -253,14 +275,21 @@ from yolo_series_tpu_torch.eval import evaluator
 from yolo_series_tpu_torch.eval.evaluator import evaluate, scale_coords_np
 from yolo_series_tpu_torch.infer import quant
 from yolo_series_tpu_torch.infer.detector import Detector
-from yolo_series_tpu_torch.infer.serving import (DynamicBatcher, ServingEngine, place,
+from yolo_series_tpu_torch.data import native as native_loader
+from yolo_series_tpu_torch.infer.serving import (DynamicBatcher, ServingEngine,
+                                                 ShardedServingEngine, place,
                                                  serving_transforms)
 from yolo_series_tpu_torch.models import extra as X
 from yolo_series_tpu_torch.models import heads as H
 from yolo_series_tpu_torch.models import layers as L
 from yolo_series_tpu_torch.models.model import (Model, _run_layer, apply_model, tree_leaves,
                                                 tree_map)
+from yolo_series_tpu_torch.models.faststem import (TrainPhasedConvA, TrainPhasedConvB,
+                                                   make_train_fast_stem)
+from yolo_series_tpu_torch.models.fastconcat import SplitConcatConv
+from yolo_series_tpu_torch.models.lanealign import LaneAlignedConv, make_lane_align
 from yolo_series_tpu_torch.models.reparam import fuse_model
+from yolo_series_tpu_torch.parallel.mesh import ShardedWeight, make_mesh
 from yolo_series_tpu_torch.models.torch_export import export_state_dict
 from yolo_series_tpu_torch.ops import (_build, conv_silu, fused_elan, fused_stem,
                                        int8_mm, nms_keep)
@@ -4538,9 +4567,8 @@ def profiling(dev, m, replay_ms, batch=BATCH):
     """Phase 14 (b): `profile_layers` of the fused plan at `batch` (bf16):
     one row a layer, its steady-state device time; the sum within
     PROFILE_TOL of the eager forward's device busy time (its kernels' time
-    in a torch.profiler trace: the forward does not capture, its head
-    copies the anchors from the host; its time between two events, which
-    counts the host's launch gaps, printed beside it); `chip_rate` of the
+    in a torch.profiler trace; its time between two events, which counts
+    the host's launch gaps, printed beside it); `chip_rate` of the
     bf16 engine's end2end (a CUDA graph of N calls) within PROFILE_TOL of
     phase 4's replay time; `model_info`'s counts on the card equal to the
     CPU's."""
@@ -4773,6 +4801,616 @@ def int8_and_tools(dev, m, replay_ms, width=1.0, batch=BATCH, zoo=INT8_ZOO,
             "eval_int8": ev, "phase_s": secs}
 
 
+# ------------------------------------- several cards, the layout passes ---
+
+# Phase 15 (a): the sharded engine's grids on one card (two views of it).
+# The tensor-parallel row runs the fused plan through cuDNN with each cut
+# conv's output channels computed apart: cuDNN may pick other algorithms
+# for the narrower convs, so its head inputs are held against the unsharded
+# bf16 forward of the same plan within cuDNN bf16's own relative RMS from
+# fp32 (a bf16 forward computed another way is no farther from the bf16
+# forward than bf16 is from fp32), and its detections by the phase-4 rule.
+MESH_REQUESTS = 8
+# (b) the layout passes against the plain plan in fp32 (`full_fp32`): the
+# same convs re-arranged, cuDNN's fp32 sums in another order: the head
+# inputs within LAYOUT_REL relative RMS
+LAYOUT_REL = 1e-4
+LAYOUT_W6_BATCH = 2
+# (e) the fp32 eval pred, card against CPU (cuDNN against oneDNN fp32):
+# boxes, objectness and classes each within EVAL_CPU_REL of their largest
+EVAL_CPU_REL = 1e-4
+NATIVE_THREADS = (1, 4)
+# (b1) The folded fp32 step, card against CPU. SPPCSPC's stride-1 pools
+# route each window's gradient to its largest input; where two inputs lie
+# within fp32 rounding of each other, another summation order picks the
+# other one, which moves the update of every layer upstream of the pool by
+# one discrete step. On the CPU (tools/torch_fold_readings.py, width 0.25,
+# 320 px, batch 2, 4 and 8 threads) the folded and unfolded steps lie
+# 0.0677 apart where 87 windows of the chained 5 x 5 pools route otherwise
+# (their two inputs at most 7.1e-7 to 4.0e-6 apart, relative), and
+# 1.27e-4 to 1.39e-4 where none does; which run reroutes turns with the
+# thread count and with the fold's moments taken in one pass or two. So
+# the whole update is held within phase 7's STEP_UPDATE_L2 unless windows
+# route otherwise on the card, each such window's two inputs within
+# FOLD_NEAR_TIE of each other; the pool-free layers, and the folded layers
+# alone under one cotangent (against the CPU and the unfolded layers),
+# are held in every case.
+FOLD_NEAR_TIE = 1e-4
+
+
+def grid_rows(dev, m, devices, n_data, n_model, batch, frames, what):
+    """One grid's engine on `devices` (a (n_data, n_model) grid), driven on
+    `frames` (3 full batches, a partial one, MESH_REQUESTS requests through
+    a `DynamicBatcher`) with the counters zeroed just before: (engine, the
+    launch counts, the full batches' outputs)."""
+    grid = make_mesh(n_data, n_model, devices)
+    eng = ShardedServingEngine(m.plan, m.params, m.state, grid, batch_size=batch,
+                               img_size=m.img, dtype=torch.bfloat16)
+    zero_counts()
+    outs = [eng.infer(f) for f in frames]
+    partial = eng.infer(frames[0][:3])
+    batcher = DynamicBatcher(eng, max_delay_ms=20)
+    try:
+        res = [DynamicBatcher.wait(batcher.submit(f), timeout=300)
+               for f in frames[1][:MESH_REQUESTS]]
+    finally:
+        batcher.close()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    counts = read_counts()
+    if any(r is None for r in res):
+        raise AssertionError(f"{what}: a batcher request got no result")
+    for k in partial:
+        if not np.array_equal(partial[k], outs[0][k][:3]):
+            raise AssertionError(f"{what}: the partial batch's {k} differ from the full one's")
+    return eng, counts, outs
+
+
+def grid_speed(eng, frames):
+    """img/s of `infer_async` between events (both rows' uploads, replays or
+    eager forwards and clones) and host-to-host `infer` p50."""
+    ms = cuda_ms(lambda: eng.infer_async(frames), iters=20)
+    lat = []
+    for _ in range(20):
+        t = time.perf_counter()
+        eng.infer(frames)
+        lat.append((time.perf_counter() - t) * 1e3)
+    return {"img_s": eng.batch_size / ms * 1e3, "ms_batch": ms, "p50_ms": statistics.median(lat)}
+
+
+def grid_traces(width, img, batch):
+    """The 2 x 1 grid of `sharded` on the card in this process (it must have
+    traced nothing before): the launches of TRACED in each row's replay,
+    the row's graph traced alone, and in a forward's two replays."""
+    dev = torch.device("cuda")
+    m = make_model(dev, width, img)
+    eng = ShardedServingEngine(m.plan, m.params, m.state, make_mesh(2, 1, [dev, dev]),
+                               batch_size=batch, img_size=img, dtype=torch.bfloat16)
+    frames = np.random.default_rng(15).integers(0, 256, (batch, img, img, 3), np.uint8)
+    eng.infer(frames)
+    half, rows = batch // 2, []
+    for d, r in enumerate(eng.rows):
+        part = frames[d * half:(d + 1) * half]
+        prof = profile_forwards(lambda: r.infer_async(part), f"2x1 row {d} (graph)")["profile"]
+        rows.append(prof and prof["launches"])
+    prof = profile_forwards(lambda: eng.infer_async(frames), "2x1 (graphs)")["profile"]
+    return {"rows": rows, "forward": prof and prof["launches"]}
+
+
+def fresh_grid_traces(m, batch):
+    """`grid_traces` in a child process (its last line of output)."""
+    code = (f"import json, chip_smoke as cs; "
+            f"print(json.dumps(cs.grid_traces({m.width!r}, {m.img}, {batch})))")
+    child = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                           text=True, timeout=600)
+    if child.returncode:
+        raise AssertionError(f"grid traces: the child exited {child.returncode}: "
+                             f"{child.stderr[-3000:]}")
+    return json.loads([line for line in child.stdout.splitlines() if line.startswith("{")][-1])
+
+
+def sharded(dev, m, devices=None, batch=BATCH, what="mesh (a)", phase4=None):
+    """Phase 15 (a): the sharded engine on full-width yolov7 deploy, bf16.
+    A 2 x 1 data grid: each row a batch-B/2 `ServingEngine` (its CUDA graph,
+    K2's 3 and K3's 48 conv_silu launches and K1's one a replay, each
+    replay's kernels in the trace of a fresh process), each half of its output bit-equal with
+    a batch-B/2 engine's on that half, with the row's eager forward (each
+    of its conv_silu launches held against the plain conv) and with the
+    row's forward on the plain keep-mask. A
+    1 x 2 tensor-parallel grid: its cut convs on both devices, K1 on the
+    first, eager; head inputs and detections against the references. img/s
+    and p50 beside (and beside phase 4's engine, `phase4`: its serving
+    numbers). `devices`: the grid's devices ([dev, dev]: one card twice,
+    unless given)."""
+    devices = [dev, dev] if devices is None else devices
+    rng = np.random.default_rng(15)
+    frames = [rng.integers(0, 256, (batch, m.img, m.img, 3), np.uint8) for _ in range(3)]
+    half = batch // 2
+    normalized, reference = make_reference(m)
+
+    # ---- the data grid ----
+    eng, counts, outs = grid_rows(dev, m, devices, 2, 1, batch, frames, f"{what} 2x1")
+    n_stem, n_elan = plan_names(eng.rows[0])
+    per_forward = {"K1": 1, "K2": n_stem, "K3": n_elan}
+    want = {kid: 2 * 2 * per_forward.get(kid, 0) for kid in COUNTED}   # 2 rows x (warm-up, capture)
+    log(f"{what} 2x1: {len(eng.rows)} rows of batch {half} on {[str(r.device) for r in eng.rows]}, "
+        f"{n_stem} FusedStem, {n_elan} FusedELAN a row; {eng.batches} forwards, {eng.replays} "
+        f"replays; host launch counts {counts}")
+    if dev.type == "cuda":
+        if counts != want or eng.replays != eng.batches:
+            raise AssertionError(f"{what} 2x1: launches {counts} (want {want}), {eng.replays} "
+                                 f"replays of {eng.batches} forwards")
+    single = ServingEngine(m.plan, m.params, m.state, batch_size=half, img_size=m.img,
+                           dtype=torch.bfloat16, device=dev)
+    for j, f in enumerate(frames):
+        for d in range(2):
+            want_d = single.infer(f[d * half:(d + 1) * half])
+            for k in want_d:
+                if not np.array_equal(outs[j][k][d * half:(d + 1) * half], want_d[k]):
+                    raise AssertionError(f"{what} 2x1: batch {j} row {d}: {k} differ from a "
+                                         f"batch-{half} engine's on its frames")
+    log(f"{what} 2x1: each row's half of {len(frames)} batches bit-equal with a batch-{half} "
+        f"ServingEngine on its frames")
+    # each row's own kernels at its shapes: the row's eager forward (what
+    # its graph captured) on its half of batch 0, each conv_silu launch held
+    # against the plain conv on its own slices; the graph's detections
+    # bit-equal with it and with the row's forward on the plain keep-mask
+    errs = [] if dev.type == "cuda" else None
+    row_launches = []
+    for d, r in enumerate(eng.rows):
+        x_d = torch.from_numpy(frames[0][d * half:(d + 1) * half]).to(r.device)
+        with recorded_launches(errs) as calls:
+            eager = r.to_host(r.end2end(x_d))
+        row_launches.append(len(calls))
+        del calls
+        with plain_nms():
+            plain = r.to_host(r.end2end(x_d))
+        for k in eager:
+            got = outs[0][k][d * half:(d + 1) * half]
+            if not (np.array_equal(got, eager[k]) and np.array_equal(got, plain[k])):
+                raise AssertionError(f"{what} 2x1 row {d}: the graph's {k} differ from its "
+                                     "eager forward's or from the plain keep-mask's")
+    conv_err = max(errs) if errs else None
+    log(f"{what} 2x1: each row's eager forward launched {row_launches} conv_silu, each held "
+        f"against the plain conv on its own slices (max abs err {conv_err}); each row's "
+        f"detections bit-equal with its eager forward's and with the plain keep-mask's")
+    res = {"data": {"launches": counts, "replays": eng.replays,
+                    "conv_silu_max_abs_err": conv_err}}
+    if dev.type == "cuda":
+        if row_launches != [3 * n_stem + 6 * n_elan] * 2:
+            raise AssertionError(f"{what} 2x1: rows' eager conv_silu launches {row_launches}")
+        res["data"].update(grid_speed(eng, frames[0]))
+        # the forward's two replays traced here (a reading), and again in a
+        # fresh process, with each row's graph alone (checked): late in this
+        # script such traces have lacked 2-3 conv_silu records a replay,
+        # every record that came holding device time, while the same graphs
+        # traced in a process that had traced nothing before read each
+        # kernel of the replay
+        res["data"]["profile"] = profile_forwards(
+            lambda: eng.infer_async(frames[0]), f"{what} 2x1 (graphs)")["profile"]
+        fresh = fresh_grid_traces(m, batch)
+        per_row = {k: 0.0 for k in TRACED} | {"nms_keep_kernel": 1.0,
+                                             "conv_silu_kernel": 3.0 * n_stem + 6.0 * n_elan}
+        per_forward = {k: 2 * v for k, v in per_row.items()}
+        res["data"]["launches_traced_fresh"] = fresh
+        log(f"{what} 2x1: a fresh process's traces: each row's replay {fresh['rows']}, a "
+            f"forward {fresh['forward']} (want {per_row} and {per_forward})")
+        if fresh["rows"] != [per_row] * 2 or fresh["forward"] != per_forward:
+            raise AssertionError(f"{what} 2x1: a fresh process traced {fresh}, want "
+                                 f"{per_row} a row and {per_forward} a forward")
+    del eng, single
+
+    # ---- the tensor-parallel grid ----
+    eng, counts, outs = grid_rows(dev, m, devices, 1, 2, batch, frames, f"{what} 1x2")
+    row = eng.rows[0]
+    n_cut = sum(isinstance(v, ShardedWeight) for v in _leaves_any(row._params))
+    want = {kid: 0 for kid in COUNTED} | {"K1": eng.batches}
+    log(f"{what} 1x2: one row over {[str(d) for d in row.devices]}, {n_cut} cut conv "
+        f"weights, eager; {eng.batches} forwards; launch counts {counts}")
+    if dev.type == "cuda" and counts != want:
+        raise AssertionError(f"{what} 1x2: launches {counts}, want {want}")
+    with torch.inference_mode():
+        x16 = normalized(frames[0])
+        feats, _ = apply_model(row.plan, row._params, row._state, x16, dtype=torch.bfloat16,
+                               return_head_inputs=True)
+        f32, want32 = reference(frames[0], torch.float32)
+        f16, _ = reference(frames[0], torch.bfloat16)
+    err_tp, err_bf16 = feature_error(feats, f16), feature_error(f16, f32)
+    agree_tp = statistics.mean(agreement(f"{what} 1x2 batch {j}", outs[j],
+                                         reference(f, torch.float32)[1])
+                               for j, f in enumerate(frames))
+    agree_bf16 = statistics.mean(agreement(f"cuDNN bf16 batch {j}",
+                                           reference(f, torch.bfloat16)[1],
+                                           reference(f, torch.float32)[1])
+                                 for j, f in enumerate(frames))
+    log(f"{what} 1x2: head inputs {err_tp:.5f} relative RMS from the unsharded bf16 forward "
+        f"(limit: cuDNN bf16's {err_bf16:.5f} from fp32); detections agree {agree_tp:.3f} with "
+        f"fp32 (cuDNN bf16 {agree_bf16:.3f})")
+    if not err_tp <= err_bf16:
+        raise AssertionError(f"{what} 1x2: head inputs {err_tp} from the unsharded forward")
+    if not agree_tp >= agree_bf16 - MATCH_MARGIN:
+        raise AssertionError(f"{what} 1x2: detections agree {agree_tp}, cuDNN bf16 {agree_bf16}")
+    res["tensor"] = {"launches": counts, "cut_weights": n_cut, "feature_rms_err": err_tp,
+                     "feature_rms_err_cudnn_bf16": err_bf16, "agreement": agree_tp,
+                     "agreement_cudnn_bf16": agree_bf16}
+    if dev.type == "cuda":
+        res["tensor"].update(grid_speed(eng, frames[0]))
+        p4 = phase4 or {}
+        log(f"{what}: img/s and p50 at batch {batch}: 2x1 {res['data']['img_s']:.1f} img/s, "
+            f"p50 {res['data']['p50_ms']:.3f} ms; 1x2 {res['tensor']['img_s']:.1f} img/s, "
+            f"p50 {res['tensor']['p50_ms']:.3f} ms; phase 4's batch-{batch} engine "
+            f"{p4.get('img_s')} img/s, p50 {p4.get('p50_ms_bs8')} ms")
+    res["launches"] = {kid: res["data"]["launches"][kid] + counts[kid] for kid in COUNTED}
+    return res
+
+
+def _leaves_any(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves_any(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves_any(v)]
+    return [tree]
+
+
+def _rel_parts(got, want):
+    """max |got - want| over the largest |want|."""
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+@contextlib.contextmanager
+def recorded_pools():
+    """Inside: each `layers.max_pool` call appends a host copy of its input
+    and its (k, stride, padding) to the list yielded."""
+    real, rec = L.max_pool, []
+
+    def record(x, k, s, padding):
+        rec.append((x.detach().cpu().clone(), k, s, padding))
+        return real(x, k, s, padding)
+
+    L.max_pool = record
+    try:
+        yield rec
+    finally:
+        L.max_pool = real
+
+
+def pool_routes(pools_a, pools_b):
+    """Two runs' max pools (`recorded_pools`): the windows whose maximum is
+    another input in b than in a, and the largest gap between the two
+    inputs of such a window in a's values, relative to a's maximum."""
+    n, gap = 0, 0.0
+    for (xa, k, s, pad), (xb, *_) in zip(pools_a, pools_b):
+        _, ia = torch.nn.functional.max_pool2d(xa, k, s, pad, return_indices=True)
+        _, ib = torch.nn.functional.max_pool2d(xb, k, s, pad, return_indices=True)
+        moved = (ia != ib).flatten(2)
+        if moved.any():
+            flat = xa.flatten(2)
+            va = flat.gather(2, ia.flatten(2))[moved]
+            vb = flat.gather(2, ib.flatten(2))[moved]
+            n += int(moved.sum())
+            gap = max(gap, float(((va - vb).abs() / va.abs().clamp_min(1e-30)).max()))
+    return n, gap
+
+
+def prefix_grads(plan, params, state, x, k, dev, seed=15):
+    """Layers 0..k-1 of `plan` (a chain) in fp32 training on `dev` from the
+    NHWC batch x: their output, new BN state and the grads of their params
+    under a cotangent on the output drawn from `seed`."""
+    ctx = L.Ctx(dtype=torch.float32, training=True)
+    lp = [tree_map(lambda t: t.detach().to(dev).requires_grad_(), params["layers"][i])
+          for i in range(k)]
+    y = x.to(dev).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    states = []
+    with full_fp32(dev.type == "cuda"):
+        for i in range(k):
+            y, s_i = _run_layer(ctx, plan.layers[i], lp[i],
+                                tree_map(lambda t: t.to(dev), state["layers"][i]), y, i)
+            states.append(s_i)
+        cot = torch.randn(y.shape, generator=torch.Generator().manual_seed(seed))
+        grads = torch.autograd.grad(y, tree_leaves(lp), cot.to(dev, y.dtype))
+    return y.detach(), states, list(grads)
+
+
+def check_fold_step(dev, width=0.25, img=320, batch=2, what="layout (b) fast stem"):
+    """One fp32 step (OTA, SGD) of yolov7's training form at `width` with
+    `make_train_fast_stem`, card against CPU from the same state, by phase
+    7 (b)'s rule where the pools allow it (FOLD_NEAR_TIE): the update
+    within STEP_UPDATE_L2, unless the max pools route some window to
+    another input on the card than on the CPU, each such window a near-tie;
+    then the pool-free layers' update within PAR_POOL_FREE_L2. Loss items
+    within PAR_ITEM_RTOL, BN state within STEP_STATE_REL. The folded layers
+    themselves are held directly under one cotangent, card against CPU and
+    against the unfolded layers on the card: their output within
+    PAR_ITEM_RTOL (fp32 sums in another order), BN state within
+    STEP_STATE_REL, param grads within STEP_UPDATE_L2."""
+    model = train_model(torch.device("cpu"), width, seed=3)
+    opt = train_optim.OptimConfig()
+    lr, mom = lr_after_warmup(opt)
+    batch_np = train_batch(np.random.default_rng(5), batch, img)
+    loss_fn = make_compute_loss_ota(model.plan.head, LossHyp())
+    folded = make_train_fast_stem(model.plan)
+    res, pools = {}, {}
+    for where in (dev, torch.device("cpu")):
+        ts = init_train_state(model.params, model.state, opt, device=where)
+        step = make_train_step(folded, loss_fn, opt, compute_dtype=torch.float32)
+        with full_fp32(where.type == "cuda"), recorded_pools() as rec:
+            new, metrics = step(ts, *batch_np, lr, mom)
+        res[where.type] = (ts, new, {k: float(v) for k, v in metrics.items()})
+        pools[where.type] = rec
+    (ts_h, new_h, m_h), new_c = res["cpu"], res[dev.type][1]
+    card = update_readings(model.plan, new_c.params, new_h.params, ts_h.params)
+    moved, gap = pool_routes(pools["cpu"], pools[dev.type])
+    del pools
+    items = max(abs(res[dev.type][2][k] - m_h[k]) / abs(m_h[k]) for k in m_h)
+    state = tree_rel_l2(new_c.state, new_h.state)
+    log(f"{what}: one fp32 step of yolov7 with the fold, width {width}, {img} px, batch "
+        f"{batch}, card against CPU: update {card['rel_l2']:.3g} in all (limit "
+        f"{STEP_UPDATE_L2} unless the pools route otherwise), pool-free layers "
+        f"{card['pool_free_rel_l2']:.3g} (limit {PAR_POOL_FREE_L2}), the others "
+        f"{card['pooled_rel_l2']:.3g} ({card['pooled_share']:.4f} of the squared distance; "
+        f"top layers {card['top_layers']}); {moved} max-pool windows route to another input "
+        f"on the card, their two inputs at most {gap:.3g} apart (limit {FOLD_NEAR_TIE}); "
+        f"loss items {items:.3g} (limit {PAR_ITEM_RTOL}), BN state {state:.3g} (limit "
+        f"{STEP_STATE_REL})")
+    whole = card["rel_l2"] <= STEP_UPDATE_L2 or (moved > 0 and gap <= FOLD_NEAR_TIE)
+    if not (whole and card["pool_free_rel_l2"] <= PAR_POOL_FREE_L2
+            and items <= PAR_ITEM_RTOL and state <= STEP_STATE_REL):
+        raise AssertionError(f"{what}: update {card['rel_l2']} ({moved} pool windows "
+                             f"rerouted, gap {gap}), pool-free {card['pool_free_rel_l2']}, "
+                             f"loss items {items}, BN state {state}")
+    # the folded layers alone, under one cotangent
+    k = next(i for i, spec in enumerate(folded.layers)
+             if not isinstance(spec.block, (TrainPhasedConvA, TrainPhasedConvB)))
+    x = torch.from_numpy(batch_np[0]).float() / 255.0
+    card_f, cpu_f, card_u = (prefix_grads(plan, model.params, model.state, x, k, where)
+                             for plan, where in ((folded, dev), (folded, torch.device("cpu")),
+                                                 (model.plan, dev)))
+    prefix = {f"{label}_{part}": tree_rel_l2(got[j], want[j])
+              for label, got, want in (("card_vs_cpu", card_f, cpu_f),
+                                       ("fold_vs_unfolded", card_f, card_u))
+              for j, part in enumerate(("out", "bn_state", "grads"))}
+    names = ", ".join(type(spec.block).__name__ for spec in folded.layers[:k])
+    log(f"{what}: the {k} folded layers ({names}) alone under one cotangent, card against "
+        f"CPU: output {prefix['card_vs_cpu_out']:.3g}, BN state "
+        f"{prefix['card_vs_cpu_bn_state']:.3g}, param grads {prefix['card_vs_cpu_grads']:.3g}; "
+        f"against the unfolded layers on the card: {prefix['fold_vs_unfolded_out']:.3g}, "
+        f"{prefix['fold_vs_unfolded_bn_state']:.3g}, {prefix['fold_vs_unfolded_grads']:.3g} "
+        f"(limits: output {PAR_ITEM_RTOL}, BN state {STEP_STATE_REL}, grads {STEP_UPDATE_L2})")
+    for label in ("card_vs_cpu", "fold_vs_unfolded"):
+        if not (prefix[f"{label}_out"] <= PAR_ITEM_RTOL
+                and prefix[f"{label}_bn_state"] <= STEP_STATE_REL
+                and prefix[f"{label}_grads"] <= STEP_UPDATE_L2):
+            raise AssertionError(f"{what}: the folded layers {label}: {prefix}")
+    return {"card": card, "pool_windows_rerouted": moved, "rerouted_gap": gap,
+            "item_rel_err": items, "bn_state_rel_err": state, "folded_layers": prefix}
+
+
+def step_pair(dev, plan_a, plan_b, batch_np, width, what, **kw):
+    """One bf16 step of phase 7's yolov7 from the same state with plan_a
+    and plan_b (each `make_train_step(**kw)`): their new TrainStates and
+    step timings (ms a step, peak bytes)."""
+    model = train_model(dev, width)
+    opt = train_optim.OptimConfig()
+    loss_fn = make_compute_loss_ota(model.plan.head, LossHyp())
+    lr, mom = lr_after_warmup(opt)
+    ts = init_train_state(model.params, model.state, opt, device=dev)
+    out = {}
+    for name, plan, extra in (("a", plan_a(model.plan), kw.get("a", {})),
+                              ("b", plan_b(model.plan), kw.get("b", {}))):
+        step = make_train_step(plan, loss_fn, opt, compute_dtype=torch.bfloat16, **extra)
+        new = step(ts, *batch_np, lr, mom)
+        again = step(ts, *batch_np, lr, mom)
+        timing = (step_timing(lambda: step(ts, *batch_np, lr, mom), len(batch_np[0]), iters=5,
+                              warmup=1, host_reps=2) if dev.type == "cuda" else {})
+        out[name] = (new, again, timing)
+    del model, ts
+    return out
+
+
+def layouts(dev, m, width=1.0, img=IMG, batch=BATCH, p6_img=IMG, what="layout (b)"):
+    """Phase 15 (b) and (c): the layout passes at full width. (b1) phase 7's
+    step with `make_train_fast_stem`: an fp32 step card against CPU by
+    phase 7's rule where the pools allow it (`check_fold_step`), and the
+    bf16 step's ms with and without the fold; (b2) the `split_concat` bf16
+    engine against the plain engine (head inputs by the phase-4 rule,
+    img/s beside); (b3) `make_lane_align` and
+    `TrainReorgConv` on yolov7-w6 training at `p6_img` px, batch 2: the eval
+    forward against the plain plan in fp32. (c) `remat_prefix=4` on phase
+    7's bf16 step: params bit-equal with cuDNN deterministic (the step
+    without it twice is the control), peak bytes and ms with and without."""
+    res = {}
+    fold = check_fold_step(dev, what=f"{what} fast stem")
+    batch_np = train_batch(np.random.default_rng(7), batch, img)
+    bench = step_pair(dev, lambda p: p, make_train_fast_stem, batch_np, width,
+                      f"{what} fast stem")
+    res["fast_stem"] = {"fp32_card_cpu": fold, "ms_plain": bench["a"][2].get("ms_step"),
+                        "ms_fold": bench["b"][2].get("ms_step"),
+                        "peak_plain": bench["a"][2].get("peak_bytes"),
+                        "peak_fold": bench["b"][2].get("peak_bytes")}
+    fin = all(bool(torch.isfinite(t).all()) for t in tree_leaves(bench["b"][0][0].params))
+    log(f"{what} fast stem: the bf16 step (batch {batch}, {img} px) {res['fast_stem']['ms_plain']} "
+        f"ms without the fold, {res['fast_stem']['ms_fold']} ms with it; peak "
+        f"{res['fast_stem']['peak_plain']} / {res['fast_stem']['peak_fold']} bytes; finite {fin}")
+    if not fin:
+        raise AssertionError(f"{what}: the folded step's params are not finite")
+    del bench
+
+    # (b2) split_concat in the serving engine. On yolov7 the fused ELAN
+    # spans (K3) absorb every concat whose readers are all 1x1 convs, so
+    # the rewrite finds nothing there after the serving transforms (as in
+    # the JAX engine, which applies it after its Pallas ELAN); yolov7-tiny,
+    # where K3 declines, gives it its work
+    on_v7 = ServingEngine(m.plan, m.params, m.state, batch_size=batch, img_size=m.img,
+                          dtype=torch.bfloat16, device=dev, split_concat=True)
+    n_v7 = sum(isinstance(s.block, SplitConcatConv) for s in on_v7.plan.layers)
+    del on_v7
+    tiny = make_model(dev, width, m.img, TINY_DEPLOY_CFG)
+    rng = np.random.default_rng(16)
+    frames = rng.integers(0, 256, (batch, tiny.img, tiny.img, 3), np.uint8)
+    plain = ServingEngine(tiny.plan, tiny.params, tiny.state, batch_size=batch,
+                          img_size=tiny.img, dtype=torch.bfloat16, device=dev)
+    split = ServingEngine(tiny.plan, tiny.params, tiny.state, batch_size=batch,
+                          img_size=tiny.img, dtype=torch.bfloat16, device=dev, split_concat=True)
+    n_split = sum(isinstance(s.block, SplitConcatConv) for s in split.plan.layers)
+    if n_split == 0:
+        raise AssertionError(f"{what} split_concat: no conv of yolov7-tiny was rewritten")
+    zero_counts()
+    got_split = split.infer(frames)
+    counts = read_counts()
+    normalized, reference = make_reference(tiny)
+    with torch.inference_mode():
+        fs_, _ = apply_model(split.plan, split._params, split._state, normalized(frames),
+                             dtype=torch.bfloat16, return_head_inputs=True)
+        fp_, _ = apply_model(plain.plan, plain._params, plain._state, normalized(frames),
+                             dtype=torch.bfloat16, return_head_inputs=True)
+        f32, want32 = reference(frames, torch.float32)
+        f16, want16 = reference(frames, torch.bfloat16)
+    err_split, err_bf16 = feature_error(fs_, f32), feature_error(f16, f32)
+    agree_s, agree_bf16 = agreement("split_concat", got_split, want32), agreement(
+        "cuDNN bf16", want16, want32)
+    speeds = {}
+    if dev.type == "cuda":
+        for name, e in (("plain", plain), ("split", split), ("plain_again", plain),
+                        ("split_again", split)):
+            speeds[name] = batch / cuda_ms(lambda e=e: e.infer_async(frames), iters=20) * 1e3
+    log(f"{what} split_concat: yolov7 {n_v7} SplitConcatConv after the serving transforms; "
+        f"yolov7-tiny {n_split}: head inputs {err_split:.5f} relative RMS from fp32 (the "
+        f"plain engine {feature_error(fp_, f32):.5f}, cuDNN bf16 {err_bf16:.5f}; apart "
+        f"{feature_error(fs_, fp_):.5f}); detections agree {agree_s:.3f} (cuDNN bf16 "
+        f"{agree_bf16:.3f}); launches {counts}; img/s at batch {batch} {speeds}")
+    if not err_split <= FEAT_RATIO * err_bf16 or not agree_s >= agree_bf16 - MATCH_MARGIN:
+        raise AssertionError(f"{what} split_concat: head inputs {err_split}, agreement {agree_s}")
+    res["split_concat"] = {"convs_yolov7": n_v7, "convs_tiny": n_split,
+                           "feature_rms_err": err_split, "agreement": agree_s,
+                           "img_s": speeds, "launches": counts}
+    del plain, split, tiny
+
+    # (b3) lane alignment and the ReOrg fold on w6 training, fp32
+    w6 = train_model(dev, width, seed=4, cfg=P6_TRAIN_CFG)
+    x = torch.from_numpy(np.random.default_rng(17).integers(
+        0, 256, (LAYOUT_W6_BATCH, p6_img, p6_img, 3), np.uint8)).to(dev).float() / 255.0
+    lane, folded = make_lane_align(w6.plan), make_train_fast_stem(w6.plan)
+    n_lane = sum(isinstance(s.block, LaneAlignedConv) for s in lane.layers)
+    with torch.inference_mode(), full_fp32():
+        def feats(plan):
+            return apply_model(plan, w6.params, w6.state, x, return_head_inputs=True)[0]
+
+        want = feats(w6.plan)
+        errs = {name: feature_error(feats(plan), want)
+                for name, plan in (("lane_align", lane), ("reorg_fold", folded))}
+    log(f"{what} w6 ({p6_img} px, batch {LAYOUT_W6_BATCH}, fp32): {n_lane} LaneAlignedConv, "
+        f"layer 1 {type(folded.layers[1].block).__name__}; eval head inputs' relative RMS from "
+        f"the plain plan's {errs} (limit {LAYOUT_REL})")
+    if n_lane == 0 or type(folded.layers[1].block).__name__ != "TrainReorgConv" or \
+            not max(errs.values()) <= LAYOUT_REL:
+        raise AssertionError(f"{what} w6: {n_lane} lane-aligned convs, errors {errs}")
+    res["w6"] = {"lane_aligned_convs": n_lane, "pred_rel_err": errs}
+    del w6, x
+
+    # (c) remat_prefix
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        bench = step_pair(dev, lambda p: p, lambda p: p, batch_np, width, "remat (c)",
+                          b={"remat_prefix": 4})
+    finally:
+        torch.backends.cudnn.deterministic = det
+    (a, a2, ta), (b, _, tb) = bench["a"], bench["b"]
+    control, equal = same_step(a, a2), same_step(a, b)
+    res["remat"] = {"control_equal": control, "equal": equal, "ms_plain": ta.get("ms_step"),
+                    "ms_remat": tb.get("ms_step"), "peak_plain": ta.get("peak_bytes"),
+                    "peak_remat": tb.get("peak_bytes")}
+    log(f"remat (c): the bf16 step with remat_prefix 4 bit-equal with the step without it "
+        f"{equal} (the step without it twice: {control}); ms a step {ta.get('ms_step')} without, "
+        f"{tb.get('ms_step')} with; peak {ta.get('peak_bytes')} / {tb.get('peak_bytes')} bytes")
+    if not control or not equal:
+        raise AssertionError(f"remat (c): bit-equal {equal}, control {control}")
+    return res
+
+
+def native(dev, img=IMG, data=SMOKE_DATA, what="native (d)"):
+    """Phase 15 (d): the native loader on phase 8's training JPEGs: built
+    from the port's source (a failed build fails the phase where OpenCV's
+    headers exist; where they do not, it says so and skips); each image
+    bit-equal with the Python letterbox (RGB) and its metas; img/s at 1
+    and 4 threads beside the Python letterbox's."""
+    import cv2
+
+    paths = sorted(str(p) for p in (data / "train" / "images").glob("*.jpg"))
+    status = native_loader.native_status()
+    headers = (native_loader.OPENCV_INCLUDE / "opencv2" / "core.hpp").exists()
+    log(f"{what}: library {status}; OpenCV headers under {native_loader.OPENCV_INCLUDE}: "
+        f"{headers}; {len(paths)} JPEGs")
+    if not native_loader.native_available():
+        if headers and shutil.which("g++"):
+            raise AssertionError(f"{what}: the native loader did not build: {status}")
+        log(f"{what}: skipped: no toolchain to build it ({status})")
+        return {"built": False, "status": status}
+    t = time.perf_counter()
+    py = []
+    for p in paths:
+        im, r, (dw, dh) = letterbox(cv2.imread(p), img, auto=False, scaleup=False)
+        py.append((im[:, :, ::-1], r[0], dw, dh))
+    py_s = len(paths) / (time.perf_counter() - t)
+    rates = {}
+    for n in NATIVE_THREADS:
+        native_loader.load_letterbox_batch(paths[:4], img, n_threads=n)
+        t = time.perf_counter()
+        out, metas = native_loader.load_letterbox_batch(paths, img, n_threads=n)
+        rates[n] = len(paths) / (time.perf_counter() - t)
+        for i, (im, r, dw, dh) in enumerate(py):
+            if not np.array_equal(out[i], im) or not np.allclose(metas[i, :3], [r, dw, dh],
+                                                                 atol=1e-5):
+                raise AssertionError(f"{what}: {paths[i]} differs from the Python letterbox "
+                                     f"({n} threads)")
+    log(f"{what}: {len(paths)} images bit-equal with the Python letterbox; img/s native "
+        f"{rates} (threads), Python letterbox {py_s:.1f} (one thread, cv2.imread + letterbox)")
+    return {"built": True, "status": status, "img_s": rates, "python_img_s": py_s}
+
+
+def eval_fp32_card_cpu(dev, img=IMG, what="eval fp32 (e)"):
+    """Phase 15 (e): the fp32 pred of `evaluate`'s forward (yolov7 training
+    form, full width, one frame, `device.full_fp32`) on the card against
+    the same forward on the CPU, same weights and frame."""
+    model = train_model(torch.device("cpu"), 1.0, seed=5)
+    frame = np.random.default_rng(18).integers(0, 256, (1, img, img, 3), np.uint8)
+    preds = {}
+    for where in (dev, torch.device("cpu")):
+        p = tree_map(lambda t: t.to(where), model.params)
+        s = tree_map(lambda t: t.to(where), model.state)
+        with torch.inference_mode(), full_fp32():
+            x = torch.from_numpy(frame).to(where).float() / 255.0
+            preds[where.type] = apply_model(model.plan, p, s, x)[0]["pred"].cpu()
+    got, want = preds[dev.type], preds["cpu"]
+    errs = {name: _rel_parts(got[..., sl], want[..., sl])
+            for name, sl in (("boxes", slice(0, 4)), ("obj", slice(4, 5)),
+                             ("cls", slice(5, None)))}
+    log(f"{what}: card against CPU, one {img} px frame: {errs} of each part's largest |value| "
+        f"(limit {EVAL_CPU_REL})")
+    if not max(errs.values()) <= EVAL_CPU_REL:
+        raise AssertionError(f"{what}: the card's fp32 pred is {errs} from the CPU's")
+    return errs
+
+
+def mesh_and_layout(dev, m, width=1.0, img=IMG, batch=BATCH, p6_img=IMG, phase4=None):
+    """Phase 15: (a) the sharded engine, (b)-(c) the layout passes and
+    remat_prefix, (d) the native loader, (e) the fp32 eval pred card
+    against CPU. Returns the numbers, with the launches of (a)'s and (b)'s
+    counted main paths."""
+    t_phase = time.perf_counter()
+    res = {"sharded": sharded(dev, m, batch=batch, phase4=phase4)}
+    torch.cuda.empty_cache() if dev.type == "cuda" else None
+    res["layout"] = layouts(dev, m, width, img, batch, p6_img)
+    res["native"] = native(dev, img)
+    res["eval_fp32_card_cpu"] = eval_fp32_card_cpu(dev, img)
+    res["launches"] = {kid: res["sharded"]["launches"][kid]
+                       + res["layout"]["split_concat"]["launches"][kid] for kid in COUNTED}
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"mesh and layout: launches of its main paths {res['launches']}; phase "
+        f"{res['phase_s']:.1f} s")
+    return res
+
+
 # ------------------------------------------------------------ main ---
 
 KERNELS = (
@@ -4841,6 +5479,8 @@ def main() -> int:
     tail_res = tail(dev)
     torch.cuda.empty_cache()
     tools = int8_and_tools(dev, m, srv["replay_ms_bs8"])
+    torch.cuda.empty_cache()
+    mesh = mesh_and_layout(dev, m, phase4=srv)
 
     # host-side counts of each kernel's main path: K1-K3 as the bf16
     # engines launched them (warm-up and capture; what the replays launch
@@ -4861,6 +5501,8 @@ def main() -> int:
     for kid, n in tail_res["launches"].items():
         launches[kid] += n
     for kid, n in tools["launches"].items():
+        launches[kid] += n
+    for kid, n in mesh["launches"].items():
         launches[kid] += n
     for kid in COUNTED:
         if kid != "K4b" and launches[kid] == 0:
@@ -4886,6 +5528,7 @@ def main() -> int:
                     "full_int8": full, "detect": det, "eval": ev, "train": tr,
                     "train_test_cli": cli, "p6": six, "ranks": par, "zoo": rest,
                     "entry_points": entry, "tail": tail_res, "int8_and_tools": tools,
+                    "mesh_and_layout": mesh,
                     "fused": {"K2": rows["K2"], "K3": rows["K3"]},
                     "k1l_runs": rows["k1l_runs"],
                     "stages": rows["stages"], "k4_convs": rows["k4_convs"],
@@ -4895,7 +5538,7 @@ def main() -> int:
         f"{tr['phase_s']:.1f} s, train and test CLIs {cli['phase_s']:.1f} s, P6 "
         f"{six['phase_s']:.1f} s, ranks {par['phase_s']:.1f} s, zoo {rest['phase_s']:.1f} s, "
         f"entry points {entry['phase_s']:.1f} s, tail {tail_res['phase_s']:.1f} s, int8 and "
-        f"tools {tools['phase_s']:.1f} s")
+        f"tools {tools['phase_s']:.1f} s, mesh and layout {mesh['phase_s']:.1f} s")
     log(smi())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

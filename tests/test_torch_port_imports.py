@@ -19,7 +19,8 @@ MODULES = sorted(
     for p in PKG.rglob("*.py"))
 # the port's tools: run as scripts, imported here by path
 TOOLS = ("tools/torch_serve_http.py", "tools/torch_bench_serving.py",
-         "tools/torch_eval_int8.py")
+         "tools/torch_eval_int8.py", "tools/torch_convert_cfg.py",
+         "tools/torch_resume_runs.py", "tools/torch_fold_readings.py")
 
 
 def test_every_module_imports_without_jax():
@@ -41,7 +42,8 @@ def test_every_module_imports_without_jax():
     # the train step's modules, the loader, trainer and CLIs, the aux loss,
     # the .pt bridge, the data-parallel layer, evolution, TTA, the hub, the
     # export CLI, the device-augment tail, the long-tail blocks, the bin and
-    # ranking losses are among those imported
+    # ranking losses, the device grid, the native loader and the layout
+    # passes are among those imported
     assert {f"yolo_series_tpu_torch.{m}" for m in (
         "losses", "losses.targets", "losses.yolo_loss", "losses.ota", "losses.aux_ota",
         "models.torch_import", "models.torch_export", "train.optim",
@@ -51,7 +53,8 @@ def test_every_module_imports_without_jax():
         "train.trainer", "cli.train", "parallel", "parallel.dist",
         "train.evolve", "hub", "models.tta", "cli.export", "data.device_aug",
         "models.extra", "models.attention", "losses.bin", "losses.bin_ota",
-        "losses.ranking", "utils.chiprate", "data.tools", "obs.plots")} <= {
+        "losses.ranking", "utils.chiprate", "data.tools", "obs.plots",
+        "parallel.mesh", "data.native", "models.fastconcat", "models.lanealign")} <= {
         m.removesuffix(".__init__") for m in MODULES}
 
 

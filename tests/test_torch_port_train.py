@@ -147,8 +147,7 @@ def test_init_train_state_needs_a_card(model, monkeypatch):
     assert st.step == 0 and all(not t.any() for t in leaves(st.opt_state["v"]))
     with pytest.raises(TypeError, match="process group"):
         make_train_step(None, None, optim.OptimConfig(), mesh=object())
-    with pytest.raises(NotImplementedError, match="item 21"):
-        make_train_step(None, None, optim.OptimConfig(), remat_prefix=3)
+    assert callable(make_train_step(None, None, optim.OptimConfig(), remat_prefix=3))
 
 
 # ------------------------------------------------------------ train step ---

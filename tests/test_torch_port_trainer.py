@@ -448,8 +448,9 @@ def test_cli_test_matches_jax(eval_case, tmp_path, capsys, fuse):
 
 
 # (options, exception, match). Training on several devices, --no-sync-bn,
-# --evolve, the device-augment tail, --bbox_interval, test --augment,
-# --plots and --task study are ported: their
+# --evolve, the device-augment tail, --bbox_interval, the layout passes
+# (split_concat, fast_stem), test --augment, --plots and --task study are
+# ported: their
 # cases hold the errors those options raise (a global batch that does not
 # divide over the devices, fewer cards visible than --devices asks for) or
 # show the option reaching training or evaluation, which then fails on the
@@ -459,8 +460,8 @@ REFUSED_TRAIN = {
                        "batch 3 does not divide over 2"),
     "device_aug": (dict(device_aug=True), FileNotFoundError, "'x'"),
     "bbox_interval": (dict(bbox_interval=1), FileNotFoundError, "'x'"),
-    "split_concat": (dict(split_concat=True), NotImplementedError, "item 20"),
-    "fast_stem": (dict(fast_stem=True), NotImplementedError, "item 20"),
+    "split_concat": (dict(split_concat=True), FileNotFoundError, "'x'"),
+    "fast_stem": (dict(fast_stem=True), FileNotFoundError, "'x'"),
 }
 REFUSED_CLI = {
     "train_evolve": (cli_train, ["--cfg", "x", "--data", "y", "--evolve", "--device", "cpu"],

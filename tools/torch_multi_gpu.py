@@ -16,10 +16,20 @@ cannot make.
     nbs 64, the default hyp, per-epoch validation on rank 0: its rows (img/s
     an epoch) and the run directory.
 
-    python3 tools/torch_multi_gpu.py [--cards 4]
+With `--serving`, instead: serving on a ('data', 'model') grid of the cards
+from one process (`infer/serving.ShardedServingEngine` over
+`parallel/mesh.make_mesh`), full-width yolov7 deploy, 640 px, bf16, livened
+as `chip_smoke.make_model` livens it: data-sharded img/s at batch 8 a card
+on 1, 2 and N cards (each row a CUDA-graph engine on its card; the wall
+time of SERVE_ITERS `infer_async` calls between synchronises of every
+card), and the tensor-parallel p50 of `infer` at batch 8 on 1 x 2 and
+1 x N grids beside one card's graph engine and one card's eager engine.
+
+    python3 tools/torch_multi_gpu.py [--cards 4] [--serving]
     python3 tools/torch_multi_gpu.py --device cpu --cards 4 --width 0.25 --img 128 --batch 2
 
-The second form rehearses both on the CPU with gloo ranks at a small size.
+The second form rehearses the training runs on the CPU with gloo ranks at a
+small size (with `--serving`, the grids over the CPU).
 Prints the card's name and power limit, `nvidia-smi topo -m`, and one JSON
 line last; the CLI's output goes to `--log` (build/multi_gpu_train.log).
 """
@@ -48,6 +58,7 @@ from yolo_series_tpu_torch.train.optim import OptimConfig  # noqa: E402
 from yolo_series_tpu_torch.train.step import init_train_state, make_train_step  # noqa: E402
 
 STEPS = 10
+SERVE_ITERS = 20
 
 
 def _sync(dev):
@@ -125,6 +136,67 @@ def train_cli(device, cards, width, img, batch, log):
     return {"seconds": secs, "img_s": img_s, "rows": rows, "weights": weights}
 
 
+def _sync_all(devices):
+    for d in {str(d) for d in devices}:
+        if torch.device(d).type == "cuda":
+            torch.cuda.synchronize(d)
+
+
+def serving_grids(device, cards, width, img, batch):
+    """The `--serving` runs (module docstring): {"data": {n: img/s},
+    "tensor": {grid: p50 ms}, "one_card": {...}}."""
+    from yolo_series_tpu_torch.infer.serving import ServingEngine, ShardedServingEngine
+    from yolo_series_tpu_torch.parallel.mesh import make_mesh
+
+    devs = ([torch.device("cuda", i) for i in range(cards)] if device == "cuda"
+            else [torch.device("cpu")] * cards)
+    m = cs.make_model(devs[0], width, img)
+    rng = np.random.default_rng(0)
+    out = {"data": {}, "tensor": {}, "one_card": {}}
+
+    def wall_img_s(eng, frames):
+        for _ in range(3):
+            eng.infer_async(frames)
+        _sync_all(devs)
+        t = time.perf_counter()
+        for _ in range(SERVE_ITERS):
+            eng.infer_async(frames)
+        _sync_all(devs)
+        return SERVE_ITERS * frames.shape[0] / (time.perf_counter() - t)
+
+    def p50(eng, frames):
+        eng.infer(frames)
+        lat = []
+        for _ in range(SERVE_ITERS):
+            t = time.perf_counter()
+            eng.infer(frames)
+            lat.append((time.perf_counter() - t) * 1e3)
+        return float(np.median(lat))
+
+    for n in sorted({1, 2, cards}):
+        frames = rng.integers(0, 256, (batch * n, img, img, 3), np.uint8)
+        eng = ShardedServingEngine(m.plan, m.params, m.state, make_mesh(n, 1, devs),
+                                   batch_size=batch * n, img_size=img, dtype=torch.bfloat16)
+        out["data"][n] = {"img_s": wall_img_s(eng, frames), "p50_ms": p50(eng, frames)}
+        cs.log(f"serving: data grid {n} x 1, batch {batch} a card: {out['data'][n]}")
+        del eng
+    frames = rng.integers(0, 256, (batch, img, img, 3), np.uint8)
+    one = ServingEngine(m.plan, m.params, m.state, batch_size=batch, img_size=img,
+                        dtype=torch.bfloat16, device=devs[0])
+    out["one_card"]["graph"] = {"p50_ms": p50(one, frames), "img_s": wall_img_s(one, frames)}
+    del one
+    for n in sorted({1, 2, cards} - {1}) + [1]:
+        eng = ShardedServingEngine(m.plan, m.params, m.state,
+                                   make_mesh(1, n, devs if n > 1 else devs[:1] * 2),
+                                   batch_size=batch, img_size=img, dtype=torch.bfloat16)
+        key = f"1x{n}" if n > 1 else "1x2 on one card"
+        out["tensor"][key] = {"p50_ms": p50(eng, frames), "img_s": wall_img_s(eng, frames)}
+        cs.log(f"serving: tensor-parallel grid {key}, batch {batch}: {out['tensor'][key]}")
+        del eng
+    cs.log(f"serving: one card's graph engine at batch {batch}: {out['one_card']['graph']}")
+    return out
+
+
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("--cards", type=int, default=4)
@@ -133,6 +205,8 @@ def main():
     p.add_argument("--img", type=int, default=cs.IMG)
     p.add_argument("--batch", type=int, default=cs.BATCH)
     p.add_argument("--log", type=Path, default=ROOT / "build" / "multi_gpu_train.log")
+    p.add_argument("--serving", action="store_true",
+                   help="serving on a grid of the cards instead of the training runs")
     a = p.parse_args()
     if a.device == "cuda":
         if torch.cuda.device_count() < a.cards:
@@ -144,9 +218,12 @@ def main():
         cs.log(f"build: {_build.build():.1f} s")
     else:
         card, topo = "none (CPU rehearsal)", None
-    out = {"cards": a.cards, "device": a.device, "card": card, "topo": topo,
-           "step_scaling": step_scaling(a.device, a.cards, a.width, a.img, a.batch),
-           "train_cli": train_cli(a.device, a.cards, a.width, a.img, a.batch, a.log)}
+    out = {"cards": a.cards, "device": a.device, "card": card, "topo": topo}
+    if a.serving:
+        out["serving"] = serving_grids(a.device, a.cards, a.width, a.img, a.batch)
+    else:
+        out["step_scaling"] = step_scaling(a.device, a.cards, a.width, a.img, a.batch)
+        out["train_cli"] = train_cli(a.device, a.cards, a.width, a.img, a.batch, a.log)
     print(json.dumps(out))
 
 

@@ -27,8 +27,25 @@ kernels' launch counters grow at eager calls and at the capture only;
 DynamicBatcher: the queue micro-batcher with pipelined dispatch and
 completion threads and the in-flight-aware bs1 low-latency path, ported
 as it is (pure host code); it captures its engines' graphs in the
-caller's thread before its own threads start. `split_concat` is ROADMAP
-queue 1, item 20.
+caller's thread before its own threads start.
+
+`split_concat=True` adds `models/fastconcat.make_split_concat` after the
+three transforms, as the JAX engine adds it after its Pallas rewrites (off
+by default there and here): each 1x1 conv that reads a concat takes the
+concat's inputs instead, one partial product a tap.
+
+ShardedServingEngine: the same interface over a ('data', 'model') grid of
+devices (`parallel/mesh.make_mesh`), one process driving all of it, the
+counterpart of `jax.jit(serve, in_shardings=...)` over JAX's mesh. Each
+row of the grid serves a contiguous slice of the batch: with one device a
+row, a full `ServingEngine` (its CUDA graph, K2, K3 and K1); with several,
+a tensor-parallel row that runs the fused plan without the rewrites, as
+JAX's tensor-parallel serving does: each conv weight that
+`mesh.param_partition_specs` cuts computes its output channels on its own
+device and the row gathers them on its first device, which runs the rest
+and `fused_head_nms` (K1), eagerly (no graph spans several devices). The
+rows' outputs are concatenated in row order. A `DynamicBatcher` sits in
+front of either engine alike.
 """
 
 from __future__ import annotations
@@ -43,11 +60,14 @@ import torch
 
 from yolo_series_tpu_torch.data.device_aug import make_device_letterbox
 from yolo_series_tpu_torch.device import device as _device
+from yolo_series_tpu_torch.models.fastconcat import make_split_concat
 from yolo_series_tpu_torch.models.faststem import make_fast_stem
 from yolo_series_tpu_torch.models.model import apply_model, tree_map
 from yolo_series_tpu_torch.ops.fused_elan import make_fused_elan
 from yolo_series_tpu_torch.ops.fused_stem import make_fused_stem
 from yolo_series_tpu_torch.ops.nms import fused_head_nms
+from yolo_series_tpu_torch.parallel.dist import host_local_slice
+from yolo_series_tpu_torch.parallel.mesh import Mesh, tensor_parallel_params
 
 
 def serving_transforms(plan, params, state):
@@ -81,18 +101,29 @@ def place(params, state, device, dtype):
 class ServingEngine:
     """Fixed-shape end-to-end detector on one device."""
 
+    rewrites = True   # the serving transforms (a tensor-parallel row runs without)
+    graphs = True     # replay a CUDA graph on the card
+
     def __init__(self, plan, params, state, *, batch_size=8, img_size=640,
                  conf_thres=0.25, iou_thres=0.45, max_det=100,
                  dtype=torch.bfloat16, max_nms=1024, pack_output=False,
-                 ingest_hw: Optional[tuple] = None, device=None):
+                 ingest_hw: Optional[tuple] = None, device=None,
+                 split_concat: bool = False):
         """plan/params/state: the fused deploy model (`reparam.fuse_model`),
         or its int8 form (`infer/quant.quantize_model`); the transforms
         then match the convs that stayed fp. ingest_hw=(h, w): take raw
         (B, h, w, 3) uint8 frames, letterbox them on the device, and
         return boxes in source pixels. device: the card unless "cpu" is
-        asked for."""
+        asked for. split_concat: also route each concat's inputs straight
+        into its 1x1 consumers (`models/fastconcat.py`)."""
         self.device = _device(device)
-        plan, params, state = serving_transforms(plan, params, state)
+        if split_concat and not self.rewrites:
+            raise ValueError("split_concat rewrites the serving plan, which a "
+                             "tensor-parallel row runs without its rewrites")
+        if self.rewrites:
+            plan, params, state = serving_transforms(plan, params, state)
+            if split_concat:
+                plan = make_split_concat(plan)
         self.plan = plan
         self._params, self._state = place(params, state, self.device, dtype)
         self.batch_size = batch_size
@@ -176,19 +207,24 @@ class ServingEngine:
         call on the capture's side stream (the one-time host setup: nvcc
         builds, kernel attributes, the tensor-map encoder). A no-op once
         captured and on the CPU; a capture that fails raises."""
-        if self._graph is not None or self.device.type != "cuda":
+        if self._graph is not None or self.device.type != "cuda" or not self.graphs:
             return
-        static_in = torch.zeros(self.in_shape, dtype=torch.uint8, device=self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            self.end2end(static_in)
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        # thread_local: the batcher's completer threads may copy results to
-        # the host while another engine captures
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            static_out = self.end2end(static_in)
+        # the engine's card is the current device while it captures (the
+        # capture stream, and the kernels' launches, are the current device's)
+        with torch.cuda.device(self.device):
+            static_in = torch.zeros(self.in_shape, dtype=torch.uint8, device=self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                self.end2end(static_in)
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            # thread_local: the batcher's completer threads may copy results
+            # to the host while another engine captures. The capture runs on
+            # `side`, this card's stream: torch.cuda.graph's own default
+            # stream is made once, on the first card that captured
+            with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+                static_out = self.end2end(static_in)
         self._graph, self._static_in, self._static_out = graph, static_in, static_out
 
     def infer_async(self, images):
@@ -216,20 +252,109 @@ class ServingEngine:
         self.batches += 1
         if self.device.type != "cuda":
             return self.end2end(x), n
-        self.capture()
-        # from pinned memory: the copy queues behind the last replay
-        # without holding up the host
-        self._static_in.copy_(x if x.is_cuda else x.pin_memory(), non_blocking=True)
-        self._graph.replay()
-        self.replays += 1
-        out = self._static_out
-        return (out.clone() if self.pack_output
-                else {k: v.clone() for k, v in out.items()}), n
+        # the kernels launch on the current device's stream, and a graph
+        # replays there: make it the engine's card
+        with torch.cuda.device(self.device):
+            if not self.graphs:
+                return self.end2end(x.to(self.device, non_blocking=True)), n
+            self.capture()
+            # from pinned memory: the copy queues behind the last replay
+            # without holding up the host
+            self._static_in.copy_(x if x.is_cuda else x.pin_memory(), non_blocking=True)
+            self._graph.replay()
+            self.replays += 1
+            out = self._static_out
+            return (out.clone() if self.pack_output
+                    else {k: v.clone() for k, v in out.items()}), n
 
     def warmup(self, iters=3):
         x = np.zeros(self.in_shape, np.uint8)
         for _ in range(iters):
             self.infer(x)
+
+
+class _TensorParallelEngine(ServingEngine):
+    """One row of a grid with several devices on its model axis: the fused
+    plan without the serving rewrites, its cut conv weights
+    `mesh.ShardedWeight`s over the row, everything else on the row's first
+    device, run eagerly."""
+
+    rewrites = False
+    graphs = False
+
+    def __init__(self, plan, params, state, devices, **kw):
+        super().__init__(plan, params, state, device=devices[0], **kw)
+        self.devices = list(devices)
+        self._params = tensor_parallel_params(self._params, self.devices)
+
+
+class ShardedServingEngine:
+    """`ServingEngine`'s interface over a ('data', 'model') grid (module
+    docstring). batch_size is the global batch; the grid's n_data must
+    divide it, as a batch sharding over 'data' must."""
+
+    def __init__(self, plan, params, state, mesh: Mesh, *, batch_size=8, **kw):
+        if batch_size % mesh.n_data:
+            raise ValueError(f"a batch of {batch_size} does not split over {mesh.n_data} "
+                             "rows of the grid")
+        self.mesh = mesh
+        self.batch_size = batch_size
+        per = batch_size // mesh.n_data
+        if mesh.n_model == 1:
+            self.rows = [ServingEngine(plan, params, state, batch_size=per,
+                                       device=mesh.devices[d, 0], **kw)
+                         for d in range(mesh.n_data)]
+        else:
+            self.rows = [_TensorParallelEngine(plan, params, state, list(mesh.devices[d]),
+                                               batch_size=per, **kw)
+                         for d in range(mesh.n_data)]
+        lead = self.rows[0]
+        self.img_size, self.max_det = lead.img_size, lead.max_det
+        self.pack_output, self.ingest_hw = lead.pack_output, lead.ingest_hw
+        self.in_shape = (batch_size, *lead.in_shape[1:])
+
+    @property
+    def batches(self) -> int:
+        return sum(r.batches for r in self.rows)
+
+    @property
+    def replays(self) -> int:
+        return sum(r.replays for r in self.rows)
+
+    @property
+    def captured(self) -> bool:
+        return all(r.captured or not r.graphs for r in self.rows)
+
+    def capture(self):
+        for r in self.rows:
+            r.capture()
+
+    def infer_async(self, images: np.ndarray):
+        """images: (n<=B, H, W, 3) uint8 numpy frames. Pads to the global
+        batch, dispatches each row's slice on its devices without waiting,
+        and returns (the rows' device outputs, n)."""
+        n = images.shape[0]
+        if n > self.batch_size:
+            raise ValueError(f"{n} images for batch size {self.batch_size}")
+        if n < self.batch_size:
+            pad = np.zeros((self.batch_size - n, *images.shape[1:]), images.dtype)
+            images = np.concatenate([images, pad], 0)
+        outs = [r.infer_async(images[host_local_slice(self.batch_size, d, len(self.rows))])[0]
+                for d, r in enumerate(self.rows)]
+        return outs, n
+
+    def to_host(self, outs) -> Dict[str, np.ndarray]:
+        """The rows' outputs of `infer_async` -> one numpy dict, rows in order."""
+        host = [r.to_host(o) for r, o in zip(self.rows, outs)]
+        return {k: np.concatenate([h[k] for h in host], 0) for k in host[0]}
+
+    def infer(self, images: np.ndarray) -> Dict[str, np.ndarray]:
+        out, n = self.infer_async(images)
+        return {k: v[:n] for k, v in self.to_host(out).items()}
+
+    def warmup(self, iters=3):
+        for r in self.rows:
+            r.warmup(iters)
 
 
 class DynamicBatcher:
@@ -242,7 +367,7 @@ class DynamicBatcher:
     results, so device-to-host latency overlaps the next batch's compute.
     `inflight` bounds queued executions (backpressure)."""
 
-    def __init__(self, engine: ServingEngine, max_delay_ms: float = 5.0,
+    def __init__(self, engine, max_delay_ms: float = 5.0,
                  inflight: int = 3, stage_fn=None, completers: int = 2,
                  bs1_engine: Optional[ServingEngine] = None):
         """bs1_engine: optional batch-1 engine for the low-latency path —

@@ -350,7 +350,7 @@ class OREPA3x3(Block):
         w_kxk = torch.einsum("ab,hwbo->hwao", params["kxk_1x1"][0, 0], params["kxk_kxk"])
         w = w + w_kxk * v[3]
         dw = params["dw"].reshape(k, k, self.c1, self.expand)
-        pw = params["pw"][0, 0].reshape(self.c1, self.expand, -1)
+        pw = dw_pw_reshape(params["pw"], self.c1, self.expand)
         w = w + torch.einsum("hwce,ceo->hwco", dw, pw) * v[4]
         return w.permute(3, 2, 0, 1)
 
@@ -368,6 +368,12 @@ class OREPA3x3(Block):
 
         w, b = fuse_conv_bn(self.weight_gen(params), params["bn"], state["bn"])
         return {"w": w, "b": b}, {}
+
+
+def dw_pw_reshape(pw, c1, expand):
+    """(1, 1, C*E, O) HWIO pointwise kernel -> its (C, E, O) grouped view, for
+    composing with the depthwise branch."""
+    return pw[0, 0].reshape(c1, expand, pw.shape[-1])
 
 
 @dataclasses.dataclass(frozen=True)

@@ -11,6 +11,7 @@ reference's anchor-major order; the raw output per level is
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import List, Sequence, Tuple
 
@@ -29,6 +30,20 @@ def _grid(ny, nx, device):
     return torch.stack([gx, gy], dim=-1)[:, :, None, :]
 
 
+@functools.lru_cache(maxsize=None)
+def _anchors_on(anchors_px: Tuple[float, ...], device: torch.device) -> torch.Tensor:
+    """One level's (na, 2) pixel anchors on `device`, made at their first
+    use: a decode copies nothing from the host, so a CUDA graph can
+    capture it once an eager call has run. Made outside inference mode, so
+    a training forward can use the tensor an inference forward made."""
+    with torch.inference_mode(False):
+        return torch.tensor(anchors_px, dtype=torch.float32, device=device).reshape(-1, 2)
+
+
+def _anchors(apx_level: np.ndarray, device: torch.device) -> torch.Tensor:
+    return _anchors_on(tuple(apx_level.reshape(-1).tolist()), device)
+
+
 def _decode_level(p, stride, anchors_px, nc):
     """p: (B, ny, nx, na, no) raw logits -> (B, na*ny*nx, no) decoded.
 
@@ -37,8 +52,7 @@ def _decode_level(p, stride, anchors_px, nc):
     b, ny, nx, na, no = p.shape
     y = torch.sigmoid(p.float())
     grid = _grid(ny, nx, p.device)
-    anc = torch.as_tensor(anchors_px, dtype=torch.float32,
-                          device=p.device)[None, None]            # (1, 1, na, 2)
+    anc = _anchors(anchors_px, p.device)[None, None]               # (1, 1, na, 2)
     xy = (y[..., 0:2] * 2.0 - 0.5 + grid) * stride
     wh = torch.square(y[..., 2:4] * 2.0) * anc
     out = torch.cat([xy, wh, y[..., 4:]], dim=-1)
@@ -213,7 +227,7 @@ class IBin(Detect):
                 b, ny, nx, na, _ = yraw.shape
                 y = torch.sigmoid(yraw.float())
                 xy = (y[..., 0:2] * 2.0 - 0.5 + _grid(ny, nx, y.device)) * self.strides[i]
-                anc = torch.as_tensor(apx[i], dtype=torch.float32, device=y.device)
+                anc = _anchors(apx[i], y.device)
                 pw = sb.forward(y[..., 2:2 + bl]) * anc[:, 0]
                 ph = sb.forward(y[..., 2 + bl:2 + 2 * bl]) * anc[:, 1]
                 out = torch.cat([xy, pw[..., None], ph[..., None], y[..., 2 + 2 * bl:]], -1)
@@ -292,7 +306,7 @@ class IKeypoint(Detect):
                 x_kpt = full[..., self.no_det:].float()
                 y = torch.sigmoid(x_det)
                 grid = _grid(ny, nx, y.device)
-                anc = torch.as_tensor(apx[i], dtype=torch.float32, device=y.device)[None, None]
+                anc = _anchors(apx[i], y.device)[None, None]
                 xy = (y[..., 0:2] * 2.0 - 0.5 + grid) * self.strides[i]
                 wh = torch.square(y[..., 2:4] * 2.0) * anc
                 kx = (x_kpt[..., 0::3] * 2.0 - 0.5 + grid[..., 0:1]) * self.strides[i]
@@ -313,3 +327,7 @@ class IKeypoint(Detect):
         prior[:, 5:] = (math.log(0.6 / (self.nc - 0.99)) if cf is None
                         else np.log(cf / cf.sum()))
         return torch.from_numpy(prior.reshape(-1))
+
+
+# every head class, as the JAX module lists them
+HEAD_TYPES = (Detect, IDetect, IAuxDetect, IBin, IKeypoint)

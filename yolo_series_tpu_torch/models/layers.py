@@ -45,6 +45,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from yolo_series_tpu_torch.parallel.dist import world_size
+from yolo_series_tpu_torch.parallel.mesh import ShardedWeight
 
 BN_EPS = 1e-3       # layers.BN_EPS of the JAX package
 BN_MOMENTUM = 0.03  # layers.BN_MOMENTUM of the JAX package
@@ -320,7 +321,9 @@ def _batch_norm_per_replica(bn_params, bn_state, x, g):
 
 def conv2d(x, w, b=None, stride=1, padding=0, groups=1, dtype=None):
     """NCHW x OIHW convolution in `dtype` (x's dtype when None). padding:
-    int, symmetric (ph, pw), or ((top, bottom), (left, right))."""
+    int, symmetric (ph, pw), or ((top, bottom), (left, right)). A
+    `parallel/mesh.ShardedWeight` w computes its output channels on its
+    devices and gathers them."""
     dtype = dtype or x.dtype
     if (isinstance(padding, (tuple, list)) and padding
             and isinstance(padding[0], (tuple, list))):
@@ -330,6 +333,8 @@ def conv2d(x, w, b=None, stride=1, padding=0, groups=1, dtype=None):
         else:
             x = F.pad(x, (pl, pr, pt, pb))
             padding = 0
+    if isinstance(w, ShardedWeight):   # cut over a row of the grid (parallel/mesh.py)
+        return w.conv2d(x, b, _pair(stride), padding, groups, dtype)
     return F.conv2d(x.to(dtype), w.to(dtype),
                     None if b is None else b.to(dtype),
                     _pair(stride), padding, 1, groups)

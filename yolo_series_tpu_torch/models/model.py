@@ -15,6 +15,7 @@ import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from yolo_series_tpu_torch.device import device as _device
 from yolo_series_tpu_torch.models.graph import GraphPlan, compile_graph
@@ -94,6 +95,26 @@ def _run_layer(ctx, spec, p, s, inp, idx=0):
     return spec.block.apply(p, s, inp, at(f"l{idx}"))
 
 
+def _layer_input(spec, y, saved):
+    """A layer's input: the last output (-1) or saved outputs, by `frm`."""
+    if isinstance(spec.frm, tuple):
+        return [y if j == -1 else saved[j] for j in spec.frm]
+    return y if spec.frm == -1 else saved[spec.frm]
+
+
+def _run_layers(ctx, plan, lp, ls, lo, hi, y, saved, new_state):
+    """Layers lo..hi-1 (no head) from the last output y and the saved
+    outputs: their last output; `saved` and `new_state` are updated in
+    place."""
+    for idx in range(lo, hi):
+        spec = plan.layers[idx]
+        y, new_state[idx] = _run_layer(ctx, spec, lp[idx], ls[idx],
+                                       _layer_input(spec, y, saved), idx)
+        if idx in plan.save:
+            saved[idx] = y
+    return y
+
+
 def apply_model(plan: GraphPlan, params, state, x, *, training: bool = False,
                 dtype: torch.dtype = torch.float32, observer=None,
                 return_head_inputs: bool = False, bn_shards: int = 1,
@@ -113,12 +134,15 @@ def apply_model(plan: GraphPlan, params, state, x, *, training: bool = False,
     bn_shards > 1: per-replica BN in training (`layers.Ctx`). group: the
     process group over whose ranks the global batch is split (SyncBN in
     training, `layers.Ctx.group`).
-    remat_prefix > 0 (recompute the first layers in the backward, a TPU
-    memory-for-FLOPs lever) is ROADMAP queue 1 item 21 and raises.
+    remat_prefix = k > 0: the first k layers run under
+    `torch.utils.checkpoint` (non-reentrant), so the backward recomputes
+    their activations from the input instead of keeping them: memory for
+    operations. Saved entries of the prefix that later layers read are
+    outputs of the checkpoint, kept, not recomputed; the recompute's BN
+    state is discarded, and under a group it repeats the prefix's
+    collectives in the backward, in the same order on every rank. It
+    takes no observer, as in the JAX package.
     """
-    if remat_prefix > 0:
-        raise NotImplementedError(
-            "remat_prefix is not ported yet: ROADMAP queue 1, item 21")
     ctx = Ctx(dtype=dtype, observer=observer, training=training, bn_shards=bn_shards,
               group=group)
     lp, ls = params["layers"], state["layers"]
@@ -126,20 +150,36 @@ def apply_model(plan: GraphPlan, params, state, x, *, training: bool = False,
     saved: Dict[int, torch.Tensor] = {}
     y = x.to(dtype).permute(0, 3, 1, 2).contiguous(
         memory_format=torch.channels_last)
-    for idx, spec in enumerate(plan.layers):
-        if isinstance(spec.frm, tuple):
-            inp = [y if j == -1 else saved[j] for j in spec.frm]
+    k = 0
+    if remat_prefix > 0:
+        if observer is not None:
+            raise ValueError("remat_prefix recomputes layers in the backward and takes "
+                             "no observer")
+        k = min(remat_prefix, len(plan.layers) - 1)
+        save_out = sorted(i for i in plan.save if i < k)
+
+        def prefix(yv):
+            sv, ns = {}, list(ls)
+            yv = _run_layers(ctx, plan, lp, ls, 0, k, yv, sv, ns)
+            return yv, [sv[i] for i in save_out], ns[:k]
+
+        if torch.is_grad_enabled():
+            y, saved_list, ns = torch.utils.checkpoint.checkpoint(prefix, y,
+                                                                  use_reentrant=False)
         else:
-            inp = y if spec.frm == -1 else saved[spec.frm]
-        if spec.is_head:
-            if return_head_inputs:
-                return [t.permute(0, 2, 3, 1) for t in inp], {"layers": new_state}
-            out, new_state[idx] = spec.block.apply(lp[idx], ls[idx], inp, ctx)
-            return out, {"layers": new_state}
-        y, new_state[idx] = _run_layer(ctx, spec, lp[idx], ls[idx], inp, idx)
-        if idx in plan.save:
-            saved[idx] = y
-    raise ValueError("graph plan ended without a head layer")
+            y, saved_list, ns = prefix(y)
+        saved.update(zip(save_out, saved_list))
+        new_state[:k] = ns
+    head = len(plan.layers) - 1
+    y = _run_layers(ctx, plan, lp, ls, k, head, y, saved, new_state)
+    spec = plan.layers[head]
+    if not spec.is_head:
+        raise ValueError("graph plan ended without a head layer")
+    inp = _layer_input(spec, y, saved)
+    if return_head_inputs:
+        return [t.permute(0, 2, 3, 1) for t in inp], {"layers": new_state}
+    out, new_state[head] = spec.block.apply(lp[head], ls[head], inp, ctx)
+    return out, {"layers": new_state}
 
 
 def profile_layers(plan: GraphPlan, params, state, x, *, iters: int = 10,
@@ -169,10 +209,7 @@ def profile_layers(plan: GraphPlan, params, state, x, *, iters: int = 10,
     y = x.to(dtype).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
     rows = []
     for idx, spec in enumerate(plan.layers):
-        if isinstance(spec.frm, tuple):
-            inp = [y if j == -1 else saved[j] for j in spec.frm]
-        else:
-            inp = y if spec.frm == -1 else saved[spec.frm]
+        inp = _layer_input(spec, y, saved)
         if spec.is_head:
             def layer(inp=inp, spec=spec, p=lp[idx], s=ls[idx]):
                 return spec.block.apply(p, s, inp, ctx)[0]

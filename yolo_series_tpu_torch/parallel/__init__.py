@@ -1,2 +1,3 @@
-"""Data-parallel training across processes (counterpart of
-`yolo_series_tpu/parallel`): `parallel/dist.py`."""
+"""Several devices (counterpart of `yolo_series_tpu/parallel`): data-parallel
+training across processes, `parallel/dist.py`; the ('data', 'model') device
+grid and the tensor-parallel rule that serving uses, `parallel/mesh.py`."""

@@ -20,8 +20,9 @@ full copy of the train state (counterpart of
   process launch (one per host)          | launch: spawns one worker a rank;
                                          |   torchrun's RANK / WORLD_SIZE /
                                          |   LOCAL_RANK read by `env_rank`
-  param_partition_specs (tensor-parallel | not here: ROADMAP queue 1 item 12,
-  head convs), sharded serving           |   "serving on several cards"
+  make_mesh, param_partition_specs       | parallel/mesh.py: one process
+  (tensor-parallel conv weights),        |   driving a grid of devices, and
+  sharded serving                        |   infer/serving.ShardedServingEngine
 
 Under the group the train step keeps the JAX package's one-global-batch
 semantics: each rank's loss is its share of the global batch's loss (the

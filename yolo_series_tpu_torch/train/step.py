@@ -101,7 +101,9 @@ def make_train_step(plan, loss_fn: Callable, opt_cfg: OptimConfig,
     keeps the params and the optimizer's "v" slot of the first `freeze`
     layers as they were (for Adam that is the second moment; "m" moves, as
     in the JAX package). bn_shards > 1: per-replica BN over that many
-    groups of the global batch. metrics {"box", "obj", "cls", "total"}: 0-d
+    groups of the global batch. remat_prefix k > 0: the first k layers are
+    recomputed in the backward (`apply_model`), with the same numbers.
+    metrics {"box", "obj", "cls", "total"}: 0-d
     tensors on the device. The step builds new trees and leaves `ts` as it
     was.
 
@@ -113,8 +115,6 @@ def make_train_step(plan, loss_fn: Callable, opt_cfg: OptimConfig,
     if mesh is not None and not isinstance(mesh, dist.ProcessGroup):
         raise TypeError(f"mesh must be a torch.distributed process group, not "
                         f"{type(mesh).__name__}")
-    if remat_prefix > 0:
-        raise NotImplementedError("remat_prefix is not ported yet: ROADMAP queue 1, item 21")
     built = {}
 
     def loss_and_grad(params, state, images, labels, mask):
@@ -122,7 +122,8 @@ def make_train_step(plan, loss_fn: Callable, opt_cfg: OptimConfig,
         ps = [t.detach().requires_grad_() for t in leaves(params)]
         out, new_state = apply_model(plan, rebuild(params, ps), state, images,
                                      training=True, dtype=compute_dtype,
-                                     bn_shards=bn_shards, group=mesh)
+                                     bn_shards=bn_shards, group=mesh,
+                                     remat_prefix=remat_prefix)
         total, items = loss_fn(out["raw"], labels, mask, group=mesh)
         scaled = total * loss_scale
         grads = torch.autograd.grad(scaled, ps, allow_unused=True)

@@ -52,14 +52,16 @@ trainer makes the images on the device before the step
 hyp has no rotation, shear or perspective), accumulated micro-batches
 stacked as the JAX trainer stacks them.
 
-Not ported yet, and refused with NotImplementedError: `split_concat`
-and `fast_stem` (item 20; the JAX trainer's `fast_stem=True` default is an
-exact reshuffle of the step's plan, `models/faststem.make_train_fast_stem`,
-so here it defaults to False and the step runs the plan as compiled). An
-IAuxDetect model (the P6 training cfgs) trains with the aux OTA loss
-(`losses/aux_ota.py`) and an IBin model with the bin-OTA loss
-(`losses/bin_ota.py`, whatever `loss_ota` says), as the JAX trainer
-dispatches them. The image size is rounded up to a multiple
+The layout passes rewrite the train step's plan only (checkpoints,
+validation and autoanchor keep the plan as compiled): `fast_stem` folds
+the stem's conv pairs into phase space (`models/faststem.
+make_train_fast_stem`; the JAX trainer's default, off here: slower on the
+H100), `split_concat` routes each concat's inputs into its 1x1 consumers
+(`models/fastconcat.make_split_concat`, off in both packages). Both are
+exact re-arrangements of the same convs. An IAuxDetect model (the P6
+training cfgs) trains with the aux OTA loss (`losses/aux_ota.py`) and an
+IBin model with the bin-OTA loss (`losses/bin_ota.py`, whatever
+`loss_ota` says), as the JAX trainer dispatches them. The image size is rounded up to a multiple
 of the largest stride (64 for P6; reference train.py:249-250). The first
 three batches' mosaics (train_batch{0,1,2}.jpg, none from the device tail,
 which has no host pixels), `plot_results`' results.png, and with
@@ -86,6 +88,8 @@ from yolo_series_tpu_torch.eval.evaluator import evaluate
 from yolo_series_tpu_torch.losses import (LossHyp, make_compute_loss,
                                           make_compute_loss_aux_ota,
                                           make_compute_loss_bin_ota, make_compute_loss_ota)
+from yolo_series_tpu_torch.models.fastconcat import make_split_concat
+from yolo_series_tpu_torch.models.faststem import make_train_fast_stem
 from yolo_series_tpu_torch.models.graph import compile_graph
 from yolo_series_tpu_torch.models.heads import IAuxDetect, IBin
 from yolo_series_tpu_torch.models.model import init_model, tree_leaves
@@ -150,8 +154,9 @@ class TrainConfig:
     fast_decode: bool = False     # reduced-scale JPEG decode (a documented
     # pixel deviation; see data/datasets.py)
     workers: int = 1              # loader decode threads
-    fast_stem: bool = False       # item 20, refused (see the module docstring)
-    split_concat: bool = False    # item 20, refused
+    fast_stem: bool = False       # phase-folded stem in the train step; off, where
+    # JAX's is on: on the H100 the folded bf16 step is slower (PERF.md)
+    split_concat: bool = False    # concat elimination in the train step
     quad: bool = False            # quad collate + loss x 4 (train.py:377)
     warmup_accumulate: bool = True  # ramp accumulate 1 -> nbs/bs in warmup
     single_cls: bool = False      # treat data as one class (train.py:78-79)
@@ -187,13 +192,6 @@ def load_hyp(hyp) -> dict:
         return dict(DEFAULT_TRAIN_HYP, **hyp)
     with open(hyp) as f:
         return dict(DEFAULT_TRAIN_HYP, **yaml.safe_load(f))
-
-
-def _refuse_unported(tc: TrainConfig):
-    if tc.fast_stem or tc.split_concat:
-        raise NotImplementedError("the train step's layout passes (fast_stem, "
-                                  "split_concat) are not ported yet: ROADMAP queue 1, "
-                                  "item 20")
 
 
 def _merge(dst, src):
@@ -307,7 +305,6 @@ def train(tc: TrainConfig, train_ds: Optional[DetectionDataset] = None,
     ranks (module docstring) and returns rank 0's result with train_state
     and plan None. In a process that has joined a group (a spawned rank,
     torchrun), runs as its rank of the group."""
-    _refuse_unported(tc)
     n_dev = tc.n_data_devices or 1
     if not dist.is_initialized():
         if n_dev > 1:
@@ -474,11 +471,15 @@ def train(tc: TrainConfig, train_ds: Optional[DetectionDataset] = None,
         size_rng = np.random.default_rng(tc.seed + 777)
         ms_cur = {"size": None, "step": -1}
     step_cache: Dict[Any, Any] = {}
+    # the layout passes: the step's plan only, params and state unchanged
+    step_plan = make_train_fast_stem(plan) if tc.fast_stem else plan
+    if tc.split_concat:
+        step_plan = make_split_concat(step_plan)
 
     def get_step(accum: int, size: Optional[int] = None):
         if (accum, size) not in step_cache:
             step_cache[(accum, size)] = make_train_step(
-                plan, loss_fn, opt_cfg, mesh=group, accumulate=accum,
+                step_plan, loss_fn, opt_cfg, mesh=group, accumulate=accum,
                 compute_dtype=tc.compute_dtype, freeze=tc.freeze,
                 resize_to=size, loss_scale=4.0 if tc.quad else 1.0,
                 bn_shards=world if not tc.sync_bn else 1)
