@@ -1,0 +1,9 @@
+"""Host milliseconds a train step spends enqueuing the loss (`losses/ota`):
+the program's `train.loss` spans over its counter `train.steps`, under the
+profiler (`fwd_host_ms.train`'s reader)."""
+
+import functools
+
+from benchmark.harness.common import reader
+
+read = functools.partial(reader("fwd_host_ms.train"), span="train.loss")

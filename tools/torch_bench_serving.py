@@ -24,9 +24,15 @@ client gets its own frame's detections. Prints one JSON line with infer/s
 and p50 / p99 client latency per mode. `--prestaged` feeds one batch
 staged on the card instead of the clients' pixels: it measures queue,
 batching, compute and fetch without the host-to-card copy (its answers
-are then not the clients' frames' and are not checked).
+are then not the clients' frames' and are not checked). `--spans` turns
+the port's tracer (`obs/trace`) on for the batching-ON window and adds
+under its "spans" key the requests' queue wait (p50 / p99 of
+`batcher.queue`, ms), the batch fill (`batcher.requests` over
+`batcher.batches` x the engine batch), the share of batches sent to the
+batch-1 engine (`batcher.bs1` over `batcher.batches`) and the engine's
+mean `engine.stage` and `engine.fetch` (ms).
 
-    python3 tools/torch_bench_serving.py [--clients 16] [--seconds 20] [--device cpu]
+    python3 tools/torch_bench_serving.py [--clients 16] [--seconds 20] [--device cpu] [--spans]
 """
 
 from __future__ import annotations
@@ -104,11 +110,31 @@ def run_clients(n_clients, seconds, submit_and_wait, frames, expected=None):
             float(np.percentile(all_lat, 99)), len(all_lat), sum(wrong))
 
 
+def span_keys(batch: int) -> dict:
+    """The batcher's and the engine's numbers of a traced window (module
+    docstring), from `obs/trace.snapshot`."""
+    from yolo_series_tpu_torch.obs import trace
+
+    snap = trace.snapshot()
+    d, c = snap["spans"], snap["counters"]
+    q = np.array(d.get("batcher.queue") or [np.nan]) * 1e3
+    mean_ms = lambda k: 1e3 * float(np.mean(d[k])) if d.get(k) else None  # noqa: E731
+    return {"queue_p50_ms": float(np.percentile(q, 50)),
+            "queue_p99_ms": float(np.percentile(q, 99)),
+            "batch_fill": (c.get("batcher.requests", 0)
+                           / max(c.get("batcher.batches", 0) * batch, 1)),
+            "bs1_share": c.get("batcher.bs1", 0) / max(c.get("batcher.batches", 0), 1),
+            "stage_ms": mean_ms("engine.stage"), "fetch_ms": mean_ms("engine.fetch")}
+
+
 def bench(engine, engine1, clients=16, seconds=20.0, max_delay_ms=5.0, prestaged=False,
-          seed=0):
+          seed=0, spans=False):
     """Both modes on the given engines (batch B and batch 1) -> the JSON
-    dict. Raises if a client got another frame's detections."""
+    dict. Raises if a client got another frame's detections. spans: the
+    tracer on for the batching-ON window, its numbers under that mode's
+    "spans" key."""
     from yolo_series_tpu_torch.infer.serving import DynamicBatcher
+    from yolo_series_tpu_torch.obs import trace
 
     img = engine.img_size
     rng = np.random.default_rng(seed)
@@ -127,11 +153,15 @@ def bench(engine, engine1, clients=16, seconds=20.0, max_delay_ms=5.0, prestaged
 
     # -- dynamic batching ON -------------------------------------------------
     batcher = DynamicBatcher(engine, max_delay_ms=max_delay_ms, stage_fn=stage_fn)
+    if spans:
+        trace.reset()
+        trace.enable(True)
     try:
         on = run_clients(clients, seconds, lambda f: DynamicBatcher.wait(batcher.submit(f)),
                          frames, expected)
     finally:
         batcher.close()
+        trace.enable(False)
 
     # -- dynamic batching OFF (serialized bs1 requests) ----------------------
     lock = threading.Lock()
@@ -152,10 +182,13 @@ def bench(engine, engine1, clients=16, seconds=20.0, max_delay_ms=5.0, prestaged
         return {"infer_per_sec": r[0], "p50_ms": r[1], "p99_ms": r[2], "requests": r[3],
                 "checked": not prestaged}
 
-    return {"clients": clients, "engine_batch": engine.batch_size, "img_size": img,
-            "device": str(engine.device), "prestaged_input": bool(prestaged),
-            "dynamic_batching_on": mode(on), "dynamic_batching_off": mode(off),
-            "baseline_rtx3090_trt": {"on": 590.1, "off": 335.6}}
+    out = {"clients": clients, "engine_batch": engine.batch_size, "img_size": img,
+           "device": str(engine.device), "prestaged_input": bool(prestaged),
+           "dynamic_batching_on": mode(on), "dynamic_batching_off": mode(off),
+           "baseline_rtx3090_trt": {"on": 590.1, "off": 335.6}}
+    if spans:
+        out["dynamic_batching_on"]["spans"] = span_keys(engine.batch_size)
+    return out
 
 
 def main(argv=None):
@@ -170,11 +203,14 @@ def main(argv=None):
                          "clients' pixels: the serving stack without the upload")
     ap.add_argument("--device", default=None,
                     help="'cpu' for the CPU; the card when not given")
+    ap.add_argument("--spans", action="store_true",
+                    help="trace the batching-ON window: queue wait, batch fill, the "
+                         "engine's staging and fetch")
     args = ap.parse_args(argv)
     engine = build(args.batch_size, args.img_size, args.device)
     engine1 = build(1, args.img_size, args.device)
     out = bench(engine, engine1, args.clients, args.seconds, args.max_delay_ms,
-                args.prestaged)
+                args.prestaged, spans=args.spans)
     if engine.device.type == "cuda":
         import torch
         out["card"] = torch.cuda.get_device_name(engine.device)

@@ -50,6 +50,8 @@ front of either engine alike.
 
 from __future__ import annotations
 
+import collections
+import itertools
 import queue as queue_mod
 import threading
 import time
@@ -63,6 +65,7 @@ from yolo_series_tpu_torch.device import device as _device
 from yolo_series_tpu_torch.models.fastconcat import make_split_concat
 from yolo_series_tpu_torch.models.faststem import make_fast_stem
 from yolo_series_tpu_torch.models.model import apply_model, tree_map
+from yolo_series_tpu_torch.obs import trace
 from yolo_series_tpu_torch.ops.fused_elan import make_fused_elan
 from yolo_series_tpu_torch.ops.fused_stem import make_fused_stem
 from yolo_series_tpu_torch.ops.nms import fused_head_nms
@@ -147,6 +150,11 @@ class ServingEngine:
         self.batches = 0  # forward passes run, padded partial batches too
         self.replays = 0  # of them, CUDA-graph replays
         self._graph = self._static_in = self._static_out = None
+        # while the tracer is on: an event after each call's work, which
+        # `to_host` reads to count the fetches that left the card empty
+        self._events: collections.deque = collections.deque(maxlen=8)
+        trace.watch("engine.batches", self, "batches")
+        trace.watch("engine.replays", self, "replays")
 
     @torch.inference_mode()
     def end2end(self, x: torch.Tensor):
@@ -186,10 +194,22 @@ class ServingEngine:
                 "det_boxes": packed[:, 1 + 2 * md:].reshape(len(packed), md, 4)}
 
     def to_host(self, out) -> Dict[str, np.ndarray]:
-        """Device output of `infer_async` -> numpy dict (waits for it)."""
-        if self.pack_output:
-            return self.unpack(out.cpu().numpy())
-        return {k: v.cpu().numpy() for k, v in out.items()}
+        """Device output of `infer_async` -> numpy dict. On the card `.cpu()`
+        copies on the engine's stream and waits for all the work queued
+        there, that of the calls dispatched after this one too (span
+        `engine.fetch`; counters `engine.fetches` and
+        `engine.fetches_drained`, the fetches after which none of the
+        engine's calls was still running)."""
+        with trace.span("engine.fetch"):
+            if self.pack_output:
+                host = self.unpack(out.cpu().numpy())
+            else:
+                host = {k: v.cpu().numpy() for k, v in out.items()}
+            if trace.on():
+                trace.count("engine.fetches")
+                if all(ev.query() for ev in tuple(self._events)):
+                    trace.count("engine.fetches_drained")
+        return host
 
     def infer(self, images: np.ndarray) -> Dict[str, np.ndarray]:
         """images: (n<=B, H, W, 3) uint8 RGB, letterboxed to img_size (raw
@@ -233,39 +253,57 @@ class ServingEngine:
         the graph's input buffer, replay, clone the outputs (the next
         replay writes over the graph's own). images: (n<=B, ...) uint8
         numpy frames, or a full uint8 batch already staged on the engine's
-        device (a load bench's `--prestaged`)."""
+        device (a load bench's `--prestaged`). Spans: `engine.infer_async`,
+        and in it `engine.stage` (pad, tensor, pin), `engine.copy`,
+        `engine.replay`, `engine.clone`."""
+        with trace.span("engine.infer_async"):
+            with trace.span("engine.stage"):
+                x, n = self._stage(images)
+            self.batches += 1
+            if self.device.type != "cuda":
+                return self.end2end(x), n
+            # the kernels launch on the current device's stream, and a graph
+            # replays there: make it the engine's card
+            with torch.cuda.device(self.device):
+                if not self.graphs:
+                    return self.end2end(x.to(self.device, non_blocking=True)), n
+                self.capture()
+                with trace.span("engine.copy"):
+                    self._static_in.copy_(x, non_blocking=True)
+                with trace.span("engine.replay"):
+                    self._graph.replay()
+                self.replays += 1
+                with trace.span("engine.clone"):
+                    out = self._static_out
+                    out = (out.clone() if self.pack_output
+                           else {k: v.clone() for k, v in out.items()})
+                if trace.on():
+                    ev = torch.cuda.Event()
+                    ev.record()
+                    self._events.append(ev)
+                return out, n
+
+    def _stage(self, images):
+        """(the batch as a tensor, n): numpy frames checked, padded to the
+        batch and, for a graph on the card, pinned, so that their copy
+        queues behind the last replay without holding up the host."""
         if isinstance(images, torch.Tensor):
             if tuple(images.shape) != self.in_shape or images.device != self.device:
                 raise ValueError(f"a staged batch must be {self.in_shape} on {self.device}")
-            n, x = self.batch_size, images
-        else:
-            n = images.shape[0]
-            if n > self.batch_size:
-                raise ValueError(f"{n} images for batch size {self.batch_size}")
-            if n < self.batch_size:
-                pad = np.zeros((self.batch_size - n, *images.shape[1:]), images.dtype)
-                images = np.concatenate([images, pad], 0)
-            if tuple(images.shape) != self.in_shape:
-                raise ValueError(f"frames {tuple(images.shape[1:])}: this engine takes "
-                                 f"{self.in_shape[1:]}")
-            x = torch.from_numpy(np.ascontiguousarray(images))
-        self.batches += 1
-        if self.device.type != "cuda":
-            return self.end2end(x), n
-        # the kernels launch on the current device's stream, and a graph
-        # replays there: make it the engine's card
-        with torch.cuda.device(self.device):
-            if not self.graphs:
-                return self.end2end(x.to(self.device, non_blocking=True)), n
-            self.capture()
-            # from pinned memory: the copy queues behind the last replay
-            # without holding up the host
-            self._static_in.copy_(x if x.is_cuda else x.pin_memory(), non_blocking=True)
-            self._graph.replay()
-            self.replays += 1
-            out = self._static_out
-            return (out.clone() if self.pack_output
-                    else {k: v.clone() for k, v in out.items()}), n
+            return images, self.batch_size
+        n = images.shape[0]
+        if n > self.batch_size:
+            raise ValueError(f"{n} images for batch size {self.batch_size}")
+        if n < self.batch_size:
+            pad = np.zeros((self.batch_size - n, *images.shape[1:]), images.dtype)
+            images = np.concatenate([images, pad], 0)
+        if tuple(images.shape) != self.in_shape:
+            raise ValueError(f"frames {tuple(images.shape[1:])}: this engine takes "
+                             f"{self.in_shape[1:]}")
+        x = torch.from_numpy(np.ascontiguousarray(images))
+        if self.device.type == "cuda" and self.graphs:
+            x = x.pin_memory()
+        return x, n
 
     def warmup(self, iters=3):
         x = np.zeros(self.in_shape, np.uint8)
@@ -365,7 +403,16 @@ class DynamicBatcher:
     Pipelined like Triton's multiple in-flight executions: the batching
     thread dispatches (infer_async) and completion threads materialize
     results, so device-to-host latency overlaps the next batch's compute.
-    `inflight` bounds queued executions (backpressure)."""
+    `inflight` bounds queued executions (backpressure).
+
+    Spans while the tracer is on (`obs/trace`): `batcher.queue`, a request's
+    wait from `submit` until the loop takes it (its identifier the
+    request's, its parent the `batcher.collect` of the batch it joined);
+    per batch, with the batch's identifier, `batcher.collect` (the
+    co-batching wait), `batcher.stack`, `batcher.dispatch` (the engine's
+    spans in it), `batcher.handoff` (blocked on `inflight`) and, in a
+    completer thread, `batcher.complete` (parent: the dispatch). Counters
+    `batcher.requests`, `batcher.batches`, `batcher.bs1`."""
 
     def __init__(self, engine, max_delay_ms: float = 5.0,
                  inflight: int = 3, stage_fn=None, completers: int = 2,
@@ -387,6 +434,7 @@ class DynamicBatcher:
         self.q: queue_mod.Queue = queue_mod.Queue()
         self._done: queue_mod.Queue = queue_mod.Queue(maxsize=max(inflight, 1))
         self._stop = False
+        self._ids = itertools.count()      # requests' and batches' identifiers
         self.worker = threading.Thread(target=self._loop, daemon=True)
         self.completer_pool = [
             threading.Thread(target=self._complete, daemon=True)
@@ -398,6 +446,8 @@ class DynamicBatcher:
     def submit(self, image: np.ndarray):
         ev = threading.Event()
         slot = {"image": image, "event": ev, "result": None}
+        if trace.on():
+            slot["t"], slot["id"] = time.perf_counter(), next(self._ids)
         self.q.put(slot)
         return slot
 
@@ -406,6 +456,13 @@ class DynamicBatcher:
         slot["event"].wait(timeout)
         return slot["result"]
 
+    @staticmethod
+    def _taken(slot, collect):
+        """A request leaves the queue for the batch whose collect span is
+        `collect`."""
+        if "t" in slot:
+            trace.interval("batcher.queue", slot["t"], parent=collect.sid, ident=slot["id"])
+
     def _loop(self):
         bs = self.engine.batch_size
         while not self._stop:
@@ -413,35 +470,46 @@ class DynamicBatcher:
                 first = self.q.get(timeout=0.1)
             except queue_mod.Empty:
                 continue
-            batch = [first]
-            eng = self.engine
-            if (self.bs1_engine is not None and self.q.empty()
-                    and self._done.qsize() == 0):
-                # low-latency path: nothing queued and nothing in flight —
-                # dispatch now on the bs1 engine, skip the co-batching wait;
-                # sustained load keeps co-batching
-                eng = self.bs1_engine
-            else:
-                deadline = time.perf_counter() + self.max_delay
-                while len(batch) < bs and time.perf_counter() < deadline:
-                    try:
-                        batch.append(self.q.get(timeout=max(
-                            0.0, deadline - time.perf_counter())))
-                    except queue_mod.Empty:
-                        break
-            frames = [b["image"] for b in batch]
-            images = (self.stage_fn(frames) if self.stage_fn is not None
-                      else np.stack(frames))
-            out, _n = eng.infer_async(images)
+            bid = next(self._ids) if trace.on() else None
+            with trace.span("batcher.collect", ident=bid) as collect:
+                self._taken(first, collect)
+                batch = [first]
+                eng = self.engine
+                if (self.bs1_engine is not None and self.q.empty()
+                        and self._done.qsize() == 0):
+                    # low-latency path: nothing queued and nothing in flight —
+                    # dispatch now on the bs1 engine, skip the co-batching
+                    # wait; sustained load keeps co-batching
+                    eng = self.bs1_engine
+                else:
+                    deadline = time.perf_counter() + self.max_delay
+                    while len(batch) < bs and time.perf_counter() < deadline:
+                        try:
+                            batch.append(self.q.get(timeout=max(
+                                0.0, deadline - time.perf_counter())))
+                        except queue_mod.Empty:
+                            break
+                        self._taken(batch[-1], collect)
+            trace.count("batcher.batches")
+            trace.count("batcher.requests", len(batch))
+            if eng is self.bs1_engine:
+                trace.count("batcher.bs1")
+            with trace.span("batcher.stack", ident=bid):
+                frames = [b["image"] for b in batch]
+                images = (self.stage_fn(frames) if self.stage_fn is not None
+                          else np.stack(frames))
+            with trace.span("batcher.dispatch", ident=bid) as dispatch:
+                out, _n = eng.infer_async(images)
             # blocks at `inflight` pending — but never past close(): a
             # plain put() could wedge forever once the completers exit
-            while not self._stop:
-                try:
-                    self._done.put((batch, out, eng), timeout=0.1)
-                    batch = None
-                    break
-                except queue_mod.Full:
-                    continue
+            with trace.span("batcher.handoff", ident=bid):
+                while not self._stop:
+                    try:
+                        self._done.put((batch, out, eng, dispatch.sid, bid), timeout=0.1)
+                        batch = None
+                        break
+                    except queue_mod.Full:
+                        continue
             if batch is not None:  # shut down mid-handoff: wake the waiters
                 for b in batch:
                     b["event"].set()
@@ -449,15 +517,16 @@ class DynamicBatcher:
     def _complete(self):
         while True:
             try:
-                batch, out, eng = self._done.get(timeout=0.1)
+                batch, out, eng, dispatch, bid = self._done.get(timeout=0.1)
             except queue_mod.Empty:
                 if self._stop:
                     return  # drain everything dispatched before exiting
                 continue
-            host = eng.to_host(out)
-            for i, b in enumerate(batch):
-                b["result"] = {k: v[i] for k, v in host.items()}
-                b["event"].set()
+            with trace.span("batcher.complete", parent=dispatch, ident=bid):
+                host = eng.to_host(out)
+                for i, b in enumerate(batch):
+                    b["result"] = {k: v[i] for k, v in host.items()}
+                    b["event"].set()
 
     def close(self):
         """Stop the pipeline. In-flight batches still complete; anything
@@ -474,7 +543,7 @@ class DynamicBatcher:
             slot["event"].set()
         while True:  # dispatched but stranded between queues
             try:
-                batch, _, _ = self._done.get_nowait()
+                batch = self._done.get_nowait()[0]
             except queue_mod.Empty:
                 break
             for b in batch:

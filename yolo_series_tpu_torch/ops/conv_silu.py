@@ -17,6 +17,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from yolo_series_tpu_torch.obs import trace
 from yolo_series_tpu_torch.ops import _build
 
 
@@ -90,4 +91,5 @@ def launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, y: torch.Tensor,
 # `launch` (chip_smoke.py records the path's launches that way)
 launch.launches = 0
 launch.tile = None
+trace.watch("launches.conv_silu.launch", launch, "launches")
 _LAUNCH = launch

@@ -27,6 +27,7 @@ import torch
 from yolo_series_tpu_torch.models.faststem import _Passthrough
 from yolo_series_tpu_torch.models.graph import GraphPlan
 from yolo_series_tpu_torch.models.layers import Block, Concat, ConvBnAct
+from yolo_series_tpu_torch.obs import trace
 from yolo_series_tpu_torch.ops import conv_silu
 from yolo_series_tpu_torch.ops.fused_stem import kernel_weight
 
@@ -111,6 +112,7 @@ def fused_elan(x: torch.Tensor, p, order: str) -> torch.Tensor:
 
 
 fused_elan.launches = 0
+trace.watch("launches.fused_elan.fused_elan", fused_elan, "launches")
 
 
 @dataclasses.dataclass(frozen=True)

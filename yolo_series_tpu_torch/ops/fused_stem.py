@@ -25,6 +25,7 @@ from yolo_series_tpu_torch.models.faststem import (PhasedConv, _Passthrough,
                                                    _phase_weights, hwio, oihw)
 from yolo_series_tpu_torch.models.graph import GraphPlan
 from yolo_series_tpu_torch.models.layers import Block, ConvBnAct
+from yolo_series_tpu_torch.obs import trace
 from yolo_series_tpu_torch.ops import conv_silu
 
 # halo rows the phase conv emits above and below the real rows
@@ -68,6 +69,7 @@ def fused_stem(x: torch.Tensor, p) -> torch.Tensor:
 
 
 fused_stem.launches = 0
+trace.watch("launches.fused_stem.fused_stem", fused_stem, "launches")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -33,6 +33,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from yolo_series_tpu_torch.obs import trace
 from yolo_series_tpu_torch.ops import _build
 
 ALIGN = 128  # K and N of every call (the Pallas kernel's lane constraint)
@@ -198,6 +199,7 @@ def int8_matmul_dequant(xq: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
 
 int8_matmul_dequant.launches = 0
 int8_matmul_dequant.tile = None
+trace.watch("launches.int8_mm.int8_matmul_dequant", int8_matmul_dequant, "launches")
 
 
 def int8_conv1x1(xq: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
@@ -238,3 +240,4 @@ def matmul(x: torch.Tensor, w: torch.Tensor, acc: torch.dtype = torch.int32,
 
 matmul.launches = 0
 matmul.tile = None
+trace.watch("launches.int8_mm.matmul", matmul, "launches")

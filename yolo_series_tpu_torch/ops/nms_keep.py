@@ -25,6 +25,7 @@ import functools
 
 import torch
 
+from yolo_series_tpu_torch.obs import trace
 from yolo_series_tpu_torch.ops import _build
 from yolo_series_tpu_torch.ops.boxes import box_iou
 
@@ -140,6 +141,7 @@ def nms_keep_mask_large(boxes: torch.Tensor, valid: torch.Tensor,
 
 
 nms_keep_mask_large.launches = 0
+trace.watch("launches.nms_keep.nms_keep_mask_large", nms_keep_mask_large, "launches")
 
 
 def nms_keep_mask(boxes: torch.Tensor, valid: torch.Tensor,
@@ -164,3 +166,4 @@ def nms_keep_mask(boxes: torch.Tensor, valid: torch.Tensor,
 
 
 nms_keep_mask.launches = 0
+trace.watch("launches.nms_keep.nms_keep_mask", nms_keep_mask, "launches")

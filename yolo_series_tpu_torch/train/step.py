@@ -24,6 +24,13 @@ buckets of a flat buffer (`parallel/dist.allreduce_grads`). The optimizer
 and EMA then run alike on every rank. The metrics are the global batch's.
 With bn_shards > 1 (per-replica BN, `--no-sync-bn`) the new BN state is
 rank 0's, broadcast, as the JAX package's replicated state is shard 0's.
+
+Spans while the tracer is on (`obs/trace`): `train.step` (identifier: the
+step's number), and in it `train.forward` (`_images`, `apply_model`),
+`train.loss`, `train.backward` (the gradients and the zeros of unused
+ones), each once a micro-batch, `train.allreduce` (with `mesh`),
+`train.optim` (the update and `freeze`) and `train.ema`; the step's self
+time is the input placement and the tree walks. Counter `train.steps`.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ import torch.nn.functional as F
 
 from yolo_series_tpu_torch.device import device as _device
 from yolo_series_tpu_torch.models.model import apply_model
+from yolo_series_tpu_torch.obs import trace
 from yolo_series_tpu_torch.train.ema import ema_update
 from yolo_series_tpu_torch.train.optim import OptimConfig, make_optimizer
 from yolo_series_tpu_torch.models.model import tree_leaves as leaves
@@ -118,20 +126,29 @@ def make_train_step(plan, loss_fn: Callable, opt_cfg: OptimConfig,
     built = {}
 
     def loss_and_grad(params, state, images, labels, mask):
-        images = _images(images, resize_to)
         ps = [t.detach().requires_grad_() for t in leaves(params)]
-        out, new_state = apply_model(plan, rebuild(params, ps), state, images,
-                                     training=True, dtype=compute_dtype,
-                                     bn_shards=bn_shards, group=mesh,
-                                     remat_prefix=remat_prefix)
-        total, items = loss_fn(out["raw"], labels, mask, group=mesh)
-        scaled = total * loss_scale
-        grads = torch.autograd.grad(scaled, ps, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(ps, grads)]
+        tree = rebuild(params, ps)
+        with trace.span("train.forward"):
+            images = _images(images, resize_to)
+            out, new_state = apply_model(plan, tree, state, images,
+                                         training=True, dtype=compute_dtype,
+                                         bn_shards=bn_shards, group=mesh,
+                                         remat_prefix=remat_prefix)
+        with trace.span("train.loss"):
+            total, items = loss_fn(out["raw"], labels, mask, group=mesh)
+            scaled = total * loss_scale
+        with trace.span("train.backward"):
+            grads = torch.autograd.grad(scaled, ps, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(ps, grads)]
         items = {k: v.detach() for k, v in items.items()}
         return scaled.detach() / loss_scale, items, new_state, grads
 
     def train_step(ts: TrainState, images, labels, mask, lr_groups, momentum):
+        with trace.span("train.step", ident=ts.step + 1):
+            trace.count("train.steps")
+            return step_body(ts, images, labels, mask, lr_groups, momentum)
+
+    def step_body(ts, images, labels, mask, lr_groups, momentum):
         dev = leaves(ts.params)[0].device
         images = torch.as_tensor(images).to(dev, non_blocking=True)
         labels = torch.as_tensor(labels, dtype=torch.float32).to(dev, non_blocking=True)
@@ -155,29 +172,33 @@ def make_train_step(plan, loss_fn: Callable, opt_cfg: OptimConfig,
             total, items, new_state, grads = loss_and_grad(ts.params, ts.state, images,
                                                            labels, mask)
         if mesh is not None:
-            # this rank's total is its share of the global batch's
-            total = total.clone()
-            dist.all_reduce(total, group=mesh)
-            grads = allreduce_grads(grads, mesh)
-            if bn_shards > 1:
-                broadcast_tensors(leaves(new_state), 0, mesh)
+            with trace.span("train.allreduce"):
+                # this rank's total is its share of the global batch's
+                total = total.clone()
+                dist.all_reduce(total, group=mesh)
+                grads = allreduce_grads(grads, mesh)
+                if bn_shards > 1:
+                    broadcast_tensors(leaves(new_state), 0, mesh)
 
-        new_params, new_opt = opt_update(ts.opt_state, ts.params,
-                                         rebuild(ts.params, grads), lr_groups, momentum)
-        if freeze > 0:
-            # hard-freeze the first `freeze` layers: params and the "v" slot
-            # (reference --freeze, train.py:102-107)
-            pl = list(new_params["layers"])
-            vl = list(new_opt["v"]["layers"])
-            for li in range(min(freeze, len(pl))):
-                pl[li] = ts.params["layers"][li]
-                vl[li] = ts.opt_state["v"]["layers"][li]
-            new_params = {**new_params, "layers": pl}
-            new_opt = {**new_opt, "v": {**new_opt["v"], "layers": vl}}
+        grad_tree = rebuild(ts.params, grads)
+        with trace.span("train.optim"):
+            new_params, new_opt = opt_update(ts.opt_state, ts.params, grad_tree,
+                                             lr_groups, momentum)
+            if freeze > 0:
+                # hard-freeze the first `freeze` layers: params and the "v"
+                # slot (reference --freeze, train.py:102-107)
+                pl = list(new_params["layers"])
+                vl = list(new_opt["v"]["layers"])
+                for li in range(min(freeze, len(pl))):
+                    pl[li] = ts.params["layers"][li]
+                    vl[li] = ts.opt_state["v"]["layers"][li]
+                new_params = {**new_params, "layers": pl}
+                new_opt = {**new_opt, "v": {**new_opt["v"], "layers": vl}}
         step = ts.step + 1
-        new_ts = TrainState(new_params, new_state, new_opt,
-                            ema_update(ts.ema_params, new_params, step, ema_base),
-                            ema_update(ts.ema_state, new_state, step, ema_base), step)
+        with trace.span("train.ema"):
+            ema_params = ema_update(ts.ema_params, new_params, step, ema_base)
+            ema_state = ema_update(ts.ema_state, new_state, step, ema_base)
+        new_ts = TrainState(new_params, new_state, new_opt, ema_params, ema_state, step)
         return new_ts, {**items, "total": total}
 
     return train_step
