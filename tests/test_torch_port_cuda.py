@@ -385,6 +385,103 @@ def test_graph_engine_outputs_survive_the_next_replay(cuda, graph_engine):
     assert any(not np.array_equal(v, a_host[k]) for k, v in eng.to_host(b).items())
 
 
+# cycles of torch.cuda._sleep: about 0.2 s at the H100's clocks
+_LONG_SLEEP = 400_000_000
+
+
+def test_graph_engine_fetch_waits_for_its_own_batch(cuda, graph_engine):
+    """A fetch waits for its own batch's event and copies on the engine's
+    fetch stream: it returns while a batch queued after it on the compute
+    stream is still unfinished, with the arrays of a stream-wide `.cpu()`
+    fetch bit for bit, and the tracer counts it as a fetch that left the
+    card busy."""
+    from yolo_series_tpu_torch.obs import trace
+
+    eng = graph_engine
+    eng.capture()
+    trace.enable(True)
+    try:
+        c0 = dict(trace.snapshot()["counters"])
+        a, _ = eng.infer_async(_frames(5))
+        torch.cuda._sleep(_LONG_SLEEP)        # on the compute stream, before B
+        b, _ = eng.infer_async(_frames(6))
+        b_ready = eng._events[-1]             # B's own event
+        got = eng.to_host(a)
+        assert not b_ready.query()
+        c1 = dict(trace.snapshot()["counters"])
+        torch.cuda.synchronize()
+        eng.to_host(b)
+    finally:
+        trace.enable(False)
+    want = {k: v.cpu().numpy() for k, v in a.items()}
+    for key in want:
+        assert np.array_equal(got[key], want[key]), key
+    fetches = c1["engine.fetches"] - c0.get("engine.fetches", 0)
+    drained = c1.get("engine.fetches_drained", 0) - c0.get("engine.fetches_drained", 0)
+    assert fetches == 1 and drained == 0
+
+
+def test_graph_engine_fetch_falls_back_and_serves_threads(cuda, graph_engine):
+    """An eager `end2end` output carries no event and takes the stream-wide
+    `.cpu()`, with the graph's answers; two threads that fetch two in-flight
+    outputs of one engine at once each get their own batch's answers."""
+    import threading
+
+    eng = graph_engine
+    frames = [_frames(7), _frames(8)]
+    want = [eng.infer(x) for x in frames]
+    with torch.inference_mode():
+        eager = eng.end2end(torch.from_numpy(frames[0]).to(cuda))
+    assert eng._event_of(eager) is None
+    for key, v in eng.to_host(eager).items():
+        assert np.array_equal(v, want[0][key]), key
+
+    torch.cuda._sleep(_LONG_SLEEP)            # both batches still in flight at the fetch
+    outs = [eng.infer_async(x)[0] for x in frames]
+    got = [None, None]
+    start = threading.Barrier(2, timeout=30)
+
+    def fetch(i):
+        start.wait()
+        got[i] = eng.to_host(outs[i])
+
+    threads = [threading.Thread(target=fetch, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+    assert not any(t.is_alive() for t in threads)
+    for i in range(2):
+        for key, v in want[i].items():
+            assert np.array_equal(got[i][key], v), (i, key)
+
+
+def test_tensor_parallel_row_fetch_equals_its_eager_forward(cuda):
+    """A tensor-parallel row (eager, no graph; here a 1 x 2 grid on one
+    card) ties its event to its outputs too: with two batches in flight, its
+    fetches give the answers of the stream-wide fetch of its own eager
+    `end2end`."""
+    import chip_smoke
+    from yolo_series_tpu_torch.infer.serving import ShardedServingEngine
+    from yolo_series_tpu_torch.parallel.mesh import make_mesh
+
+    m = chip_smoke.make_model(cuda, width=0.25, img=128)
+    eng = ShardedServingEngine(m.plan, m.params, m.state, make_mesh(1, 2, [cuda, cuda]),
+                               batch_size=2, img_size=128)
+    (row,) = eng.rows
+    frames = [_frames(9, size=128), _frames(10, size=128)]
+    with torch.inference_mode():
+        want = [row.to_host(row.end2end(torch.from_numpy(x).to(cuda))) for x in frames]
+    torch.cuda._sleep(_LONG_SLEEP)
+    outs = [eng.infer_async(x)[0] for x in frames]
+    assert row._event_of(outs[0][0]) is not None
+    for out, w in zip(outs, want):
+        got = eng.to_host(out)
+        assert int(w["num_dets"].sum()) > 0
+        for key in w:
+            assert np.array_equal(got[key], w[key]), key
+
+
 def _bf16(rng, shape, scale):
     return torch.from_numpy(rng.normal(0, scale, shape).astype(np.float32)).to(
         torch.bfloat16)

@@ -22,7 +22,10 @@ after that copies the frames into the buffer, replays the graph and
 clones the outputs. A capture that fails raises: there is no eager
 fallback on the card. On the CPU the engine runs `end2end` eagerly. The
 kernels' launch counters grow at eager calls and at the capture only;
-`replays` counts the replays.
+`replays` counts the replays. On the card each call's outputs carry an
+event recorded after them on the compute stream, and `to_host` waits for
+that event alone and copies on a stream of its own, so the batches
+dispatched after it keep the card busy while the host fetches.
 
 DynamicBatcher: the queue micro-batcher with pipelined dispatch and
 completion threads and the in-flight-aware bs1 low-latency path, ported
@@ -101,6 +104,11 @@ def place(params, state, device, dtype):
     return tree(params), tree_map(leaf, state)
 
 
+def _tensors(out) -> tuple:
+    """The tensors of an engine output: the packed array, or the dict's."""
+    return (out,) if isinstance(out, torch.Tensor) else tuple(out.values())
+
+
 class ServingEngine:
     """Fixed-shape end-to-end detector on one device."""
 
@@ -150,9 +158,12 @@ class ServingEngine:
         self.batches = 0  # forward passes run, padded partial batches too
         self.replays = 0  # of them, CUDA-graph replays
         self._graph = self._static_in = self._static_out = None
-        # while the tracer is on: an event after each call's work, which
-        # `to_host` reads to count the fetches that left the card empty
+        # on the card: the events of the last calls (`_ready`), which
+        # `to_host` reads to count the fetches that left the card empty,
+        # and the stream it copies on (non-blocking, from PyTorch's pool)
         self._events: collections.deque = collections.deque(maxlen=8)
+        self._fetch_stream = (torch.cuda.Stream(self.device)
+                              if self.device.type == "cuda" else None)
         trace.watch("engine.batches", self, "batches")
         trace.watch("engine.replays", self, "replays")
 
@@ -194,22 +205,58 @@ class ServingEngine:
                 "det_boxes": packed[:, 1 + 2 * md:].reshape(len(packed), md, 4)}
 
     def to_host(self, out) -> Dict[str, np.ndarray]:
-        """Device output of `infer_async` -> numpy dict. On the card `.cpu()`
-        copies on the engine's stream and waits for all the work queued
-        there, that of the calls dispatched after this one too (span
-        `engine.fetch`; counters `engine.fetches` and
+        """Device output of `infer_async` -> numpy dict. An output that
+        carries this engine's event (`_ready`) waits for that event on the
+        host, then copies on the engine's fetch stream and waits for that
+        stream only: the calls dispatched after it stay queued on the
+        compute stream. Any other output (the CPU's, an eager `end2end`'s)
+        gets `.cpu()` on the current stream, which waits for all the work
+        queued there. Span `engine.fetch`; counters `engine.fetches` and
         `engine.fetches_drained`, the fetches after which none of the
-        engine's calls was still running)."""
+        engine's last calls was still running."""
         with trace.span("engine.fetch"):
-            if self.pack_output:
-                host = self.unpack(out.cpu().numpy())
+            ev = self._event_of(out)
+            if ev is None:
+                host = self._copy(out)
             else:
-                host = {k: v.cpu().numpy() for k, v in out.items()}
+                # on the host, not `wait_event` on the fetch stream: two
+                # completer threads then never queue behind each other's batch
+                ev.synchronize()
+                # the copy ends before this returns, so the allocator cannot
+                # hand the output's memory to the compute stream under it
+                with torch.cuda.stream(self._fetch_stream):
+                    host = self._copy(out)
             if trace.on():
                 trace.count("engine.fetches")
-                if all(ev.query() for ev in tuple(self._events)):
+                if all(e.query() for e in tuple(self._events)):
                     trace.count("engine.fetches_drained")
         return host
+
+    def _copy(self, out) -> Dict[str, np.ndarray]:
+        if self.pack_output:
+            return self.unpack(out.cpu().numpy())
+        return {k: v.cpu().numpy() for k, v in out.items()}
+
+    def _ready(self, out):
+        """Record an event on the engine's compute stream after `out`'s
+        work and tie it to each of `out`'s tensors; returns `out`."""
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        self._events.append(ev)
+        tied = (self, ev)
+        for t in _tensors(out):
+            t._serving_ready = tied
+        return out
+
+    def _event_of(self, out) -> Optional[torch.cuda.Event]:
+        """The event `_ready` tied to every tensor of `out` if this engine
+        tied it, else None."""
+        tensors = _tensors(out)
+        tied = getattr(tensors[0], "_serving_ready", None)
+        if tied is None or tied[0] is not self or any(
+                getattr(t, "_serving_ready", None) is not tied for t in tensors[1:]):
+            return None
+        return tied[1]
 
     def infer(self, images: np.ndarray) -> Dict[str, np.ndarray]:
         """images: (n<=B, H, W, 3) uint8 RGB, letterboxed to img_size (raw
@@ -251,7 +298,8 @@ class ServingEngine:
         """Dispatch without waiting: returns (device output, n), so a
         pipeline can keep several batches in flight. On the card: copy into
         the graph's input buffer, replay, clone the outputs (the next
-        replay writes over the graph's own). images: (n<=B, ...) uint8
+        replay writes over the graph's own), and tie to the outputs an
+        event after them (`_ready`). images: (n<=B, ...) uint8
         numpy frames, or a full uint8 batch already staged on the engine's
         device (a load bench's `--prestaged`). Spans: `engine.infer_async`,
         and in it `engine.stage` (pad, tensor, pin), `engine.copy`,
@@ -266,7 +314,7 @@ class ServingEngine:
             # replays there: make it the engine's card
             with torch.cuda.device(self.device):
                 if not self.graphs:
-                    return self.end2end(x.to(self.device, non_blocking=True)), n
+                    return self._ready(self.end2end(x.to(self.device, non_blocking=True))), n
                 self.capture()
                 with trace.span("engine.copy"):
                     self._static_in.copy_(x, non_blocking=True)
@@ -277,11 +325,7 @@ class ServingEngine:
                     out = self._static_out
                     out = (out.clone() if self.pack_output
                            else {k: v.clone() for k, v in out.items()})
-                if trace.on():
-                    ev = torch.cuda.Event()
-                    ev.record()
-                    self._events.append(ev)
-                return out, n
+                return self._ready(out), n
 
     def _stage(self, images):
         """(the batch as a tensor, n): numpy frames checked, padded to the
