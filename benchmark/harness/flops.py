@@ -5,9 +5,9 @@ the program's plan cannot change them.
 The arithmetic is that of the program's dense FLOP counter at the time
 the benchmark was written (`utils/general.FlopCounter.dense`): two
 operations a multiply-add over the taps that fall inside the input, window
-- 1 compares a max-pooled output; biases, BN, activations, concats and
-resizes count nothing. The deploy form counts a repconv as its fused 3x3
-conv; the training form counts its 3x3 and 1x1 branches.
+- 1 compares a max-pooled output; biases, BN, activations, concats,
+shortcut adds and resizes count nothing. The deploy form counts a repconv
+as its fused 3x3 conv; the training form counts its 3x3 and 1x1 branches.
 
 Peaks: one NVIDIA H100 SXM, dense bf16 989 TFLOP/s, HBM 3.35 TB/s
 (NVIDIA's data sheet, at the 700 W power limit).
@@ -75,6 +75,11 @@ def convs(net, img: int, form: str = "deploy") -> List[dict]:
             conv(i, "cv5", 4 * c2, c2, 1, 1, h)
             conv(i, "cv6", c2, c2, 3, 1, h)
             conv(i, "cv7", 2 * c2, c2, 1, 1, h)
+        elif kind == "downc":
+            conv(i, "cv1", c1, c1, 1, 1, h)
+            ho = conv(i, "cv2", c1, c2 // 2, L["k"], L["s"], h)
+            conv(i, "cv3", c1, c2 // 2, 1, 1, pool(i, "mp", c1, L["s"], L["s"], h))
+            h = ho
         elif kind in ("detect", "idetect"):
             for j, (f, c) in enumerate(zip(L["frm"], L["c_in"])):
                 conv(i, f"m.{j}", c, net.na * net.no, 1, 1, hw[f])

@@ -2,9 +2,10 @@
 left the card with none of the engine's calls still running, in percent:
 the program's counters `engine.fetches_drained` over `engine.fetches`,
 from `obs/trace.snapshot()` (kind "batch"; None where the program counts
-no fetches). 100% by construction while a fetch copies on the stream of
-the calls it waits for, as `to_host` does: it tells something only once
-the fetch has a stream of its own."""
+no fetches). `to_host` waits for its own batch's event and copies on a
+stream of its own, so the calls dispatched after that batch stay queued
+and the share is low while the engine keeps batches in flight; a fetch
+that waited for the whole stream would read 100%."""
 
 
 def read(r):

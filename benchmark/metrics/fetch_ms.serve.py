@@ -1,6 +1,7 @@
-"""Mean host milliseconds of a `ServingEngine.to_host` call (its `.cpu()`
-waits for all the work queued on the engine's stream): the program's
-`engine.fetch` span, under the profiler (`fwd_host_ms.train`'s reader)."""
+"""Mean host milliseconds of a `ServingEngine.to_host` call (it waits for
+its own batch's event, then copies on the engine's fetch stream, while
+the batches dispatched after it run): the program's `engine.fetch` span,
+under the profiler (`fwd_host_ms.train`'s reader)."""
 
 import functools
 

@@ -5,9 +5,11 @@ upstream models/common.py and models/yolo.py).
 
 Blocks: conv (Conv2d without bias, BatchNorm2d, SiLU), repconv (3x3 and
 1x1 branches with their BNs, the identity BN where c1 == c2 and stride 1,
-SiLU of the sum), sppcspc (cv1..cv7, max pools 5, 9, 13), mp (2x2 max
-pool), concat, upsample (nearest), reorg (space to depth), detect and
-idetect (ImplicitA before, ImplicitM after each level's 1x1 conv).
+SiLU of the sum), sppcspc (cv1..cv7, max pools 5, 9, 13), downc (cv2 of
+cv1 at stride 2 beside cv3 of a 2x2 max pool, concatenated), mp (2x2 max
+pool), concat, shortcut (the sum of two inputs), upsample (nearest), reorg
+(space to depth), detect and idetect (ImplicitA before, ImplicitM after
+each level's 1x1 conv).
 
 Nothing here reads the program under test: the weights are drawn from the
 seed by this module, and the forward is torch.nn.functional in fp32 with
@@ -69,6 +71,14 @@ class Net:
                 c2, k, s = args
             elif kind == "concat":
                 c2, k, s = sum(c_in), 0, 1
+            elif kind == "shortcut":
+                if len(c_in) != 2 or c_in[0] != c_in[1]:
+                    raise ValueError(f"layer {i}: shortcut of {c_in} channels")
+                c2, k, s = c1, 0, 1
+            elif kind == "downc":
+                c2, k, s = args[0], 3, 2
+                if c2 % 2:
+                    raise ValueError(f"layer {i}: downc of {c2} channels, not even")
             elif kind in ("mp", "upsample"):
                 c2, k, s = c1, 0, 1
             elif kind == "reorg":
@@ -119,6 +129,10 @@ class Net:
                                        ("cv3", c_, c_, 3), ("cv4", c_, c_, 1),
                                        ("cv5", 4 * c_, c_, 1), ("cv6", c_, c_, 3),
                                        ("cv7", 2 * c_, c2, 1)):
+                    conv(f"{p}.{name}", a, b, kk)
+            elif L["kind"] == "downc":
+                for name, a, b, kk in (("cv1", c1, c1, 1), ("cv2", c1, c2 // 2, k),
+                                       ("cv3", c1, c2 // 2, 1)):
                     conv(f"{p}.{name}", a, b, kk)
             elif L["kind"] in ("detect", "idetect"):
                 for j, c in enumerate(L["c_in"]):
@@ -232,6 +246,8 @@ class _Run:
             return self.conv(p, x, L["k"], L["s"])
         if kind == "concat":
             return torch.cat(inp, 1)
+        if kind == "shortcut":
+            return inp[0] + inp[1]
         if kind == "mp":
             return F.max_pool2d(x, 2, 2)
         if kind == "upsample":
@@ -258,6 +274,11 @@ class _Run:
                            3, 1)
             y2 = self.conv(f"{p}.cv2", x, 1, 1)
             return self.conv(f"{p}.cv7", torch.cat([y1, y2], 1), 1, 1)
+        if kind == "downc":
+            s = L["s"]
+            y1 = self.conv(f"{p}.cv2", self.conv(f"{p}.cv1", x, 1, 1), L["k"], s)
+            y2 = self.conv(f"{p}.cv3", F.max_pool2d(x, s, s), 1, 1)
+            return torch.cat([y1, y2], 1)
         raise ValueError(kind)
 
     def head(self, L, inp, net):

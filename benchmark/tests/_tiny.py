@@ -16,11 +16,15 @@ SMALL_MIX = {"batch": 2, "pool": 8, "warmup_s": 0.2, "batches": 4, "label_pad": 
 
 
 def tiny_cfg(cfg: dict, div: int = 8, img: int = 128) -> dict:
+    """Each block's width cut by `div` and rounded up to a multiple of 8, as
+    the program rounds a width (`make_divisible`) and the reference takes
+    it as it stands: so both build the same shapes, a downc's halves stay
+    whole, and the two inputs of a shortcut, cut alike, keep equal widths."""
     cfg = copy.deepcopy(cfg)
     for key in ("cfg_deploy", "cfg_training"):
         for row in cfg.get(key, {}).get("backbone", []) + cfg.get(key, {}).get("head", []):
-            if row[2] in ("conv", "repconv", "sppcspc"):
-                row[3][0] = max(8, row[3][0] // div)
+            if row[2] in ("conv", "repconv", "sppcspc", "downc"):
+                row[3][0] = 8 * max(1, -(-row[3][0] // (8 * div)))
     cfg["img"] = img
     return cfg
 
