@@ -287,6 +287,7 @@ from yolo_series_tpu_torch.models.model import (Model, _run_layer, apply_model, 
 from yolo_series_tpu_torch.models.faststem import (TrainPhasedConvA, TrainPhasedConvB,
                                                    make_train_fast_stem)
 from yolo_series_tpu_torch.models.fastconcat import SplitConcatConv
+from yolo_series_tpu_torch.models.graph import compile_graph
 from yolo_series_tpu_torch.models.lanealign import LaneAlignedConv, make_lane_align
 from yolo_series_tpu_torch.models.reparam import fuse_model
 from yolo_series_tpu_torch.parallel.mesh import ShardedWeight, make_mesh
@@ -323,7 +324,9 @@ PEAK_FP32 = 67e12      # CUDA cores, outside the tensor cores
 PEAK_BYTES = 3.35e12
 
 # (H at 640 px, cin, ct, cc, cout, order) of the 8 ELAN spans of
-# full-width yolov7 deploy, in plan order (layers 4..101)
+# full-width yolov7 deploy, in plan order (layers 4..101); a span tuple may
+# add its chain length n (4 when left out) and whether its output conv adds
+# a residual (a folded Shortcut), as `plan_spans` gives them
 SPANS = ((160, 128, 64, 64, 256, "backbone"), (80, 256, 128, 128, 512, "backbone"),
          (40, 512, 256, 256, 1024, "backbone"), (20, 1024, 256, 256, 1024, "backbone"),
          (40, 512, 256, 128, 256, "head"), (80, 256, 128, 64, 128, "head"),
@@ -424,6 +427,8 @@ CLI_EPOCHS, CLI_NBS, CLI_WORKERS = 2, 16, 4
 # and test CLIs on phase 8's set (drawn again at P6_IMG), one epoch, with
 # the P6 hyp.
 P6_DEPLOY_CFG = ROOT / "yolo_series_tpu_torch/models/cfg/deploy/yolov7-w6.yaml"
+E6E_DEPLOY_CFG = ROOT / "yolo_series_tpu_torch/models/cfg/deploy/yolov7-e6e.yaml"
+E6E_SPANS, E6E_SHORTCUTS = 22, 11   # E-ELAN spans (chain 6) and folded Shortcuts
 P6_TRAIN_CFG = ROOT / "yolo_series_tpu_torch/models/cfg/training/yolov7-w6.yaml"
 P6_HYP = ROOT / "data/hyp.scratch.p6.yaml"
 P6_IMG, P6_SPANS, P6_STEPS, P6_BATCHES = 1280, 11, 8, (8, 4, 2)
@@ -852,7 +857,7 @@ def recorded_launches(errs=None):
             st = launch_stage((args, kw))
             errs.append(_close(f"conv_silu launch {len(calls)} {tuple(st.y.shape)}", st.y,
                                conv_silu.conv_silu_plain(st.x, st.w, st.b, st.stride,
-                                                         st.pad)))
+                                                         st.pad, st.r)))
 
     conv_silu.launch = record
     try:
@@ -862,9 +867,10 @@ def recorded_launches(errs=None):
 
 
 def launch_stage(call):
-    """The logical input and output slices, stride, pad (top, bottom, left,
-    right; symmetric where that gives the same output), operations and
-    bytes (each slice, weight and bias moved once) of a recorded launch."""
+    """The logical input, output and residual slices, stride, pad (top,
+    bottom, left, right; symmetric where that gives the same output),
+    operations and bytes (each slice, weight and bias moved once) of a
+    recorded launch."""
     (x, w, b, y), kw = call
     h, c, s, t, l = kw["h"], kw["c"], kw["stride"], kw["pad_t"], kw["pad_l"]
     r0, x0, y0 = kw.get("x_row0", 0), kw.get("x_coff", 0), kw.get("y_coff", 0)
@@ -874,9 +880,12 @@ def launch_stage(call):
     bo = t if (h + 2 * t - kh) // s + 1 == oh else (oh - 1) * s + kh - h - t
     r = l if (wid + 2 * l - kwd) // s + 1 == ow else (ow - 1) * s + kwd - wid - l
     xs, ys = x[:, r0:r0 + h, :, x0:x0 + c], y[..., y0:y0 + co]
-    return SimpleNamespace(x=xs, w=w, b=b, y=ys, stride=s, pad=(t, bo, l, r),
+    res = kw.get("r")
+    rs = None if res is None else res[..., kw.get("r_coff", 0):kw.get("r_coff", 0) + co]
+    return SimpleNamespace(x=xs, w=w, b=b, y=ys, r=rs, stride=s, pad=(t, bo, l, r),
                            ops=2 * bsz * oh * ow * co * kh * kwd * c,
-                           nbytes=nbytes(w, b) + 2 * (xs.numel() + ys.numel()))
+                           nbytes=nbytes(w, b) + 2 * (xs.numel() + ys.numel()
+                                                      + (0 if rs is None else rs.numel())))
 
 
 def check_launches(kid, names, calls):
@@ -892,7 +901,7 @@ def check_launches(kid, names, calls):
         conv_silu.launch(*args, **kwargs)
         torch.cuda.synchronize()
         err = _close(label, st.y, conv_silu.conv_silu_plain(st.x, st.w, st.b, st.stride,
-                                                            st.pad))
+                                                            st.pad, st.r))
         ms = graph_ms(lambda: conv_silu.launch(*args, **kwargs))
         xc = st.x.contiguous()
         lib_ms = graph_ms(lambda: _cudnn_conv_silu(xc, st.w, st.b, st.stride, st.pad))
@@ -927,7 +936,11 @@ def stages_total(kid, stages):
 
 
 STEM_LAUNCHES = ("s1 k2", "s2 k3", "s3 k3/s2")
-SPAN_LAUNCHES = ("x45", "c1", "c2", "c3", "c4", "out")   # x4 and x5 in one launch
+
+
+def span_launches(n=4):
+    """A span's launches: x4 and x5 in one, the n chain convs, the output."""
+    return ("x45",) + fused_elan.chain_names(n) + ("out",)
 
 
 def check_k2(dev, rows, side=IMG, batch=BATCH, key="K2", stages_alone=True):
@@ -978,61 +991,70 @@ def check_k2(dev, rows, side=IMG, batch=BATCH, key="K2", stages_alone=True):
         rows["stages"] = stages
 
 
-def span_params(gen, cin, ct, cc, cout, order, dev):
+def span_params(gen, cin, ct, cc, cout, order, dev, n=4):
     """A span's params as `fused_elan.pack_span` lays them out (merged
     x4/x5 weight included)."""
-    _, cat = fused_elan.concat_slots(order, ct, cc)
+    _, cat = fused_elan.concat_slots(order, ct, cc, n)
     return fused_elan.merge_x45({
         "w4": _conv_w(gen, 1, 1, cin, ct, dev), "b4": _bf16(gen, (ct,), 0.1, dev),
         "w5": _conv_w(gen, 1, 1, cin, ct, dev), "b5": _bf16(gen, (ct,), 0.1, dev),
         "wc0": _conv_w(gen, 3, 3, ct, cc, dev), "bc0": _bf16(gen, (cc,), 0.1, dev),
-        "wc": torch.stack([_conv_w(gen, 3, 3, cc, cc, dev) for _ in range(3)]),
-        "bc": _bf16(gen, (3, cc), 0.1, dev),
+        "wc": torch.stack([_conv_w(gen, 3, 3, cc, cc, dev) for _ in range(n - 1)]),
+        "bc": _bf16(gen, (n - 1, cc), 0.1, dev),
         "w11": _conv_w(gen, 1, 1, cat, cout, dev), "b11": _bf16(gen, (cout,), 0.1, dev)})
 
 
 def check_k3(dev, rows, spans=SPANS, batch=BATCH, key="K3", stages_alone=True):
-    """K3 on each span of `spans` (H, cin, ct, cc, cout, order) at its
-    serving shape, timed as K2 is, and summed over the spans into
-    rows[key]; then (stages_alone) each span's launches alone."""
+    """K3 on each span of `spans` (H, cin, ct, cc, cout, order[, n[,
+    residual]]) at its serving shape, timed as K2 is, and summed over the
+    spans into rows[key]; then (stages_alone) each span's launches alone.
+    A residual span adds a drawn bf16 tensor of its output's shape."""
     gen = torch.Generator().manual_seed(3)
     tot = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
                library_ms=0.0, staged_floor_ms=0.0, graph_ms=0.0,
                library_graph_ms=0.0)
     by = {"bytes": 0.0, "operations": 0.0}  # bound time of each kind
     stages = []
-    for h, cin, ct, cc, cout, order in spans:
-        p = span_params(gen, cin, ct, cc, cout, order, dev)
+    for h, cin, ct, cc, cout, order, *more in spans:
+        n, residual = (list(more) + [4, False][len(more):])[:2]
+        p = span_params(gen, cin, ct, cc, cout, order, dev, n)
         x = _bf16(gen, (batch, h, h, cin), 1.0, dev)
+        res = _bf16(gen, (batch, h, h, cout), 1.0, dev) if residual else None
         with recorded_launches() as calls:
-            got = fused_elan.fused_elan(x, p, order)
+            got = fused_elan.fused_elan(x, p, order, res)
         torch.cuda.synchronize()
-        want = fused_elan.fused_elan_plain(x, p, order)
-        err = _close(f"{key} fused_elan {order} {h}x{h}x{cin}", got, want)
-        ms = cuda_ms(lambda: fused_elan.fused_elan(x, p, order))
-        g_ms = graph_ms(lambda: fused_elan.fused_elan(x, p, order))
-        plain_ms = cuda_ms(lambda: fused_elan.fused_elan_plain(x, p, order), iters=5)
-        slots, _ = fused_elan.concat_slots(order, ct, cc)
+        want = fused_elan.fused_elan_plain(x, p, order, res)
+        err = _close(f"{key} fused_elan {order} n{n}{' +r' if residual else ''} "
+                     f"{h}x{h}x{cin}", got, want)
+        ms = cuda_ms(lambda: fused_elan.fused_elan(x, p, order, res))
+        g_ms = graph_ms(lambda: fused_elan.fused_elan(x, p, order, res))
+        plain_ms = cuda_ms(lambda: fused_elan.fused_elan_plain(x, p, order, res), iters=5)
+        slots, _ = fused_elan.concat_slots(order, ct, cc, n)
 
         def library():
             same = (1, 1, 1, 1)
+            names = fused_elan.chain_names(n)
             t = {"x4": _cudnn_conv_silu(x, p["w4"], p["b4"], 1, (0, 0, 0, 0)),
                  "x5": _cudnn_conv_silu(x, p["w5"], p["b5"], 1, (0, 0, 0, 0))}
             t["c1"] = _cudnn_conv_silu(t["x5"], p["wc0"], p["bc0"], 1, same)
-            for j, (a, b) in enumerate((("c1", "c2"), ("c2", "c3"), ("c3", "c4"))):
-                t[b] = _cudnn_conv_silu(t[a], p["wc"][j], p["bc"][j], 1, same)
-            cat = torch.cat([t[n] for n in slots], dim=-1)
-            return _cudnn_conv_silu(cat, p["w11"], p["b11"], 1, (0, 0, 0, 0))
+            for j in range(n - 1):
+                t[names[j + 1]] = _cudnn_conv_silu(t[names[j]], p["wc"][j], p["bc"][j], 1,
+                                                   same)
+            cat = torch.cat([t[k] for k in slots], dim=-1)
+            y = _cudnn_conv_silu(cat, p["w11"], p["b11"], 1, (0, 0, 0, 0))
+            return y if res is None else y + res
 
         lib_ms, lib_g_ms = cuda_ms(library), graph_ms(library)
-        span = (check_launches(f"{key} {order[:4]}{h}", SPAN_LAUNCHES, calls)
-                if stages_alone else unchecked_stages(key, SPAN_LAUNCHES, calls))
+        names = span_launches(n)
+        span = (check_launches(f"{key} {order[:4]}{h}", names, calls)
+                if stages_alone else unchecked_stages(key, names, calls))
         del calls
         stages += span
         ops = sum(r["ops"] for r in span)
-        # the fused bound: the span's input, weights and output only (the
-        # merged w45/b45 repeat w4/w5, b4/b5)
-        nb = nbytes(x, got, *(v for k, v in p.items() if k not in ("w45", "b45")))
+        # the fused bound: the span's input, weights, residual and output
+        # only (the merged w45/b45 repeat w4/w5, b4/b5)
+        nb = nbytes(x, got, *(v for k, v in p.items() if k not in ("w45", "b45")),
+                    *(() if res is None else (res,)))
         b_ms, b_by = bound_ms(ops, PEAK_BF16, nb)
         floor = sum(r["bound_ms"] for r in span)
         log(f"{key} fused_elan {order:8s} x {tuple(x.shape)} -> {tuple(got.shape)}: "
@@ -1048,11 +1070,12 @@ def check_k3(dev, rows, spans=SPANS, batch=BATCH, key="K3", stages_alone=True):
         by[b_by] += b_ms
         if not stages_alone:
             rows.setdefault(f"{key}_spans", []).append(dict(
-                h=h, cin=cin, ct=ct, cc=cc, cout=cout, order=order, max_abs_err=err, ms=ms,
+                h=h, cin=cin, ct=ct, cc=cc, cout=cout, order=order, n=n, residual=residual,
+                max_abs_err=err, ms=ms,
                 graph_ms=g_ms, plain_ms=plain_ms, library_ms=lib_ms,
                 library_graph_ms=lib_g_ms, bound_ms=b_ms, bound_by=b_by,
                 staged_floor_ms=floor))
-        del x, got, want, p
+        del x, got, want, p, res
     # the spans run one after another: their bounds add up
     log(f"{key} all {len(spans)} spans (one batch-{batch} forward): one call each "
         f"{tot['ms']:.3f} ms "
@@ -2746,15 +2769,43 @@ def train_and_test(dev, width=1.0, img=IMG, batch=BATCH, n_train=TRAIN_IMAGES,
 
 # ------------------------------------------------------ the P6 family ---
 
+def plan_spans(plan, params, img):
+    """(H, cin, ct, cc, cout, order, n, residual) of the FusedELAN blocks
+    that `make_fused_elan` makes of a fused plan at `img` px, in plan order."""
+    fused, _, _ = fused_elan.make_fused_elan(plan, params,
+                                             {"layers": [{} for _ in plan.layers]})
+    return tuple((int(img / s.stride), b.c1, b.ct, b.cc, b.c2, b.order, b.n, b.residual)
+                 for s in fused.layers if isinstance(b := s.block, fused_elan.FusedELAN))
+
+
 def model_spans(m):
-    """(H, cin, ct, cc, cout, order) of the ELAN spans that `make_fused_elan`
-    rewrites in the fused plan of `m`, at m.img px, in plan order."""
-    out = []
-    for i, order in fused_elan.find_elan_spans(m.plan, m.params):
-        layers = m.plan.layers
-        out.append((int(m.img / layers[i].stride), layers[i].block.c1, layers[i].block.c2,
-                    layers[i + 2].block.c2, layers[i + 7].block.c2, order))
-    return tuple(out)
+    """`plan_spans` of the fused model `m` at m.img px."""
+    return plan_spans(m.plan, m.params, m.img)
+
+
+def cfg_spans(path, img):
+    """`plan_spans` of a deploy cfg file at `img` px, from its shapes alone
+    (fused params on the meta device: nothing is drawn or moved)."""
+    plan = compile_graph(str(path))
+    meta = [{"w": torch.empty(b.c2, b.c1, b.k, b.k, device="meta"),
+             "b": torch.empty(b.c2, device="meta")} if isinstance(b := s.block, L.ConvBnAct)
+            else {} for s in plan.layers]
+    return plan_spans(plan, {"layers": meta}, img)
+
+
+def check_e6e_spans(dev, rows, img=P6_IMG, batch=BATCH):
+    """K3 on yolov7-e6e's E-ELAN spans at `img` px: E6E_SPANS spans of six
+    chained 3x3 convs, E6E_SHORTCUTS of them adding their pair's first
+    output in the output launch, each against its plain version
+    (`check_k3`, into rows["K3_e6e"])."""
+    spans = cfg_spans(E6E_DEPLOY_CFG, img)
+    log(f"e6e: {len(spans)} E-ELAN spans at {img} px (H, cin, ct, cc, cout, order, n, "
+        f"residual) {spans}")
+    if (len(spans), sum(s[7] for s in spans)) != (E6E_SPANS, E6E_SHORTCUTS):
+        raise AssertionError(f"e6e: {len(spans)} spans, {sum(s[7] for s in spans)} "
+                             f"residual, want {E6E_SPANS}, {E6E_SHORTCUTS}")
+    check_k3(dev, rows, spans, batch, key="K3_e6e", stages_alone=False)
+    return spans
 
 
 def aux_hyp(nl, img):
@@ -3003,6 +3054,7 @@ def p6(dev, rows, width=1.0, img=P6_IMG, batch=BATCH, requests=12):
     del m
     if dev.type == "cuda":
         check_k3(dev, rows, spans, batch, key="K3_p6", stages_alone=False)
+        check_e6e_spans(dev, rows, img, batch)
     det = detect(dev, width, P6_TRAIN_CFG, img, transforms=(0, P6_SPANS), what="p6 (c) detect")
     m = make_model(dev, width, img, P6_TRAIN_CFG)
     ev = evaluation(dev, m, batch, 16, what="p6 (c) eval")
@@ -4230,7 +4282,8 @@ def pose(dev, width=1.0, img=POSE_IMG, batch=BATCH):
     log(f"pose (b): pred {tuple(pred.shape)}; {int(out[0].sum())} detections; launches "
         f"{counts}; {n_calls} conv_silu launches, each held against the plain conv on its "
         f"own slices: max abs err {conv_err}")
-    if dev.type == "cuda" and (counts != want or n_calls != len(SPAN_LAUNCHES) * spans):
+    if dev.type == "cuda" and (counts != want
+                               or n_calls != sum(s[6] + 2 for s in span_shapes)):
         raise AssertionError(f"pose (b): launch counts {counts}, want {want}; {n_calls} "
                              f"conv_silu launches")
     with plain_nms():

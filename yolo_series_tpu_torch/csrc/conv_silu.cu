@@ -10,12 +10,19 @@
 //     conv emits, and zero-pads around the real rows — the per-stage
 //     re-zeroing the Pallas kernel does with `mask_rows`.
 //   * yolo_series_tpu/ops/pallas_elan.py `_make_elan_call` (FusedELAN): an
-//     ELAN span is 6 launches (the two 1x1 convs of the span input as one
-//     launch with the weight [w5 | w4], four chained 3x3, the output 1x1).
-//     Each writes into a channel slice of one preallocated concat buffer
-//     (channel stride + offset), so the concat costs nothing.
+//     ELAN span with a chain of n 3x3 convs is n + 2 launches (the two 1x1
+//     convs of the span input as one launch with the weight [w5 | w4], the
+//     n chained 3x3, the output 1x1): 6 for yolov7's spans (n = 4), 8 for
+//     an E-ELAN span of yolov7-e6e (n = 6). Each writes into a channel
+//     slice of one preallocated concat buffer (channel stride + offset), so
+//     the concat costs nothing.
 // Rounding follows the Pallas kernels: fp32 accumulate, + bias in fp32,
-// SiLU in fp32, one round to bf16 at the store.
+// SiLU in fp32, one round to bf16 at the store. With a residual (the
+// output launch of the second span of an E-ELAN pair, whose Shortcut adds
+// the first span's output), the epilogue adds the residual's bf16 value in
+// fp32 after SiLU, before that one round: bf16(silu(acc + b) + r). The
+// residual is its own template instantiation, so the launches without one
+// run the code they ran before.
 //
 // GEMM view: M = output pixels, N = output channels, K = taps x channels.
 // A tile is 128 MW GEMM rows x BN output channels (BN 128 with MW 1, or BN
@@ -47,7 +54,8 @@
 //     next tile during the epilogue, and one CTA's epilogue overlaps the
 //     other CTA's products.
 //   * Epilogue in registers: + bias, SiLU (fast exp and divide, well under
-//     bf16's rounding), packed to bf16x2, gathered across each lane quad
+//     bf16's rounding), + the residual where there is one (4-byte loads of
+//     the two columns a lane holds), packed to bf16x2, gathered across each lane quad
 //     with shuffles into 8-column rows, written with 16-byte stores into
 //     the output channel slice (y_coff, y_cstride); ragged pixels and
 //     channels are masked.
@@ -90,7 +98,8 @@ struct Params {
   CUtensorMap w;      // weight (CO, C, taps)
   const __nv_bfloat16* bias;
   __nv_bfloat16* y;   // output channel slice: y + y_coff, pixel stride y_cstride
-  int oh, ow, y_cstride;
+  const __nv_bfloat16* r;  // residual channel slice (r + r_coff), or null
+  int oh, ow, y_cstride, r_cstride;
   int co, cblocks, n_tiles, tiles_w, tiles_h, tiles;
   int bh, bw;         // output tile: BH rows x BW columns of one image
   int pitch;          // P = BW + the taps' column extent: patch pixels a row
@@ -265,7 +274,7 @@ struct Cfg {
 // rings run on across tiles, so the producer loads the next tile while the
 // consumers finish this one, and one CTA's epilogue overlaps the other's
 // products.
-template <int BN, int MW>
+template <int BN, int MW, bool RES>
 __global__ void __launch_bounds__(kThreads, kCtasPerSm)
 conv_silu_kernel(const __grid_constant__ Params p) {
   constexpr int SB = Cfg<BN, MW>::kBSlots;
@@ -404,21 +413,22 @@ conv_silu_kernel(const __grid_constant__ Params p) {
         mbar_arrive(&a_empty[rel_a]);
       }
 
-      // ---- epilogue: bias + SiLU in fp32, 16-byte rows straight to y ----
+      // ---- epilogue: bias + SiLU (+ residual) in fp32, 16-byte rows to y ----
       // accumulator layout (m64nN): acc[mi][4j + e] is row 64 mi + 16 warp +
       // lane/4 + 8 (e/2) of the warpgroup's rows, column 8j + 2 (lane % 4) +
       // e % 2. GEMM row m is patch pixel (m / P, m % P): an output pixel of
       // the tile where m % P < BW, else padding. Thread row u = 2 mi + e/2.
       const int q = lane % 4;
       __nv_bfloat16* row_ptr[2 * MW];
+      const __nv_bfloat16* res_ptr[2 * MW];  // read only with RES
 #pragma unroll
       for (int u = 0; u < 2 * MW; ++u) {
         const int m = (wg * MW + u / 2) * 64 + warp * 16 + lane / 4 + 8 * (u % 2);
         const int r = m / p.pitch, c = m - r * p.pitch;
         const bool in = c < p.bw && r < p.bh && oh0 + r < p.oh && ow0 + c < p.ow;
-        row_ptr[u] = in ? p.y + (static_cast<size_t>(img * p.oh + oh0 + r) * p.ow +
-                                 ow0 + c) * p.y_cstride
-                        : nullptr;
+        const size_t pix = static_cast<size_t>(img * p.oh + oh0 + r) * p.ow + ow0 + c;
+        row_ptr[u] = in ? p.y + pix * p.y_cstride : nullptr;
+        if constexpr (RES) res_ptr[u] = in ? p.r + pix * p.r_cstride : nullptr;
       }
       // four column blocks at a time: lane q of each quad gathers block j0 + q
       // (8 columns, 16 bytes) of its two rows from the quad's four lanes
@@ -438,7 +448,16 @@ conv_silu_kernel(const __grid_constant__ Params p) {
 #pragma unroll
           for (int u = 0; u < 2 * MW; ++u) {
             const float* a = &acc[u / 2][4 * (j0 + i) + 2 * (u % 2)];
-            const __nv_bfloat162 o = __floats2bfloat162_rn(silu(a[0] + b0), silu(a[1] + b1));
+            float v0 = silu(a[0] + b0), v1 = silu(a[1] + b1);
+            if constexpr (RES) {
+              if (res_ptr[u] != nullptr && col < p.co) {
+                const __nv_bfloat162 rr =
+                    *reinterpret_cast<const __nv_bfloat162*>(res_ptr[u] + col);
+                v0 += __low2float(rr);
+                v1 += __high2float(rr);
+              }
+            }
+            const __nv_bfloat162 o = __floats2bfloat162_rn(v0, v1);
             packed[u][i] = *reinterpret_cast<const uint32_t*>(&o);
           }
         }
@@ -510,11 +529,11 @@ bool encode(CUtensorMap* map, int rank, const void* base, const cuuint64_t* dims
 
 // the shared-memory opt-in, once per kernel and device (a host call, kept
 // out of the launches a CUDA graph captures)
-template <int BN, int MW>
+template <int BN, int MW, bool RES>
 cudaError_t opt_in(int dev) {
   static std::atomic<unsigned> done{0};
   if (done.load() & (1u << dev)) return cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(conv_silu_kernel<BN, MW>,
+  cudaError_t err = cudaFuncSetAttribute(conv_silu_kernel<BN, MW, RES>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          Cfg<BN, MW>::kSmem);
   if (err == cudaSuccess) done.fetch_or(1u << dev);
@@ -532,12 +551,18 @@ int sm_count(int dev) {
   return n;
 }
 
+template <int BN, int MW, bool RES>
+int launch_kernel(Params& p, int blocks, int dev, cudaStream_t stream) {
+  cudaError_t err = opt_in<BN, MW, RES>(dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  conv_silu_kernel<BN, MW, RES><<<blocks, kThreads, Cfg<BN, MW>::kSmem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int BN, int MW>
 int launch(Params& p, int blocks, int dev, cudaStream_t stream) {
-  cudaError_t err = opt_in<BN, MW>(dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  conv_silu_kernel<BN, MW><<<blocks, kThreads, Cfg<BN, MW>::kSmem, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  return p.r != nullptr ? launch_kernel<BN, MW, true>(p, blocks, dev, stream)
+                        : launch_kernel<BN, MW, false>(p, blocks, dev, stream);
 }
 
 int floor_div(int a, int b) { return a >= 0 ? a / b : -((-a + b - 1) / b); }
@@ -574,16 +599,18 @@ Tiling tiling(int rows, int region, int OH, int OW, int ext_y, int ext_x) {
 
 }  // namespace
 
-// y[b, oh, ow, y_coff + n] = bf16(silu(sum x * w + bias)) for the logical input
-// x rows [x_row0, x_row0 + H) and channels [x_coff, x_coff + C) of a
-// (B, x_rows, W, x_cstride) tensor; w is (KH, KW, C, CO), y (B, OH, OW,
-// y_cstride). Writes the tile it launches, {GEMM rows, N}, to tile[0..1].
-// Returns cudaErrorInvalidValue on what the kernel does not take.
+// y[b, oh, ow, y_coff + n] = bf16(silu(sum x * w + bias) [+ r[b, oh, ow,
+// r_coff + n]]) for the logical input x rows [x_row0, x_row0 + H) and
+// channels [x_coff, x_coff + C) of a (B, x_rows, W, x_cstride) tensor; w is
+// (KH, KW, C, CO), y (B, OH, OW, y_cstride), the residual r, where not null,
+// (B, OH, OW, r_cstride). Writes the tile it launches, {GEMM rows, N}, to
+// tile[0..1]. Returns cudaErrorInvalidValue on what the kernel does not take.
 extern "C" int conv_silu_nhwc(const void* x, const void* w, const void* b, void* y,
                               int B, int H, int W, int C, int x_rows, int x_row0,
                               int x_cstride, int x_coff, int KH, int KW, int stride,
                               int pad_t, int pad_l, int OH, int OW, int CO,
-                              int y_cstride, int y_coff, void* stream, int* tile) {
+                              int y_cstride, int y_coff, const void* r, int r_cstride,
+                              int r_coff, void* stream, int* tile) {
   const bool ok =
       C % 32 == 0 && C > 0 && CO % 16 == 0 && CO > 0 && x_cstride % 8 == 0 &&
       x_coff % 8 == 0 && y_cstride % 8 == 0 && y_coff % 8 == 0 && B >= 1 && OH >= 1 &&
@@ -592,7 +619,9 @@ extern "C" int conv_silu_nhwc(const void* x, const void* w, const void* b, void*
       pad_t >= 0 && pad_l >= 0 && (reinterpret_cast<uintptr_t>(x) % 16) == 0 &&
       (reinterpret_cast<uintptr_t>(w) % 16) == 0 &&
       (reinterpret_cast<uintptr_t>(b) % 4) == 0 &&
-      (reinterpret_cast<uintptr_t>(y) % 16) == 0;
+      (reinterpret_cast<uintptr_t>(y) % 16) == 0 &&
+      (r == nullptr || ((reinterpret_cast<uintptr_t>(r) % 16) == 0 && r_cstride % 8 == 0 &&
+                        r_coff % 8 == 0 && r_coff >= 0 && r_coff + CO <= r_cstride));
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -695,9 +724,11 @@ extern "C" int conv_silu_nhwc(const void* x, const void* w, const void* b, void*
       return static_cast<int>(cudaErrorInvalidValue);
   }
   p.y = static_cast<__nv_bfloat16*>(y) + y_coff;
+  p.r = r == nullptr ? nullptr : static_cast<const __nv_bfloat16*>(r) + r_coff;
   p.oh = OH;
   p.ow = OW;
   p.y_cstride = y_cstride;
+  p.r_cstride = r_cstride;
 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int slots = kCtasPerSm * sm_count(dev);

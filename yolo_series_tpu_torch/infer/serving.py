@@ -25,7 +25,11 @@ kernels' launch counters grow at eager calls and at the capture only;
 `replays` counts the replays. On the card each call's outputs carry an
 event recorded after them on the compute stream, and `to_host` waits for
 that event alone and copies on a stream of its own, so the batches
-dispatched after it keep the card busy while the host fetches.
+dispatched after it keep the card busy while the host fetches. The
+rewrites run in the span `engine.rewrite`; the engine keeps the operations
+of one batch that they hand to the conv + SiLU kernel (`conv_silu_ops`),
+which `obs/trace.snapshot` reads, summed over the engines built, as
+`engine.conv_silu_ops`.
 
 DynamicBatcher: the queue micro-batcher with pipelined dispatch and
 completion threads and the in-flight-aware bs1 low-latency path, ported
@@ -69,8 +73,9 @@ from yolo_series_tpu_torch.models.fastconcat import make_split_concat
 from yolo_series_tpu_torch.models.faststem import make_fast_stem
 from yolo_series_tpu_torch.models.model import apply_model, tree_map
 from yolo_series_tpu_torch.obs import trace
-from yolo_series_tpu_torch.ops.fused_elan import make_fused_elan
-from yolo_series_tpu_torch.ops.fused_stem import make_fused_stem
+from yolo_series_tpu_torch.ops import conv_silu
+from yolo_series_tpu_torch.ops.fused_elan import FusedELAN, make_fused_elan
+from yolo_series_tpu_torch.ops.fused_stem import FusedStem, make_fused_stem
 from yolo_series_tpu_torch.ops.nms import fused_head_nms
 from yolo_series_tpu_torch.parallel.dist import host_local_slice
 from yolo_series_tpu_torch.parallel.mesh import Mesh, tensor_parallel_params
@@ -82,6 +87,28 @@ def serving_transforms(plan, params, state):
     plan, params, state = make_fused_stem(plan, params, state)
     plan, params, state = make_fast_stem(plan, params, state, max_pairs=2)
     return make_fused_elan(plan, params, state)
+
+
+def conv_silu_ops(plan, fused, img: int) -> int:
+    """Operations of one img x img image in the convs of `plan` that the
+    serving rewrites handed to the conv + SiLU kernel in `fused` (its plan
+    after `serving_transforms`): a FusedStem's three convs (layers 1-3),
+    each FusedELAN's n + 3, counted as the dense FLOP counter counts the
+    original convs (`conv_silu.conv_ops`)."""
+    covered = []
+    for idx, spec in enumerate(fused.layers):
+        if isinstance(spec.block, FusedStem):
+            covered += [idx, idx + 1, idx + 2]
+        elif isinstance(spec.block, FusedELAN):
+            covered += [j for j in range(idx - spec.block.n - 3, idx + 1) if j != idx - 1]
+    total = 0
+    for j in covered:
+        spec = plan.layers[j]
+        src = j - 1 if spec.frm == -1 else spec.frm
+        side = img if src < 0 else round(img / plan.layers[src].stride)
+        b = spec.block
+        total += conv_silu.conv_ops(side, side, b.c1, b.c2, b.k, b.s)
+    return total
 
 
 def place(params, state, device, dtype):
@@ -114,6 +141,10 @@ class ServingEngine:
 
     rewrites = True   # the serving transforms (a tensor-parallel row runs without)
     graphs = True     # replay a CUDA graph on the card
+    # `conv_silu_ops` summed over the engines this process built: read by
+    # `obs/trace.snapshot` as "engine.conv_silu_ops", and kept after the
+    # engines are gone
+    built_conv_silu_ops = 0
 
     def __init__(self, plan, params, state, *, batch_size=8, img_size=640,
                  conf_thres=0.25, iou_thres=0.45, max_det=100,
@@ -131,10 +162,13 @@ class ServingEngine:
         if split_concat and not self.rewrites:
             raise ValueError("split_concat rewrites the serving plan, which a "
                              "tensor-parallel row runs without its rewrites")
+        self.conv_silu_ops = 0   # operations of one batch in conv_silu (K2, K3)
         if self.rewrites:
-            plan, params, state = serving_transforms(plan, params, state)
-            if split_concat:
-                plan = make_split_concat(plan)
+            with trace.span("engine.rewrite"):
+                fused, params, state = serving_transforms(plan, params, state)
+            self.conv_silu_ops = batch_size * conv_silu_ops(plan, fused, img_size)
+            plan = make_split_concat(fused) if split_concat else fused
+        ServingEngine.built_conv_silu_ops += self.conv_silu_ops
         self.plan = plan
         self._params, self._state = place(params, state, self.device, dtype)
         self.batch_size = batch_size
@@ -353,6 +387,9 @@ class ServingEngine:
         x = np.zeros(self.in_shape, np.uint8)
         for _ in range(iters):
             self.infer(x)
+
+
+trace.watch("engine.conv_silu_ops", ServingEngine, "built_conv_silu_ops")
 
 
 class _TensorParallelEngine(ServingEngine):
