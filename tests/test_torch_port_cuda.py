@@ -9,6 +9,8 @@ without a card. On a machine with one (and no jax), run
 imports no jax.
 """
 
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -787,10 +789,11 @@ def test_grouped_int8_conv_on_card_equals_cpu(cuda, k, s, c, n, g):
     assert torch.equal(got.cpu(), want)
 
 
-# last in the file: a failed capture should leave the card usable, but
-# nothing else runs after it in this process if it does not
 def test_graph_capture_failure_raises(cuda, graph_engine):
-    """A capture that fails raises; the engine does not fall back to eager."""
+    """A capture that fails raises; the engine does not fall back to eager.
+    The card stays usable (`device.graph_capture`): the caller's stream is
+    current again, the capture's pool is given back, and an emptied cache
+    holds no free segment."""
     from yolo_series_tpu_torch.infer.serving import ServingEngine
 
     eng = ServingEngine(graph_engine.plan, graph_engine._params, graph_engine._state,
@@ -804,9 +807,22 @@ def test_graph_capture_failure_raises(cuda, graph_engine):
         return out
 
     eng.end2end = syncing
+    stream = torch.cuda.current_stream()
+    torch.cuda.empty_cache()
+    pools = {tuple(g["segment_pool_id"]) for g in torch.cuda.memory._snapshot()["segments"]}
     with pytest.raises(Exception):
         eng.infer(_frames(4, n=1))
     assert not eng.captured and eng.replays == 0
+    assert torch.cuda.current_stream() == stream
+    # what the capture allocated is freed with its traceback, which a
+    # reference cycle (through contextlib's frames) holds until a collection
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    segments = torch.cuda.memory._snapshot()["segments"]
+    assert {tuple(g["segment_pool_id"]) for g in segments} <= pools
+    assert not [g for g in segments if tuple(g["segment_pool_id"]) == (0, 0)
+                and g["allocated_size"] == 0]
 
 
 # ------------------------------------------------------------ train step ---

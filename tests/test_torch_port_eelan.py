@@ -111,6 +111,18 @@ def test_conv_silu_ops_is_the_frozen_count(name):
     assert ops == k["ops"]
 
 
+def test_conv_silu_ops_of_an_engines_own_plan_is_zero():
+    """An engine built from another engine's plan (already rewritten): the
+    rewrites find nothing more to hand to conv_silu, and the count reads 0
+    instead of failing on a fused block."""
+    cfg = common.load_json(common.BENCH / "configs" / "yolov7.json")
+    plan = compile_graph(cfg["cfg_deploy"])
+    fused, params, state = serving_transforms(plan, *_meta(plan, "cpu"))
+    again, _, _ = serving_transforms(fused, params, state)
+    assert conv_silu_ops(fused, again, cfg["img"]) == 0
+    assert conv_silu_ops(plan, fused, cfg["img"]) > 0
+
+
 def _bf16(gen, shape, std=1.0):
     return (torch.randn(shape, generator=gen) * std).to(torch.bfloat16)
 

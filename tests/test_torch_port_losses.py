@@ -142,6 +142,29 @@ def test_find_positive_matches_jax(g):
         np.testing.assert_array_equal(got.anchors.numpy(), np.asarray(want.anchors))
 
 
+def test_find_positive_constants_are_cached_with_their_old_values():
+    """The loss's constants (the grid gain, the base of the inverted
+    centres, the anchors, the offsets) come from a cache on the device:
+    each equals, bit for bit, the tensor built from host numbers before,
+    and a second call hands back the same objects, so a step copies
+    nothing from the host."""
+    from yolo_series_tpu_torch.losses.targets import _OFF, const_on
+    cpu = torch.device("cpu")
+    anchors = np.asarray(ANCHORS[1], np.float32).reshape(3, 2) / 16.0
+    pairs = {"gain": ([10, 6, 10, 6], torch.tensor([10, 6, 10, 6], dtype=torch.float32)),
+             "inv": ([10, 6], torch.tensor([10, 6], dtype=torch.float32)),
+             "anchors": (anchors, torch.as_tensor(np.asarray(anchors, np.float32))),
+             "off": (_OFF * np.float32(0.5), torch.as_tensor(_OFF * np.float32(0.5)))}
+    for name, (x, want) in pairs.items():
+        got = const_on(x, cpu)
+        assert got.dtype == want.dtype and got.shape == want.shape, name
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), name
+        assert const_on(x, cpu) is got, name
+    _, labels, mask = _case(3)
+    a, b = (find_positive(_t(labels), _t(mask), anchors, (6, 10), 4.0) for _ in range(2))
+    assert a.anchors is b.anchors is const_on(anchors, cpu)
+
+
 def test_top_k_iter_ties_match_jax():
     """The masked-argmax top-k on rows with ties: values and indices equal
     to JAX's (the first index wins each tie)."""

@@ -8,6 +8,7 @@ import json
 import socket
 import sys
 import threading
+import weakref
 from pathlib import Path
 
 import numpy as np
@@ -33,8 +34,8 @@ torch.set_num_threads(2)
 
 SIZE, M = 64, 8
 PHASES = ("train.forward", "train.loss", "train.backward", "train.optim", "train.ema")
-TRACED = ("engine.fetches", "engine.fetches_drained", "train.steps", "batcher.requests",
-          "batcher.batches", "batcher.bs1")
+TRACED = ("engine.fetches", "engine.fetches_drained", "train.steps", "train.eager.cpu",
+          "batcher.requests", "batcher.batches", "batcher.bs1")
 
 
 @pytest.fixture(autouse=True)
@@ -190,6 +191,68 @@ def test_spans_nest_in_the_profilers_trace_and_add_up(path, engine, trainer, tmp
         own = _read("step_self_ms.train", "train")
         mean = 1e3 * np.mean(snap["spans"]["train.step"])
         assert min(split) > 0 and sum(split) + own == pytest.approx(mean, rel=1e-9)
+
+
+def test_cpu_steps_run_eagerly_and_count_why(trainer):
+    """On the CPU every step runs eagerly, counted once as
+    `train.eager.cpu`: no capture and no replay, so the benchmark's replay
+    share reads 0."""
+    trace.enable(True)
+    _steps(trainer, 2)
+    c = trace.snapshot()["counters"]
+    assert c["train.steps"] == c["train.eager.cpu"] == 2
+    assert not {k for k in c if k.startswith("train.") and k not in
+                ("train.steps", "train.eager.cpu")}
+    assert _read("train_replay_share.train", "train") == 0
+
+
+def test_an_eager_call_out_of_memory_drops_the_live_graph_and_runs_again(monkeypatch):
+    """`train/step._eager`: an eager step's call that runs out of the card's
+    memory while a captured step's graph is alive drops that graph and
+    runs again; with no graph alive the error stands."""
+    from yolo_series_tpu_torch.train import step as S
+
+    class Holder:
+        graph = "a graph"
+
+        def evict(self):
+            self.graph = None
+
+    holder = Holder()
+    monkeypatch.setattr(S, "_alive", weakref.ref(holder))
+    seen = []
+
+    def run():
+        seen.append(holder.graph)
+        if len(seen) == 1:
+            raise torch.cuda.OutOfMemoryError("CUDA out of memory")
+        return "done"
+
+    assert S._eager(run) == "done"
+    assert seen == ["a graph", None]
+    seen.clear()
+    with pytest.raises(torch.cuda.OutOfMemoryError):
+        S._eager(run)
+    assert seen == [None]
+
+
+def test_replay_share_reader(monkeypatch):
+    """`train_replay_share.train` on a snapshot's counters: None on a run of
+    another kind, and for a program that counts steps but no replay,
+    capture or eager step (one without the step's graph); 100 for a
+    window of replays, 50 for half."""
+    counters = {}
+    monkeypatch.setattr(trace, "snapshot",
+                        lambda: {"spans": {}, "self": {}, "counters": dict(counters)})
+    assert _read("train_replay_share.train", "train") is None
+    counters["train.steps"] = 7
+    assert _read("train_replay_share.train", "train") is None
+    counters["train.replays"] = 7
+    assert _read("train_replay_share.train", "train") == 100
+    assert _read("train_replay_share.train", "batch") is None
+    counters.update({"train.steps": 4, "train.replays": 2, "train.captures": 1,
+                     "train.eager.new": 1})
+    assert _read("train_replay_share.train", "train") == 50
 
 
 def test_off_records_nothing_and_changes_nothing(engine, trainer, monkeypatch):

@@ -75,3 +75,43 @@ def full_fp32(enabled: bool = True) -> Iterator[None]:
                 flags, matmul = _pins["saved"]
                 cudnn.set_flags(*flags)
                 torch.set_float32_matmul_precision(matmul)
+
+
+@contextlib.contextmanager
+def graph_capture(graph: "torch.cuda.CUDAGraph", stream: "torch.cuda.Stream",
+                  **kw) -> Iterator[None]:
+    """`torch.cuda.graph(graph, stream=stream, **kw)` on a memory pool of
+    its own, which a capture that raises gives back, with the caller's
+    stream current again.
+
+    Where `CUDAGraph.capture_end` raises before it ends (a capture that the
+    stream had invalidated, by a host sync say), PyTorch leaves the
+    capture's stream current and the allocator routing the stream's
+    allocations to the graph's pool, which no graph then releases: every
+    later allocation asks its stream whether it is captured, and no cache
+    is emptied again in the process.
+    """
+    pool = torch.cuda.graph_pool_handle()
+    caller = torch.cuda.current_stream(stream.device)
+    try:
+        with torch.cuda.graph(graph, pool=pool, stream=stream, **kw):
+            yield
+    except Exception:
+        torch.cuda.set_stream(caller)
+        _end_failed_capture(graph, stream.device.index, pool)
+        raise
+
+
+def _end_failed_capture(graph, index: int, pool) -> None:
+    """End the allocator's routing to a failed capture's pool and release
+    the pool, unless `capture_end` got that far."""
+    try:
+        graph.pool()            # raises unless the capture ended
+        return                  # ended: the graph releases its pool
+    except RuntimeError:
+        pass
+    try:
+        torch._C._cuda_endAllocateToPool(index, pool)
+    except RuntimeError:
+        return                  # capture_end had ended the routing
+    torch._C._cuda_releasePool(index, pool)

@@ -69,6 +69,7 @@ import torch
 
 from yolo_series_tpu_torch.data.device_aug import make_device_letterbox
 from yolo_series_tpu_torch.device import device as _device
+from yolo_series_tpu_torch.device import graph_capture
 from yolo_series_tpu_torch.models.fastconcat import make_split_concat
 from yolo_series_tpu_torch.models.faststem import make_fast_stem
 from yolo_series_tpu_torch.models.model import apply_model, tree_map
@@ -94,9 +95,13 @@ def conv_silu_ops(plan, fused, img: int) -> int:
     serving rewrites handed to the conv + SiLU kernel in `fused` (its plan
     after `serving_transforms`): a FusedStem's three convs (layers 1-3),
     each FusedELAN's n + 3, counted as the dense FLOP counter counts the
-    original convs (`conv_silu.conv_ops`)."""
+    original convs (`conv_silu.conv_ops`). A block that `plan` holds
+    already rewritten (an engine's own plan, given to another engine)
+    counts nothing: its convs are not in `plan`."""
     covered = []
     for idx, spec in enumerate(fused.layers):
+        if isinstance(plan.layers[idx].block, (FusedStem, FusedELAN)):
+            continue
         if isinstance(spec.block, FusedStem):
             covered += [idx, idx + 1, idx + 2]
         elif isinstance(spec.block, FusedELAN):
@@ -324,7 +329,7 @@ class ServingEngine:
             # to the host while another engine captures. The capture runs on
             # `side`, this card's stream: torch.cuda.graph's own default
             # stream is made once, on the first card that captured
-            with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+            with graph_capture(graph, side, capture_error_mode="thread_local"):
                 static_out = self.end2end(static_in)
         self._graph, self._static_in, self._static_out = graph, static_in, static_out
 

@@ -21,7 +21,7 @@ import torch.nn.functional as F
 
 from yolo_series_tpu_torch.losses.bin import SigmoidBin
 from yolo_series_tpu_torch.losses.ota import K_OFFSETS, ota_assign_batch
-from yolo_series_tpu_torch.losses.targets import find_positive
+from yolo_series_tpu_torch.losses.targets import const_on, find_positive
 from yolo_series_tpu_torch.losses.yolo_loss import (LossHyp, _masked_mean, balance_for,
                                                     bce_logits, global_items,
                                                     objectness_target, positive_count,
@@ -74,7 +74,7 @@ def make_compute_loss_bin_ota(head, hyp: LossHyp, topk: int = 10):
             ps = pi[bi, ai, gj, gi]                                      # (B, Cl, no)
 
             lab = labels[bi, mg_l]
-            gain = torch.tensor([nx, ny, nx, ny], dtype=torch.float32, device=dev)
+            gain = const_on([nx, ny, nx, ny], dev)
             tb = lab[..., 1:5] * gain
             grid = torch.stack([gi, gj], -1).float()
             tb = torch.cat([tb[..., 0:2] - grid, tb[..., 2:4]], -1)

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from yolo_series_tpu_torch.losses.targets import find_positive
+from yolo_series_tpu_torch.losses.targets import const_on, find_positive
 from yolo_series_tpu_torch.losses.yolo_loss import (LossHyp, _masked_mean, balance_for,
                                                     bce_logits, focal_scale, global_items,
                                                     objectness_target, positive_count,
@@ -170,7 +170,7 @@ def ota_level_loss(pi, labels, label_mask, fg_l, mg_l, anchors_l,
 
     ps = pi[bi, ai, gj, gi]                                              # (B, Cl, no)
     lab = labels[bi, mg_l]                                               # (B, Cl, 5)
-    gain = torch.tensor([nx, ny, nx, ny], dtype=torch.float32, device=dev)
+    gain = const_on([nx, ny, nx, ny], dev)
     tb = lab[..., 1:5] * gain
     grid = torch.stack([gi, gj], -1).float()
     tb = torch.cat([tb[..., 0:2] - grid, tb[..., 2:4]], -1)

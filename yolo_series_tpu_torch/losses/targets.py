@@ -10,6 +10,7 @@ layout a level: (B, M, na, K), K = 5 lateral offsets.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -18,6 +19,29 @@ import torch
 # offset directions: center, left, up, right, down (reference loss.py:510-514)
 _OFF = np.asarray(
     [[0.0, 0.0], [1.0, 0.0], [0.0, 1.0], [-1.0, 0.0], [0.0, -1.0]], np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _const_on(values: Tuple[float, ...], shape: Tuple[int, ...],
+              device: torch.device) -> torch.Tensor:
+    """An fp32 constant of the loss on `device`, made at its first use and
+    shared after it (never written). Each value is written by a fill on the
+    device, not copied from the host: no call of a step, not even the
+    first, waits for the card, so the first call's check for syncs finds
+    none (`train/step`). Made outside inference mode, so that autograd can
+    use it whoever made it."""
+    with torch.inference_mode(False):
+        t = torch.empty(len(values), dtype=torch.float32, device=device)
+        for i, v in enumerate(values):
+            t[i].fill_(v)     # (`t[i] = v` would copy v from the host)
+        return t.reshape(shape)
+
+
+def const_on(x, device: torch.device) -> torch.Tensor:
+    """`x` (numbers or an array) as the cached fp32 tensor on `device`: the
+    values of `torch.tensor(x, dtype=torch.float32)`."""
+    a = np.asarray(x, np.float32)
+    return _const_on(tuple(a.reshape(-1).tolist()), a.shape, torch.device(device))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,16 +73,16 @@ def find_positive(labels: torch.Tensor, label_mask: torch.Tensor,
     b, m, _ = labels.shape
     dev = labels.device
 
-    gain = torch.tensor([nx, ny, nx, ny], dtype=torch.float32, device=dev)
+    gain = const_on([nx, ny, nx, ny], dev)
     txywh = labels[..., 1:5] * gain                    # (B, M, 4) grid units
     txy = txywh[..., 0:2]
     twh = txywh[..., 2:4]
 
-    anc = torch.as_tensor(np.asarray(anchors, np.float32), device=dev)  # (na, 2)
+    anc = const_on(anchors, dev)                       # (na, 2)
     r = twh[:, :, None, :] / anc[None, None, :, :]     # (B, M, na, 2)
     anchor_ok = torch.maximum(r, 1.0 / r).amax(-1) < anchor_t   # (B, M, na)
 
-    inv = torch.tensor([nx, ny], dtype=torch.float32, device=dev) - txy
+    inv = const_on([nx, ny], dev) - txy
     fx, fy = txy[..., 0] % 1.0, txy[..., 1] % 1.0
     ix, iy = inv[..., 0] % 1.0, inv[..., 1] % 1.0
     off_ok = torch.stack([
@@ -69,7 +93,7 @@ def find_positive(labels: torch.Tensor, label_mask: torch.Tensor,
         (iy < g) & (inv[..., 1] > 1.0),
     ], dim=-1)                                         # (B, M, K)
 
-    off = torch.as_tensor(_OFF * np.float32(g), device=dev)   # (K, 2)
+    off = const_on(_OFF * np.float32(g), dev)          # (K, 2)
     # gij = floor(txy - off), clamped before the box target is taken from
     # it (the reference clamps in place, loss.py:545-548)
     gij = torch.floor(txy[:, :, None, :] - off[None, None, :, :]).long()

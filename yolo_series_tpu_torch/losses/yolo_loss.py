@@ -169,7 +169,7 @@ def make_compute_loss(head, hyp: LossHyp):
 
         if nc > 1:
             t = torch.full((ps.shape[0], nc), cn, dtype=ps.dtype, device=dev)
-            t[torch.arange(ps.shape[0], device=dev), tcls] = cp
+            t.scatter_(1, tcls[:, None], cp)     # a fill, no copy from the host
             cls_bce = bce_logits(ps[:, 5:], t, hyp.cls_pw)
             if hyp.fl_gamma > 0:
                 cls_bce = cls_bce * focal_scale(ps[:, 5:], t, hyp.fl_gamma)

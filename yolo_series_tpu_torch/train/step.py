@@ -10,8 +10,31 @@ train.py:344-389).
   * the EMA of the params and the BN state follows every update
     (train.py:389).
 
-The step runs eagerly on the params' device; its metrics are 0-d tensors
-on that device, so it makes no host sync.
+The step runs on the params' device; its metrics are 0-d tensors on that
+device, so it makes no host sync.
+
+On a card the step replays a CUDA graph where it can, so that the host
+no longer enqueues its several thousand launches every step. The host
+computes the step's numbers (learning rates, momentum, Adam's bias
+corrections, the EMA's decay) exactly as the eager step does, and fills
+them into 0-d tensors that the graph reads. A call is captured when the
+params are on a card, there is no group (`mesh`) and no `remat_prefix`,
+its signature (the shapes and dtypes of images, labels and mask, and the
+numeric flags of cuDNN and matmuls) repeats the previous call's, and the
+first call of that signature made no synchronizing CUDA call
+(`torch.cuda.set_sync_debug_mode`). Every other call runs eagerly.
+Capture warms the step up on a side stream, then records it once; a
+replay copies the caller's trees and batch into the graph's inputs and
+the graph's outputs into new tensors (views of new buffers, one a dtype
+for each output tree), so the caller's `ts` stays as it was and what a
+call returns is its own. The process keeps one graph alive: its memory
+pool, about an eager step's activations, stays reserved while other
+steps (a trainer builds one for each accumulation and size) or other
+signatures run eagerly beside it. An eager call that runs out of the
+card's memory with a graph alive drops that graph, releases its pool and
+runs again (`_eager`); a step leaves its inputs as they were, so the
+second call is the first. A `mesh` step does not retry: its ranks would
+part in their collectives.
 
 Data parallel (`mesh=` a `torch.distributed` process group, the JAX
 argument's name for the port's group handle): every rank holds a replica
@@ -30,11 +53,21 @@ step's number), and in it `train.forward` (`_images`, `apply_model`),
 `train.loss`, `train.backward` (the gradients and the zeros of unused
 ones), each once a micro-batch, `train.allreduce` (with `mesh`),
 `train.optim` (the update and `freeze`) and `train.ema`; the step's self
-time is the input placement and the tree walks. Counter `train.steps`.
+time is the input placement and the tree walks. A replay runs none of the
+phases: its `train.step` holds the inputs' copy, the replay's launch and
+the outputs' copy. `train.capture` spans a capture (warm-up and record).
+Counters: `train.steps` every call, and each call once in one of
+`train.replays`, `train.captures` and `train.eager.<why>`, why one of
+"cpu", "mesh", "remat", "new" (the signature differs from the previous
+call's; its first call is checked for syncs), "sync" (that check found
+one), "evicted" (its graph was dropped, for another's or for an eager
+call's memory) and "capture" (the capture raised).
 """
 
 from __future__ import annotations
 
+import warnings
+import weakref
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
@@ -42,10 +75,11 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from yolo_series_tpu_torch.device import device as _device
+from yolo_series_tpu_torch.device import graph_capture
 from yolo_series_tpu_torch.models.model import apply_model
 from yolo_series_tpu_torch.obs import trace
-from yolo_series_tpu_torch.train.ema import ema_update
-from yolo_series_tpu_torch.train.optim import OptimConfig, make_optimizer
+from yolo_series_tpu_torch.train.ema import ema_mix, ema_scalars
+from yolo_series_tpu_torch.train.optim import OptimConfig, make_optimizer, make_update
 from yolo_series_tpu_torch.models.model import tree_leaves as leaves
 from yolo_series_tpu_torch.models.model import tree_rebuild as rebuild
 from yolo_series_tpu_torch.parallel.dist import allreduce_grads, broadcast_tensors
@@ -88,6 +122,216 @@ def _images(images, resize_to):
     return images
 
 
+def _signature(images, labels, mask):
+    """What a captured step is specific to: the batch's shapes, dtypes and
+    device, and the flags that choose cuDNN's and the matmuls' numerics."""
+    cudnn = torch.backends.cudnn
+    return (tuple(images.shape), images.dtype, tuple(labels.shape), labels.dtype,
+            tuple(mask.shape), mask.dtype, images.device, cudnn.allow_tf32,
+            cudnn.deterministic, cudnn.benchmark, torch.backends.cuda.matmul.allow_tf32,
+            torch.get_float32_matmul_precision(), torch.are_deterministic_algorithms_enabled())
+
+
+def _set_sync_debug_mode(mode):
+    """`torch.cuda.set_sync_debug_mode` without its notice that the mode is
+    a prototype."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", "Synchronization debug mode is a prototype")
+        torch.cuda.set_sync_debug_mode(mode)
+
+
+def _checking_syncs(fn):
+    """(fn(), whether fn made a synchronizing CUDA call): run under
+    `torch.cuda.set_sync_debug_mode("warn")`, the sync warnings recorded
+    and the mode restored. Under the caller's "error" mode a sync raises,
+    as the caller asked; the other warnings are shown as usual."""
+    mode = torch.cuda.get_sync_debug_mode()
+    if mode == 2:
+        return fn(), False
+    try:
+        _set_sync_debug_mode(1)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        _set_sync_debug_mode(mode)
+    synced = False
+    for w in caught:
+        is_sync = "synchronizing CUDA operation" in str(w.message)
+        synced |= is_sync
+        if mode or not is_sync:
+            warnings.warn_explicit(w.message, w.category, w.filename, w.lineno)
+    return out, synced
+
+
+def _dense_stride(t):
+    """t's strides where t is dense (contiguous, or channels-last), else
+    the contiguous ones: a layout that spans t.numel() elements."""
+    if t.is_contiguous() or (t.dim() == 4
+                             and t.is_contiguous(memory_format=torch.channels_last)):
+        return t.stride()
+    return torch.empty(t.shape, device="meta").stride()
+
+
+def _by_dtype(ts):
+    """{dtype: [indices of ts with it]}, for `_foreach_copy_`'s fast path."""
+    out = {}
+    for i, t in enumerate(ts):
+        out.setdefault(t.dtype, []).append(i)
+    return out
+
+
+class _StepGraph:
+    """One step captured as a CUDA graph for one signature: the tensors it
+    reads (the TrainState's leaves, the batch, the step's numbers as 0-d
+    fp32 tensors) and the tensors it writes."""
+
+    def __init__(self, compute, sig, ts, images, labels, mask, s):
+        dev = images.device
+        self.sig = sig
+        src = leaves(ts) + [images, labels, mask]
+        self.inputs = [torch.empty_like(t) for t in src]
+        self.in_groups = _by_dtype(self.inputs)
+        self.load(src)
+        self.nums = {k: torch.full((), v, dtype=torch.float32, device=dev)
+                     for k, v in s.items()}
+        n = len(src) - 3
+        args = (TrainState(*rebuild(tuple(ts), self.inputs[:n])), *self.inputs[n:], self.nums)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            compute(*args)     # warm-up on a side stream, as capture asks
+        torch.cuda.current_stream(dev).wait_stream(side)
+        # the warm-up's blocks are cached for the side stream, where neither
+        # the graph's pool nor a later eager call can use them
+        torch.cuda.empty_cache()
+        self.graph = torch.cuda.CUDAGraph()
+        with graph_capture(self.graph, side):
+            out = compute(*args)
+        self.dev = dev
+        self.parts = [self._layout(part) for part in out]
+
+    @staticmethod
+    def _layout(tree):
+        """(tree, its leaves, where each lies in a buffer of its dtype,
+        the buffers' sizes, the leaves' indices by dtype) of one output."""
+        outs, layout, sizes = leaves(tree), [], {}
+        for t in outs:
+            at = sizes.get(t.dtype, 0)
+            layout.append((t.dtype, tuple(t.shape), _dense_stride(t), at))
+            sizes[t.dtype] = at + t.numel()
+        return tree, outs, layout, sizes, _by_dtype(outs)
+
+    def load(self, src):
+        for idx in self.in_groups.values():
+            torch._foreach_copy_([self.inputs[i] for i in idx], [src[i] for i in idx])
+
+    def copy_out(self, tree, outs, layout, sizes, groups):
+        """A copy of one output tree whose leaves are views of new buffers,
+        one a dtype. Each output (params, BN state, optimizer slots, the
+        EMA's two, metrics) has buffers of its own, so a caller that keeps
+        one (a loss it logs) keeps no other alive."""
+        bufs = {dt: torch.empty(n, dtype=dt, device=self.dev) for dt, n in sizes.items()}
+        views = [bufs[dt].as_strided(shape, stride, at) for dt, shape, stride, at in layout]
+        for idx in groups.values():
+            torch._foreach_copy_([views[i] for i in idx], [outs[i] for i in idx])
+        return rebuild(tree, views)
+
+    def __call__(self, ts, images, labels, mask, s):
+        """The step on these inputs: the caller's copy of the graph's
+        outputs, in compute's trees."""
+        self.load(leaves(ts) + [images, labels, mask])
+        for k, t in self.nums.items():
+            t.fill_(s[k])
+        self.graph.replay()
+        return tuple(self.copy_out(*part) for part in self.parts)
+
+
+# The captured step alive in the process (a weak reference to its
+# `_Capture`): a graph's memory pool holds the step's activations for as
+# long as the graph lives, so a capture first drops another step's graph.
+_alive = None
+
+
+def _live():
+    """The `_Capture` whose graph is alive in the process, or None."""
+    holder = _alive() if _alive is not None else None
+    return holder if holder is not None and holder.graph is not None else None
+
+
+def _eager(run):
+    """run(), an eager step's call. Where it runs out of the card's memory
+    while a captured step's graph is alive, that graph is dropped, its pool
+    released and run called again."""
+    try:
+        return run()
+    except torch.cuda.OutOfMemoryError:
+        holder = _live()
+        if holder is None:
+            raise
+    # out of the handler: the failed call's tensors are freed with its traceback
+    holder.evict()
+    torch.cuda.empty_cache()
+    return run()
+
+
+class _Capture:
+    """Whether a train step's call replays, captures or runs eagerly
+    (module docstring), and the one graph it holds."""
+
+    def __init__(self):
+        self.graph = None
+        self.synced = {}       # signature -> whether its first call synced
+        self.dropped = {}      # signature -> "evicted" or "capture"
+        self.last = None       # the previous call's signature
+
+    def evict(self):
+        if self.graph is not None:
+            self.dropped[self.graph.sig] = "evicted"
+            self.graph = None
+
+    def __call__(self, compute, ts, images, labels, mask, s):
+        global _alive
+        sig = _signature(images, labels, mask)
+        last, self.last = self.last, sig
+        run = lambda: compute(ts, images, labels, mask, s)  # noqa: E731
+        if self.graph is not None and self.graph.sig == sig:
+            trace.count("train.replays")
+            return self.graph(ts, images, labels, mask, s)
+        if sig not in self.synced:
+            out, self.synced[sig] = _eager(lambda: _checking_syncs(run))
+            trace.count("train.eager.new")
+            return out
+        why = ("sync" if self.synced[sig] else self.dropped.get(sig)
+               or ("new" if last != sig else None))
+        if why is not None:
+            trace.count("train.eager." + why)
+            return _eager(run)
+        holder = _live()
+        if holder is not None:
+            holder.evict()
+        self.evict()
+        mode = torch.cuda.get_sync_debug_mode()
+        _set_sync_debug_mode(0)              # capture synchronizes on purpose
+        try:
+            torch.cuda.empty_cache()         # the dropped graph's pool
+            with trace.span("train.capture"):
+                self.graph = _StepGraph(compute, sig, ts, images, labels, mask, s)
+        except RuntimeError:
+            pass                             # the capture raised: eagerly below
+        finally:
+            _set_sync_debug_mode(mode)
+        if self.graph is None:
+            # out of the handler, so that what the failed capture held is freed
+            torch.cuda.empty_cache()
+            self.dropped[sig] = "capture"
+            trace.count("train.eager.capture")
+            return run()
+        _alive = weakref.ref(self)
+        trace.count("train.captures")
+        return self.graph(ts, images, labels, mask, s)
+
+
 def make_train_step(plan, loss_fn: Callable, opt_cfg: OptimConfig,
                     mesh=None, accumulate: int = 1,
                     compute_dtype=torch.bfloat16,
@@ -113,17 +357,22 @@ def make_train_step(plan, loss_fn: Callable, opt_cfg: OptimConfig,
     recomputed in the backward (`apply_model`), with the same numbers.
     metrics {"box", "obj", "cls", "total"}: 0-d
     tensors on the device. The step builds new trees and leaves `ts` as it
-    was.
+    was; nothing it returns is written by a later call.
 
     mesh: a process group: the batch arguments are this rank's slice of
     the global batch (the micro-batch axis leading, as above), loss_fn
     takes `group=` (the port's losses do), and the step is the global
     batch's (module docstring).
+
+    On a card, without a group or remat, a call whose inputs repeat the
+    previous call's shapes and dtypes replays a CUDA graph of the step
+    (module docstring, `_Capture`); its numbers are the eager step's.
     """
     if mesh is not None and not isinstance(mesh, dist.ProcessGroup):
         raise TypeError(f"mesh must be a torch.distributed process group, not "
                         f"{type(mesh).__name__}")
     built = {}
+    capture = _Capture()
 
     def loss_and_grad(params, state, images, labels, mask):
         ps = [t.detach().requires_grad_() for t in leaves(params)]
@@ -154,9 +403,28 @@ def make_train_step(plan, loss_fn: Callable, opt_cfg: OptimConfig,
         labels = torch.as_tensor(labels, dtype=torch.float32).to(dev, non_blocking=True)
         mask = torch.as_tensor(mask, dtype=torch.bool).to(dev, non_blocking=True)
         if "opt" not in built:
-            built["opt"] = make_optimizer(opt_cfg, ts.params)
-        _, opt_update = built["opt"]
+            built["opt"] = make_update(opt_cfg, ts.params)
+        opt_scalars, _ = built["opt"]
+        s, host = opt_scalars(ts.opt_state, lr_groups, momentum)
+        s["ema_d"], s["ema_1d"] = ema_scalars(ts.step + 1, ema_base)
+        eager = ("cpu" if dev.type != "cuda" else "mesh" if mesh is not None
+                 else "remat" if remat_prefix else None)
+        if eager is None:
+            out = capture(compute, ts, images, labels, mask, s)
+        else:
+            trace.count("train.eager." + eager)
+            run = lambda: compute(ts, images, labels, mask, s)  # noqa: E731
+            out = run() if mesh is not None else _eager(run)
+        params, state, slots, ema_params, ema_state, metrics = out
+        return TrainState(params, state, {**slots, **host}, ema_params, ema_state,
+                          ts.step + 1), metrics
 
+    def compute(ts, images, labels, mask, s):
+        """The step's device work: (params, BN state, the optimizer's tensor
+        slots, EMA params, EMA state, metrics) from the inputs on the
+        device and the step's numbers `s` (host numbers, or 0-d tensors
+        that hold them in a captured graph)."""
+        _, opt_apply = built["opt"]
         if accumulate > 1:
             grads, state_c, total, seq = None, ts.state, 0.0, []
             for a in range(accumulate):
@@ -167,7 +435,7 @@ def make_train_step(plan, loss_fn: Callable, opt_cfg: OptimConfig,
                 seq.append(items)
             new_state = state_c
             total = total / accumulate
-            items = {k: torch.stack([s[k] for s in seq]).mean() for k in seq[0]}
+            items = {k: torch.stack([it[k] for it in seq]).mean() for k in seq[0]}
         else:
             total, items, new_state, grads = loss_and_grad(ts.params, ts.state, images,
                                                            labels, mask)
@@ -182,8 +450,7 @@ def make_train_step(plan, loss_fn: Callable, opt_cfg: OptimConfig,
 
         grad_tree = rebuild(ts.params, grads)
         with trace.span("train.optim"):
-            new_params, new_opt = opt_update(ts.opt_state, ts.params, grad_tree,
-                                             lr_groups, momentum)
+            new_params, new_opt = opt_apply(ts.opt_state, ts.params, grad_tree, s)
             if freeze > 0:
                 # hard-freeze the first `freeze` layers: params and the "v"
                 # slot (reference --freeze, train.py:102-107)
@@ -194,11 +461,9 @@ def make_train_step(plan, loss_fn: Callable, opt_cfg: OptimConfig,
                     vl[li] = ts.opt_state["v"]["layers"][li]
                 new_params = {**new_params, "layers": pl}
                 new_opt = {**new_opt, "v": {**new_opt["v"], "layers": vl}}
-        step = ts.step + 1
         with trace.span("train.ema"):
-            ema_params = ema_update(ts.ema_params, new_params, step, ema_base)
-            ema_state = ema_update(ts.ema_state, new_state, step, ema_base)
-        new_ts = TrainState(new_params, new_state, new_opt, ema_params, ema_state, step)
-        return new_ts, {**items, "total": total}
+            ema_params = ema_mix(ts.ema_params, new_params, s["ema_d"], s["ema_1d"])
+            ema_state = ema_mix(ts.ema_state, new_state, s["ema_d"], s["ema_1d"])
+        return new_params, new_state, new_opt, ema_params, ema_state, {**items, "total": total}
 
     return train_step
